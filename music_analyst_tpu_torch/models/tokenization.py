@@ -1,0 +1,285 @@
+"""Tokenizers for the DistilBERT classifier.
+
+Counterpart of ``music_analyst_tpu/models/tokenization.py`` for the encoder
+path (the port keeps its own copy): a real WordPiece vocab (``vocab.txt``
+via path or ``$MUSICAAL_BERT_VOCAB``) gives exact DistilBERT tokenization;
+otherwise :class:`HashWordTokenizer` hashes words into the id space.  Hash
+ids are bit-identical to the JAX package's, so both packages feed their
+models the same ids.
+"""
+from __future__ import annotations
+
+import os
+import unicodedata
+from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
+
+_CJK_RANGES = (
+    (0x4E00, 0x9FFF), (0x3400, 0x4DBF), (0x20000, 0x2A6DF),
+    (0x2A700, 0x2B73F), (0x2B740, 0x2B81F), (0x2B820, 0x2CEAF),
+    (0xF900, 0xFAFF), (0x2F800, 0x2FA1F),
+)
+
+
+def _is_bert_punctuation(ch: str) -> bool:
+    """BERT treats the ASCII symbol ranges as punctuation in addition to
+    the Unicode P* categories (so ``$``, ``+``, `` ` `` split too)."""
+    cp = ord(ch)
+    if (33 <= cp <= 47 or 58 <= cp <= 64 or 91 <= cp <= 96
+            or 123 <= cp <= 126):
+        return True
+    return unicodedata.category(ch).startswith("P")
+
+
+def bert_basic_tokenize(text: str) -> List[str]:
+    """HF ``BertTokenizer``'s BasicTokenizer (``do_lower_case=True``),
+    reimplemented exactly.
+
+    Clean control chars (every C* category, like HF's ``_is_control``),
+    isolate CJK ideographs, whitespace-split, lowercase + strip accents
+    (NFD, drop combining marks), then split punctuation into single-char
+    tokens.  The real-weights path depends on byte-exact agreement with
+    the checkpoint's tokenizer — ``tests/test_wordpiece_differential.py``
+    pins the JAX copy against ``transformers.BertTokenizer`` and
+    ``tests/test_torch_tokenization.py`` holds this copy to the JAX one.
+    """
+    chars: List[str] = []
+    for ch in text:
+        cp = ord(ch)
+        cat = unicodedata.category(ch)
+        if ch in " \t\n\r" or cat == "Zs":
+            chars.append(" ")
+        elif cp == 0 or cp == 0xFFFD or cat.startswith("C"):
+            continue
+        elif any(lo <= cp <= hi for lo, hi in _CJK_RANGES):
+            chars.extend((" ", ch, " "))
+        else:
+            chars.append(ch)
+    tokens: List[str] = []
+    for token in "".join(chars).split():
+        token = token.lower()
+        token = unicodedata.normalize("NFD", token)
+        token = "".join(
+            c for c in token if unicodedata.category(c) != "Mn"
+        )
+        current: List[str] = []
+        for c in token:
+            if _is_bert_punctuation(c):
+                if current:
+                    tokens.append("".join(current))
+                    current = []
+                tokens.append(c)
+            else:
+                current.append(c)
+        if current:
+            tokens.append("".join(current))
+    return tokens
+
+
+class HashWordTokenizer:
+    """Deterministic word→id hashing into a fixed vocab space.
+
+    Tokenization spec (deliberately byte-level so the native C++ fast path
+    in ``native/ingest.cpp`` is exactly equivalent):
+
+    * ASCII A-Z lowercases; words are runs of ``[a-z0-9']`` bytes;
+    * ASCII whitespace separates; any other character — including each
+      multi-byte UTF-8 character — is its own single-character token;
+    * a word's id is ``reserved + FNV-1a(word bytes) % (vocab - reserved)``.
+    """
+
+    def __init__(
+        self,
+        vocab_size: int = 30522,
+        cls_id: int = 101,
+        sep_id: int = 102,
+        pad_id: int = 0,
+        reserved: int = 1000,
+    ) -> None:
+        if vocab_size < 16:
+            raise ValueError("vocab_size too small for special tokens")
+        self.vocab_size = vocab_size
+        # keep specials + reserved range inside small vocabs
+        self.cls_id = min(cls_id, vocab_size - 2)
+        self.sep_id = min(sep_id, vocab_size - 1)
+        self.pad_id = pad_id
+        self.reserved = min(reserved, vocab_size // 2)
+
+    def _hash_id(self, data: bytes) -> int:
+        h = 2166136261
+        for ch in data:
+            h = ((h ^ ch) * 16777619) & 0xFFFFFFFF
+        return self.reserved + (h % (self.vocab_size - self.reserved))
+
+    def _token_ids(self, text: str, max_tokens: int) -> List[int]:
+        data = text.encode("utf-8", errors="replace")
+        ids: List[int] = []
+        i, n = 0, len(data)
+        word_start = -1
+        while i < n and len(ids) < max_tokens:
+            b = data[i]
+            if 65 <= b <= 90:
+                b += 32  # ASCII lowercase
+            is_word = (97 <= b <= 122) or (48 <= b <= 57) or b == 0x27
+            if is_word:
+                if word_start < 0:
+                    word_start = i
+                i += 1
+                continue
+            if word_start >= 0:
+                ids.append(self._hash_id(data[word_start:i].lower()))
+                word_start = -1
+                if len(ids) >= max_tokens:
+                    break
+            if b in (0x20, 0x09, 0x0A, 0x0D, 0x0B, 0x0C):
+                i += 1
+                continue
+            # single character token (UTF-8 multi-byte steps as one char)
+            char_len = 1
+            if b >= 0xF0:
+                char_len = 4
+            elif b >= 0xE0:
+                char_len = 3
+            elif b >= 0xC0:
+                char_len = 2
+            ids.append(self._hash_id(data[i : i + char_len]))
+            i += char_len
+        if word_start >= 0 and len(ids) < max_tokens:
+            ids.append(self._hash_id(data[word_start:i].lower()))
+        return ids
+
+    def encode(self, text: str, max_len: int) -> Tuple[np.ndarray, int]:
+        ids = [self.cls_id] + self._token_ids(text, max_len - 2) + [self.sep_id]
+        length = len(ids)
+        out = np.full(max_len, self.pad_id, dtype=np.int32)
+        out[:length] = ids
+        return out, length
+
+    def encode_batch(
+        self, texts: Sequence[str], max_len: int
+    ) -> Tuple[np.ndarray, np.ndarray]:
+        batch = np.full((len(texts), max_len), self.pad_id, dtype=np.int32)
+        lengths = np.zeros(len(texts), dtype=np.int32)
+        for i, text in enumerate(texts):
+            row, n = self.encode(text, max_len)
+            batch[i] = row
+            lengths[i] = n
+        return batch, lengths
+
+
+class NativeHashTokenizer(HashWordTokenizer):
+    """C++-accelerated batch encoding with identical output."""
+
+    def encode_batch(
+        self, texts: Sequence[str], max_len: int
+    ) -> Tuple[np.ndarray, np.ndarray]:
+        from music_analyst_tpu_torch.data import native
+
+        if not native.available():
+            return super().encode_batch(texts, max_len)
+        return native.hash_tokenize_batch(
+            texts,
+            max_len,
+            vocab_size=self.vocab_size,
+            cls_id=self.cls_id,
+            sep_id=self.sep_id,
+            pad_id=self.pad_id,
+            reserved=self.reserved,
+        )
+
+
+class WordPieceTokenizer:
+    """Greedy longest-match-first WordPiece over a provided ``vocab.txt``.
+
+    Matches the BERT algorithm: basic whitespace+punctuation split,
+    lowercase, then greedy subword segmentation with ``##`` continuations;
+    unknown words map to ``[UNK]``.
+    """
+
+    SPECIAL_TOKENS = ("[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]")
+
+    def __init__(self, vocab_path: str, max_word_chars: int = 100) -> None:
+        import re
+
+        with open(vocab_path, encoding="utf-8") as fh:
+            self.vocab = {line.rstrip("\n"): i for i, line in enumerate(fh)}
+        self.pad_id = self.vocab.get("[PAD]", 0)
+        self.cls_id = self.vocab["[CLS]"]
+        self.sep_id = self.vocab["[SEP]"]
+        self.unk_id = self.vocab.get("[UNK]", 100)
+        self.max_word_chars = max_word_chars
+        self.vocab_size = len(self.vocab)
+        # HF passes never_split=all_special_tokens to its basic tokenizer:
+        # a literal "[MASK]" in the text stays one token (case-sensitive,
+        # anywhere in the string), it is not lowercased or punct-split.
+        self._specials = frozenset(
+            t for t in self.SPECIAL_TOKENS if t in self.vocab
+        )
+        self._special_re = (
+            re.compile("(" + "|".join(map(re.escape, self._specials)) + ")")
+            if self._specials else None
+        )
+
+    def _wordpiece(self, word: str) -> List[int]:
+        if len(word) > self.max_word_chars:
+            return [self.unk_id]
+        ids: List[int] = []
+        start = 0
+        while start < len(word):
+            end = len(word)
+            cur = None
+            while start < end:
+                piece = word[start:end]
+                if start > 0:
+                    piece = "##" + piece
+                if piece in self.vocab:
+                    cur = self.vocab[piece]
+                    break
+                end -= 1
+            if cur is None:
+                return [self.unk_id]
+            ids.append(cur)
+            start = end
+        return ids
+
+    def encode(self, text: str, max_len: int) -> Tuple[np.ndarray, int]:
+        ids: List[int] = [self.cls_id]
+        chunks = (
+            self._special_re.split(text) if self._special_re else [text]
+        )
+        for chunk in chunks:
+            if len(ids) >= max_len - 1:
+                break
+            if chunk in self._specials:
+                ids.append(self.vocab[chunk])
+                continue
+            for word in bert_basic_tokenize(chunk):
+                ids.extend(self._wordpiece(word))
+                if len(ids) >= max_len - 1:
+                    break
+        ids = ids[: max_len - 1] + [self.sep_id]
+        out = np.full(max_len, self.pad_id, dtype=np.int32)
+        out[: len(ids)] = ids
+        return out, len(ids)
+
+    def encode_batch(
+        self, texts: Sequence[str], max_len: int
+    ) -> Tuple[np.ndarray, np.ndarray]:
+        batch = np.full((len(texts), max_len), self.pad_id, dtype=np.int32)
+        lengths = np.zeros(len(texts), dtype=np.int32)
+        for i, text in enumerate(texts):
+            row, n = self.encode(text, max_len)
+            batch[i] = row
+            lengths[i] = n
+        return batch, lengths
+
+
+def resolve_bert_tokenizer(
+    vocab_path: Optional[str] = None, vocab_size: int = 30522
+):
+    """Best-available encoder tokenizer (WordPiece if a vocab is supplied)."""
+    path = vocab_path or os.environ.get("MUSICAAL_BERT_VOCAB")
+    if path and os.path.exists(path):
+        return WordPieceTokenizer(path)
+    return NativeHashTokenizer(vocab_size=vocab_size)
