@@ -33,8 +33,10 @@ def _add_sentiment(sub: argparse._SubParsersAction) -> None:
     p.add_argument("dataset")
     # Reference flags (scripts/sentiment_classifier.py:128-136)
     p.add_argument("--model", default="llama3",
-                   help="Model family: mock, distilbert[-tiny][-packed] "
-                        "(llama* is not yet ported)")
+                   help="Model family: mock, distilbert[-tiny][-packed], "
+                        "llama3[-8b|-tiny] (the 8B needs "
+                        "$MUSICAAL_LLAMA_CKPT; $MUSICAAL_CONTINUOUS_SLOTS "
+                        "selects continuous generation)")
     p.add_argument("--limit", type=int, default=None)
     p.add_argument("--output-dir", default="output")
     p.add_argument("--mock", action="store_true",

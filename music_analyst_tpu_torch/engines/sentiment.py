@@ -7,8 +7,10 @@ artifacts are written byte for byte: ``sentiment_totals.json``
 (label→count, 2-space JSON) and ``sentiment_details.csv``
 (``artist,song,label,latency_seconds`` with 4-decimal latency).
 
-Backends ported so far: ``mock`` (keyword-scan kernel) and ``distilbert*``
-(encoder classifier with the flash-attention kernel).  Residency,
+Backends ported so far: ``mock`` (keyword-scan kernel), ``distilbert*``
+(encoder classifier with the flash-attention kernel) and ``llama*``
+(zero-shot decoder; its continuous generation decodes through the
+paged-attention kernel).  Residency,
 failover, the watchdog and telemetry are not part of the port yet.
 """
 
@@ -141,13 +143,20 @@ def get_backend(
         return DistilBertClassifier.from_pretrained_or_random(
             model, device=device, **kwargs
         )
-    if model.startswith("llama") or model.startswith("ollama"):
+    if model.startswith("llama"):
+        from music_analyst_tpu_torch.models.llama import (
+            LlamaZeroShotClassifier,
+        )
+
+        return LlamaZeroShotClassifier.from_pretrained_or_random(
+            model, device=device, **kwargs
+        )
+    if model.startswith("ollama"):
         raise NotImplementedError(
-            f"model {model!r} is not yet ported to music_analyst_tpu_torch; "
-            "use --mock or --model distilbert[-tiny][-packed]"
+            f"model {model!r} is not yet ported to music_analyst_tpu_torch"
         )
     raise ValueError(
-        f"unknown model {model!r}: expected 'mock' or 'distilbert*'"
+        f"unknown model {model!r}: expected 'mock', 'distilbert*' or 'llama*'"
     )
 
 

@@ -47,6 +47,13 @@ _KERNELS = {
         "keyword_scan_fwd",
         [_P, ctypes.c_longlong, _I, _P, _P, _P, _I, _P, _P, _P],
     ),
+    "paged_attention": (
+        "paged_attention.cu",
+        "paged_attention_fwd",
+        [_P, _P, _P, _P, _P, _P, _P, _P,               # q kp vp ks vs tab mask o
+         _I, _I, _I, _I, _I, _I, _I, _I,               # n H n_kv D P pps total quant
+         ctypes.c_float, _P],                          # scale stream
+    ),
 }
 
 _lock = threading.Lock()

@@ -1,0 +1,776 @@
+"""Llama-3-style decoder LM and the zero-shot sentiment backend (PyTorch).
+
+Counterpart of ``music_analyst_tpu/models/llama.py``: pre-norm GQA decoder
+blocks (RMSNorm, RoPE with contiguous halves, SwiGLU), an explicit KV cache,
+and :class:`LlamaZeroShotClassifier`, which asks the model the reference's
+Ollama prompt (``PROMPT_TEMPLATE``, lyrics cut at 4,000 characters) and
+either scores the three label continuations (``decode_mode="score"``) or
+generates greedy text and normalises its first word
+(``decode_mode="generate"``; with ``continuous_slots`` through the paged
+continuous scheduler, ``serving/decode_loop.py``, whose decode attention
+is the paged CUDA kernel).
+
+Numerics follow Flax: the model computes in ``config.dtype`` (bf16) with
+f32 RMSNorm statistics and scales, and an f32 ``lm_head`` on f32
+activations.  Storing the bf16 weights in bf16 is the same arithmetic as
+Flax's f32 parameters cast to bf16 at use.  KV caches are bf16 whatever
+the model dtype, as in the JAX package.  The f32 ``lm_head`` assumes TF32
+is off for matmuls (PyTorch's default).
+
+Weights: ``load_hf_torch_checkpoint`` (an HF ``LlamaForCausalLM`` state
+dict, float weights), ``params_from_jax`` (a JAX parameter tree, for the
+parity tests), else seeded random weights drawn on the target device with
+the Flax initializers' distributions.  Not yet ported: weight / dynamic
+int8 quantization, MoE, the flash prefill and meshes.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+import os
+import warnings
+from typing import Dict, List, Mapping, Optional, Sequence
+
+import numpy as np
+import torch
+from torch import nn
+
+from music_analyst_tpu_torch.device import DeviceLike, resolve_device
+from music_analyst_tpu_torch.engines.sentiment import ClassifierBackend
+from music_analyst_tpu_torch.models.layers import (
+    KVCache,
+    MultiHeadAttention,
+    RMSNorm,
+    SwiGLU,
+    causal_mask,
+    padding_mask,
+)
+from music_analyst_tpu_torch.models.tokenization import (
+    ByteTokenizer,
+    resolve_llama_tokenizer,
+)
+from music_analyst_tpu_torch.utils.labels import SUPPORTED_LABELS, normalise_label
+from music_analyst_tpu_torch.utils.shapes import round_pow2
+
+# Reference prompt, scripts/sentiment_classifier.py:32-36.
+PROMPT_TEMPLATE = (
+    "You are an expert music analyst. Classify the overall sentiment of the "
+    "following song lyrics as one of the following labels: Positive, "
+    "Neutral, or Negative. Respond using only the label name with no "
+    "explanations.\n\nLyrics:\n{lyrics}\n"
+)
+LYRICS_TRUNCATION = 4000
+
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+@dataclasses.dataclass(frozen=True)
+class LlamaConfig:
+    vocab_size: int = 128_256
+    dim: int = 4096
+    n_layers: int = 32
+    n_heads: int = 32
+    n_kv_heads: int = 8
+    hidden_dim: int = 14_336
+    rope_theta: float = 500_000.0
+    max_seq_len: int = 8192
+    dtype: str = "bfloat16"
+    # Options of the JAX config that are not ported yet: a value other than
+    # the default raises in LlamaModel.
+    n_experts: int = 0
+    attn_impl: str = "dense"
+    quant: str = "none"
+    weight_quant: str = "none"
+
+    def __post_init__(self):
+        if self.weight_quant not in ("none", "int8", "int4"):
+            raise ValueError(
+                f"weight_quant must be none/int8/int4, got "
+                f"{self.weight_quant!r}"
+            )
+        if self.weight_quant != "none" and self.quant != "none":
+            raise ValueError(
+                "weight_quant and dynamic quant are mutually exclusive"
+            )
+        if self.dtype not in _DTYPES:
+            raise ValueError(f"dtype must be one of {sorted(_DTYPES)}")
+
+    @property
+    def torch_dtype(self) -> torch.dtype:
+        return _DTYPES[self.dtype]
+
+    @property
+    def head_dim(self) -> int:
+        return self.dim // self.n_heads
+
+    @classmethod
+    def llama3_8b(cls) -> "LlamaConfig":
+        return cls()
+
+    @classmethod
+    def tiny(cls, **overrides) -> "LlamaConfig":
+        """Byte-vocab smoke config: same topology, laptop-sized."""
+        return cls(**{**dict(
+            vocab_size=512, dim=128, n_layers=2, n_heads=8, n_kv_heads=4,
+            hidden_dim=256, rope_theta=10_000.0, max_seq_len=2048,
+        ), **overrides})
+
+
+PRESETS = {
+    "llama3": LlamaConfig.llama3_8b,
+    "llama3-8b": LlamaConfig.llama3_8b,
+    "llama3-tiny": LlamaConfig.tiny,
+    "llama-tiny": LlamaConfig.tiny,
+}
+
+
+def _check_ported(cfg: LlamaConfig) -> None:
+    for what, on in (
+        ("weight_quant", cfg.weight_quant != "none"),
+        ("dynamic int8 quant", cfg.quant != "none"),
+        ("MoE (n_experts > 0)", cfg.n_experts > 0),
+        ("the flash prefill (attn_impl='flash')", cfg.attn_impl != "dense"),
+    ):
+        if on:
+            raise NotImplementedError(
+                f"Llama {what} is not yet ported to music_analyst_tpu_torch"
+            )
+
+
+class LlamaBlock(nn.Module):
+    def __init__(self, cfg: LlamaConfig) -> None:
+        super().__init__()
+        dtype = cfg.torch_dtype
+        self.attention = MultiHeadAttention(
+            cfg.dim, cfg.n_heads, attn_impl="dense", use_bias=False,
+            dtype=dtype, n_kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim,
+            use_rope=True, rope_theta=cfg.rope_theta,
+            max_positions=cfg.max_seq_len,
+        )
+        self.attention_norm = RMSNorm(cfg.dim)
+        self.ffn_norm = RMSNorm(cfg.dim)
+        self.feed_forward = SwiGLU(cfg.dim, cfg.hidden_dim, dtype=dtype)
+
+    def forward(self, x, mask, positions, cache=None):
+        h = self.attention_norm(x)
+        new_cache = None
+        if cache is not None:
+            attn_out, new_cache = self.attention(
+                h, mask=mask, positions=positions, cache=cache)
+        else:
+            attn_out = self.attention(h, mask=mask, positions=positions)
+        x = x + attn_out
+        x = x + self.feed_forward(self.ffn_norm(x))
+        return x, new_cache
+
+
+class LlamaModel(nn.Module):
+    """Token ids ``[B, S]`` → f32 logits; ``mask`` is a bool array
+    broadcastable to ``[B, H, S, KV]``.  With ``caches`` (one per layer:
+    ``KVCache`` or ``PagedAttnView``) returns the advanced caches too.
+    ``last_position [B]`` keeps one position per row before the vocab
+    projection (``[B, 1, V]``): prefill callers read only the last prompt
+    logits, and ``[B, S, V]`` in f32 is the largest tensor of the model."""
+
+    def __init__(self, cfg: LlamaConfig) -> None:
+        super().__init__()
+        _check_ported(cfg)
+        self.config = cfg
+        self.tok_embeddings = nn.Embedding(cfg.vocab_size, cfg.dim,
+                                           dtype=cfg.torch_dtype)
+        self.layers = nn.ModuleList(LlamaBlock(cfg) for _ in range(cfg.n_layers))
+        self.norm = RMSNorm(cfg.dim)
+        self.lm_head = nn.Linear(cfg.dim, cfg.vocab_size, bias=False,
+                                 dtype=torch.float32)
+
+    def forward(self, token_ids, positions, mask, caches=None,
+                last_position=None):
+        x = self.tok_embeddings(token_ids.long())
+        new_caches = []
+        for i, layer in enumerate(self.layers):
+            x, new_cache = layer(x, mask, positions,
+                                 caches[i] if caches is not None else None)
+            if new_cache is not None:
+                new_caches.append(new_cache)
+        x = self.norm(x)
+        if last_position is not None:
+            idx = last_position.long()[:, None, None].expand(-1, 1, x.shape[-1])
+            x = torch.gather(x, 1, idx)
+        logits = self.lm_head(x.float())
+        return logits, (new_caches if caches is not None else None)
+
+
+def init_caches(cfg: LlamaConfig, batch: int, max_len: int,
+                dtype: torch.dtype = torch.bfloat16, device=None
+                ) -> List[KVCache]:
+    return [
+        KVCache.zeros(batch, max_len, cfg.n_kv_heads, cfg.head_dim, dtype,
+                      device=device)
+        for _ in range(cfg.n_layers)
+    ]
+
+
+@torch.no_grad()
+def init_random_(model: LlamaModel, seed: int) -> None:
+    """Seeded random weights with the Flax initializers' distributions,
+    drawn on the parameters' own device from one generator: embeddings
+    N(0, 1/dim); projections ``lecun_normal`` (normal truncated at two
+    standard deviations, std sqrt(1/fan_in) / 0.8796); RMSNorm scales 1.
+    Each tensor is drawn in f32 and then stored in its parameter's dtype,
+    one parameter at a time, so no f32 copy of the whole model exists."""
+    device = next(model.parameters()).device
+    gen = torch.Generator(device=device).manual_seed(seed)
+    for name, param in model.named_parameters():
+        if name.endswith("norm.weight"):
+            param.fill_(1.0)
+            continue
+        value = torch.empty(param.shape, dtype=torch.float32, device=device)
+        if name == "tok_embeddings.weight":
+            value.normal_(0.0, param.shape[1] ** -0.5, generator=gen)
+        else:
+            nn.init.trunc_normal_(value, 0.0, 1.0, -2.0, 2.0, generator=gen)
+            fan_in = param.shape[1]         # nn.Linear weights: [out, in]
+            value.mul_(math.sqrt(1.0 / fan_in) / 0.87962566103423978)
+        param.copy_(value)
+        del value
+
+
+def params_from_jax(tree: Mapping) -> Dict[str, np.ndarray]:
+    """Map the JAX ``LlamaModel`` parameter tree (numpy leaves) onto this
+    model's ``state_dict``: Flax ``[in, out]`` kernels transpose to torch
+    ``[out, in]``; ``q/k/v_proj`` kernels ``[dim, H, Dh]`` and ``o_proj``
+    ``[H, Dh, dim]`` flatten their head axes."""
+    def a(x):
+        return np.asarray(x, dtype=np.float32)
+
+    out: Dict[str, np.ndarray] = {
+        "tok_embeddings.weight": a(tree["tok_embeddings"]["embedding"]),
+        "norm.weight": a(tree["norm"]["scale"]),
+        "lm_head.weight": a(tree["lm_head"]["kernel"]).T.copy(),
+    }
+    n_layers = sum(1 for k in tree if k.startswith("layer_"))
+    for i in range(n_layers):
+        src = tree[f"layer_{i}"]
+        dst = f"layers.{i}"
+        att = src["attention"]
+        for proj in ("q_proj", "k_proj", "v_proj"):
+            kernel = a(att[proj]["kernel"])
+            out[f"{dst}.attention.{proj}.weight"] = (
+                kernel.reshape(kernel.shape[0], -1).T.copy())
+        o = a(att["o_proj"]["kernel"])
+        out[f"{dst}.attention.o_proj.weight"] = o.reshape(-1, o.shape[-1]).T.copy()
+        out[f"{dst}.attention_norm.weight"] = a(src["attention_norm"]["scale"])
+        out[f"{dst}.ffn_norm.weight"] = a(src["ffn_norm"]["scale"])
+        for lin in ("gate_proj", "up_proj", "down_proj"):
+            out[f"{dst}.feed_forward.{lin}.weight"] = (
+                a(src["feed_forward"][lin]["kernel"]).T.copy())
+    return out
+
+
+def load_torch_state_dict(path: str) -> dict:
+    """Merge a ``pytorch_model.bin``-style file or a directory of shards
+    (``pytorch_model*.bin`` / ``*.pt``) into one raw state dict."""
+    if os.path.isdir(path):
+        names = sorted(os.listdir(path))
+        shards = [n for n in names
+                  if n.startswith("pytorch_model") and n.endswith(".bin")]
+        if not shards:
+            shards = [n for n in names
+                      if n.endswith((".bin", ".pt"))
+                      and n not in ("training_args.bin", "optimizer.pt",
+                                    "scheduler.pt", "rng_state.pth")]
+        shards = [os.path.join(path, n) for n in shards]
+        if not shards:
+            raise FileNotFoundError(f"no *.bin/*.pt weight shards under {path}")
+    else:
+        shards = [path]
+    sd = {}
+    for shard in shards:
+        try:
+            loaded = torch.load(shard, map_location="cpu", weights_only=True)
+        except Exception as exc:
+            raise RuntimeError(f"failed to load shard {shard}") from exc
+        if isinstance(loaded, dict):
+            sd.update(loaded)
+    if not sd:
+        raise ValueError(f"no tensors found in {path} — not a torch state_dict?")
+    return sd
+
+
+_HF_RENAMES = (
+    ("embed_tokens.", "tok_embeddings."),
+    (".self_attn.", ".attention."),
+    (".input_layernorm.", ".attention_norm."),
+    (".post_attention_layernorm.", ".ffn_norm."),
+    (".mlp.", ".feed_forward."),
+)
+
+
+@torch.no_grad()
+def load_hf_torch_checkpoint(model: LlamaModel, path: str) -> None:
+    """Load an HF ``LlamaForCausalLM`` torch state dict (float weights)
+    into ``model``.  HF's ``[out, in]`` layout is this module's, and HF's
+    ``rotate_half`` RoPE is :func:`apply_rope`'s, so only names change.  A
+    checkpoint without ``lm_head.weight`` ties it to the embeddings.
+    Every parameter must be filled and every tensor consumed."""
+    sd = load_torch_state_dict(path)
+    mapped = {}
+    for key, value in sd.items():
+        if key.endswith("rotary_emb.inv_freq"):
+            continue
+        new = key[len("model."):] if key.startswith("model.") else key
+        for old, rep in _HF_RENAMES:
+            new = new.replace(old, rep)
+        mapped[new] = value
+    if "lm_head.weight" not in mapped and "tok_embeddings.weight" in mapped:
+        mapped["lm_head.weight"] = mapped["tok_embeddings.weight"]
+    params = dict(model.named_parameters())
+    embed = mapped.get("tok_embeddings.weight")
+    want = tuple(params["tok_embeddings.weight"].shape)
+    if embed is not None and tuple(embed.shape) != want:
+        raise ValueError(
+            f"checkpoint embed_tokens is {tuple(embed.shape)} but the model "
+            f"config expects {want} — config (vocab_size/dim) doesn't match "
+            "the checkpoint"
+        )
+    leftovers = set(mapped) - set(params)
+    missing = set(params) - set(mapped)
+    if leftovers or missing:
+        raise ValueError(
+            "checkpoint does not match the Llama mapping: unconsumed "
+            f"{sorted(leftovers)[:8]}, missing {sorted(missing)[:8]}"
+        )
+    for name, param in params.items():
+        value = mapped[name]
+        if not value.is_floating_point():
+            raise TypeError(f"{name}: float weights only, got {value.dtype}")
+        param.copy_(value.to(torch.float32))
+
+
+class LlamaZeroShotClassifier(ClassifierBackend):
+    """Zero-shot sentiment over the decoder LM on one device."""
+
+    name = "llama"
+
+    def __init__(
+        self,
+        config: Optional[LlamaConfig] = None,
+        checkpoint_path: Optional[str] = None,
+        max_prompt_len: int = 1024,
+        mesh=None,
+        seed: int = 0,
+        decode_mode: str = "score",
+        continuous_slots: Optional[int] = None,
+        device: DeviceLike = "cuda",
+        state_dict: Optional[Mapping[str, np.ndarray]] = None,
+    ) -> None:
+        if decode_mode not in ("score", "generate"):
+            raise ValueError(
+                f"decode_mode must be 'score' or 'generate', got "
+                f"{decode_mode!r}"
+            )
+        if mesh is not None:
+            raise NotImplementedError(
+                "meshes (tensor parallelism) are not yet ported to "
+                "music_analyst_tpu_torch"
+            )
+        self.decode_mode = decode_mode
+        # > 0 routes batch generation through the continuous paged
+        # scheduler at that slot count; $MUSICAAL_CONTINUOUS_SLOTS is the
+        # fallback, as in the JAX package.
+        if continuous_slots is None:
+            env = os.environ.get("MUSICAAL_CONTINUOUS_SLOTS", "").strip()
+            if env:
+                try:
+                    continuous_slots = int(env)
+                except ValueError:
+                    raise ValueError(
+                        f"MUSICAAL_CONTINUOUS_SLOTS must be an integer, "
+                        f"got {env!r}"
+                    ) from None
+        self.continuous_slots = int(continuous_slots or 0)
+        self._slot_schedulers: dict = {}
+        self.device = resolve_device(device)
+        self.config = config or LlamaConfig.tiny()
+        _check_ported(self.config)
+        self.max_prompt_len = max_prompt_len
+        self.tokenizer = resolve_llama_tokenizer(self.config.vocab_size)
+        if self.tokenizer.vocab_size > self.config.vocab_size:
+            message = (
+                f"tokenizer vocab ({self.tokenizer.vocab_size}) exceeds "
+                f"model vocab ({self.config.vocab_size})"
+            )
+            if checkpoint_path:
+                raise ValueError(message)
+            warnings.warn(message + "; out-of-range ids will fail",
+                          stacklevel=2)
+        with torch.device("meta"):
+            model = LlamaModel(self.config)
+        model = model.to_empty(device=self.device)
+        self.pretrained = False
+        if state_dict is not None:
+            with torch.no_grad():
+                model.load_state_dict(
+                    {k: torch.tensor(np.asarray(v))
+                     for k, v in state_dict.items()})
+        elif checkpoint_path:
+            load_hf_torch_checkpoint(model, checkpoint_path)
+            self.pretrained = True
+        else:
+            init_random_(model, seed)
+        self.model = model.eval().requires_grad_(False)
+        if self.pretrained and isinstance(self.tokenizer, ByteTokenizer):
+            warnings.warn(
+                "real checkpoint loaded but no matching tokenizer found "
+                "— byte-level ids won't line up with the checkpoint's "
+                "BPE vocabulary; set MUSICAAL_LLAMA_TOKENIZER to the "
+                "checkpoint's tokenizer directory for meaningful labels",
+                stacklevel=2,
+            )
+        # Label continuations, padded to one length 8 (scored as a batch).
+        bos_id = getattr(self.tokenizer, "bos_id", None)
+        label_rows, label_lens = [], []
+        for label in SUPPORTED_LABELS:
+            row, n = self.tokenizer.encode(label, 16)
+            skip = 1 if (n > 0 and bos_id is not None and row[0] == bos_id) else 0
+            label_rows.append(row[skip:skip + 8])
+            label_lens.append(min(n - skip, 8))
+        self._label_ids = np.stack(label_rows)
+        self._label_lens = np.array(label_lens, dtype=np.int32)
+
+    @classmethod
+    def from_pretrained_or_random(cls, model: str, **kwargs):
+        """Resolve ``--model llama3[-8b|-tiny]`` / ``llama-tiny``.  The
+        checkpoint comes from ``checkpoint_path`` or ``$MUSICAAL_LLAMA_CKPT``;
+        the 8B presets refuse to run without one (random 8B weights are
+        for ``chip_smoke.py``, which builds the classifier directly)."""
+        if model.endswith("-int8"):
+            raise NotImplementedError(
+                "the -int8 Llama path is not yet ported to "
+                "music_analyst_tpu_torch"
+            )
+        preset = PRESETS.get(model)
+        if preset is None:
+            raise ValueError(
+                f"unknown llama preset {model!r}; options: {sorted(PRESETS)}"
+            )
+        config = kwargs.pop("config", None) or preset()
+        if (kwargs.pop("weight_quant", "none") or "none") != "none":
+            raise NotImplementedError(
+                "weight_quant is not yet ported to music_analyst_tpu_torch"
+            )
+        ckpt = kwargs.pop("checkpoint_path", None) or os.environ.get(
+            "MUSICAAL_LLAMA_CKPT"
+        )
+        if model in ("llama3", "llama3-8b") and not ckpt:
+            raise RuntimeError(
+                "llama3-8b needs a checkpoint (set MUSICAAL_LLAMA_CKPT); use "
+                "--model llama3-tiny for smoke runs or --mock for the "
+                "keyword kernel"
+            )
+        return cls(config=config, checkpoint_path=ckpt, **kwargs)
+
+    # ------------------------------------------------------------ prompts
+
+    def _trim_prompt_pad(self, ids, lens):
+        """Cut tokenizer padding to the smallest power of two (floor 64)
+        that covers the batch's longest prompt, capped at
+        ``max_prompt_len``; padding is masked either way."""
+        longest = int(lens.max()) if len(lens) else 1
+        width = min(round_pow2(longest, 64), self.max_prompt_len)
+        return ids[:, :width], lens
+
+    def _prompts(self, texts: Sequence[str]) -> List[str]:
+        return [PROMPT_TEMPLATE.format(lyrics=t.strip()[:LYRICS_TRUNCATION])
+                for t in texts]
+
+    def _encode_prompts(self, texts: Sequence[str]):
+        ids, lens = self.tokenizer.encode_batch(self._prompts(texts),
+                                                self.max_prompt_len)
+        return self._trim_prompt_pad(ids, lens)
+
+    def _tensor(self, array, dtype=torch.int64) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(array), dtype=dtype,
+                               device=self.device)
+
+    # -------------------------------------------------------------- score
+
+    @torch.no_grad()
+    def score_labels(self, prompt_ids: torch.Tensor,
+                     prompt_lens: torch.Tensor) -> torch.Tensor:
+        """Length-normalised log-likelihood ``[B, 3]`` of each label
+        continuation after each prompt: one prompt prefill, then one
+        teacher-forced pass per label over the prompt's cache."""
+        cfg = self.config
+        B, S = prompt_ids.shape
+        label_ids = self._tensor(self._label_ids)
+        label_lens = self._tensor(self._label_lens)
+        L = label_ids.shape[1]
+        dev = prompt_ids.device
+        lens = prompt_lens.long()
+        positions = torch.arange(S, device=dev).expand(B, S)
+        pad = padding_mask(lens, S)
+        pad = torch.cat([pad, torch.zeros(B, 1, 1, L, dtype=torch.bool,
+                                          device=dev)], dim=-1)
+        mask = causal_mask(S, S + L, 0, device=dev) & pad
+        caches = init_caches(cfg, B, S + L, device=dev)
+        logits, caches = self.model(prompt_ids, positions, mask, caches,
+                                    last_position=lens - 1)
+        caches = [KVCache(c.keys, c.values, S) for c in caches]
+        first_logp = torch.log_softmax(logits[:, 0], dim=-1)
+        kv_pos = torch.arange(S + L, device=dev)[None, None, None, :]
+        prompt_part = kv_pos < lens[:, None, None, None]
+        label_part = (kv_pos >= S) & (
+            kv_pos - S <= torch.arange(L, device=dev)[None, None, :, None])
+        mask2 = prompt_part | label_part
+        pos = lens[:, None] + torch.arange(L, device=dev)[None, :]
+        idx = torch.arange(L - 1, device=dev)[None, :]
+        scores = []
+        for j in range(label_ids.shape[0]):
+            lab = label_ids[j][None, :].expand(B, L)
+            # The label pass writes cache rows S..S+L in place before it
+            # attends to them, so each label starts from the prompt's cache.
+            logits2, _ = self.model(lab, pos, mask2, caches)
+            logp_all = torch.log_softmax(logits2, dim=-1)
+            first_lp = first_logp.gather(1, lab[:, :1])[:, 0]
+            rest_lp = logp_all[:, :-1].gather(2, lab[:, 1:, None])[:, :, 0]
+            rest_lp = torch.where(idx < label_lens[j] - 1, rest_lp,
+                                  torch.zeros_like(rest_lp))
+            total = first_lp + rest_lp.sum(dim=1)
+            scores.append(total / label_lens[j].clamp(min=1).float())
+        return torch.stack(scores, dim=1)
+
+    def classify_batch(self, texts: Sequence[str]) -> List[str]:
+        if self.decode_mode == "generate":
+            return self.classify_batch_by_generation(texts)
+        if not len(texts):
+            return []
+        ids, lens = self._encode_prompts(texts)
+        scores = self.score_labels(self._tensor(ids), self._tensor(lens))
+        best = scores.argmax(dim=1).cpu().numpy()
+        return ["Neutral" if not text.strip() else SUPPORTED_LABELS[int(i)]
+                for text, i in zip(texts, best)]
+
+    # ----------------------------------------------------------- generate
+
+    @torch.no_grad()
+    def generate(self, prompt: str, max_new_tokens: int = 16) -> str:
+        """Greedy generation of one prompt, one step per token (the
+        reference-semantics path and the differential oracle)."""
+        ids, lens = self.tokenizer.encode_batch([prompt], self.max_prompt_len)
+        S = self.max_prompt_len
+        n = int(lens[0])
+        dev = self.device
+        caches = init_caches(self.config, 1, S + max_new_tokens, device=dev)
+        pad = torch.cat([padding_mask(self._tensor(lens), S),
+                         torch.zeros(1, 1, 1, max_new_tokens,
+                                     dtype=torch.bool, device=dev)], dim=-1)
+        mask = causal_mask(S, S + max_new_tokens, 0, device=dev) & pad
+        logits, caches = self.model(
+            self._tensor(ids), torch.arange(S, device=dev)[None, :], mask,
+            caches, last_position=self._tensor(lens) - 1)
+        caches = [KVCache(c.keys, c.values, n) for c in caches]
+        token = logits[:, 0].argmax(dim=-1)
+        eos = getattr(self.tokenizer, "eos_id", ByteTokenizer.EOS)
+        kv_pos = torch.arange(S + max_new_tokens, device=dev)[None, None, None, :]
+        out_tokens: List[int] = []
+        position = n
+        for _ in range(max_new_tokens):
+            out_tokens.append(int(token[0]))
+            if out_tokens[-1] == eos:
+                break
+            pos = torch.full((1, 1), position, dtype=torch.long, device=dev)
+            logits, caches = self.model(token[:, None], pos,
+                                        kv_pos <= position, caches)
+            token = logits[:, -1].argmax(dim=-1)
+            position += 1
+        return self.tokenizer.decode(out_tokens)
+
+    @torch.no_grad()
+    def _generate_tokens(self, prompts: Sequence[str], max_new_tokens: int = 16,
+                        early_exit: bool = True) -> np.ndarray:
+        """Static batched greedy decode: ``[B, max_new_tokens]`` token ids,
+        EOS after a row's end.  Row ``b``'s decode token ``t`` sits in cache
+        slot ``S + t`` at position ``len_b + t``.  ``early_exit`` stops
+        once every row has emitted EOS, checked every 8 steps; the skipped
+        steps would have emitted EOS, so the output is the same."""
+        ids, lens = self.tokenizer.encode_batch(prompts, self.max_prompt_len)
+        ids, lens = self._trim_prompt_pad(ids, lens)
+        dev = self.device
+        B, S = ids.shape
+        total = S + max_new_tokens
+        lens_t = self._tensor(lens)
+        pad = torch.cat([padding_mask(lens_t, S),
+                         torch.zeros(B, 1, 1, max_new_tokens,
+                                     dtype=torch.bool, device=dev)], dim=-1)
+        mask = causal_mask(S, total, 0, device=dev) & pad
+        caches = init_caches(self.config, B, total, device=dev)
+        logits, caches = self.model(
+            self._tensor(ids), torch.arange(S, device=dev).expand(B, S), mask,
+            caches, last_position=lens_t - 1)
+        caches = [KVCache(c.keys, c.values, S) for c in caches]
+        eos = int(self.tokenizer.eos_id)
+        token = logits[:, 0].argmax(dim=-1)
+        done = token == eos
+        kv_pos = torch.arange(total, device=dev)[None, None, None, :]
+        prompt_part = kv_pos < lens_t[:, None, None, None]
+        out = torch.full((max_new_tokens, B), eos, dtype=torch.long, device=dev)
+        seg = min(8, max_new_tokens)
+        for t in range(max_new_tokens):
+            if early_exit and t % seg == 0 and bool(done.all()):
+                break
+            decode_part = (kv_pos >= S) & (kv_pos - S <= t)
+            lg, caches = self.model(token[:, None], (lens_t + t)[:, None],
+                                    prompt_part | decode_part, caches)
+            nxt = lg[:, -1].argmax(dim=-1)
+            done = done | (token == eos)
+            out[t] = token
+            token = torch.where(done, torch.full_like(nxt, eos), nxt)
+        return out.T.cpu().numpy()
+
+    def _decode_rows(self, tokens: np.ndarray) -> List[str]:
+        eos = self.tokenizer.eos_id
+        outs = []
+        for row in tokens:
+            ids_out = []
+            for t in row:
+                if t == eos:
+                    break
+                ids_out.append(int(t))
+            outs.append(self.tokenizer.decode(ids_out))
+        return outs
+
+    def generate_batch(self, prompts: Sequence[str], max_new_tokens: int = 16,
+                       early_exit: bool = True) -> List[str]:
+        """Greedy generation for a whole static batch."""
+        if not prompts:
+            return []
+        return self._decode_rows(
+            self._generate_tokens(prompts, max_new_tokens, early_exit))
+
+    # --------------------------------------------------------- continuous
+
+    def paged_runtime(
+        self,
+        n_slots: int = 8,
+        prefill_chunk: int = 64,
+        max_new_tokens: int = 16,
+        prompt_region: Optional[int] = None,
+        decode_span: int = 4,
+        page_size: int = 16,
+        kv_pages: int = 0,
+        kv_quant: str = "none",
+    ):
+        """The paged decode runtime for this model (``ops/kv_pages.py``):
+        the region is rounded to a multiple of the chunk and the page, and
+        ``kv_pages=0`` sizes the pool to one full sequence per slot."""
+        from music_analyst_tpu_torch.ops.kv_pages import (
+            PagedDecodeRuntime,
+            PagePlan,
+        )
+
+        chunk = max(1, min(int(prefill_chunk), self.max_prompt_len))
+        if prompt_region is None:
+            prompt_region = self.max_prompt_len
+        region = min(int(prompt_region), self.max_prompt_len)
+        region = max(chunk, chunk * ((region + chunk - 1) // chunk))
+        page = min(round_pow2(max(1, int(page_size)), 1), region)
+        unit = math.lcm(chunk, page)
+        region = unit * ((region + unit - 1) // unit)
+        pages_per_slot = region // page + -(-int(max_new_tokens) // page)
+        n_pages = int(kv_pages) or int(n_slots) * pages_per_slot
+        n_pages = max(n_pages, int(n_slots), pages_per_slot)
+        plan = PagePlan(
+            n_slots=int(n_slots), prefill_chunk=chunk, prompt_region=region,
+            max_new=int(max_new_tokens), decode_span=int(decode_span),
+            page_size=page, n_pages=n_pages,
+        )
+        eos_id = getattr(self.tokenizer, "eos_id", ByteTokenizer.EOS)
+        return PagedDecodeRuntime(self.model, self.config, plan, eos_id,
+                                  kv_quant=kv_quant)
+
+    def generate_batch_continuous(
+        self,
+        prompts: Sequence[str],
+        max_new_tokens: int = 16,
+        n_slots: Optional[int] = None,
+        prefill_chunk: int = 64,
+        decode_span: int = 4,
+        budgets: Optional[Sequence[int]] = None,
+        page_size: Optional[int] = None,
+        kv_pages: Optional[int] = None,
+        kv_quant: Optional[str] = None,
+        prefix_cache: bool = True,
+        speculate_k: Optional[int] = None,
+    ) -> List[str]:
+        """Greedy generation through the continuous paged scheduler,
+        synchronously: admit → chunked prefill (prefix-shared pages) →
+        decode slots.  The prompt region is the static path's padded
+        width, so the KV geometry (and on the CPU every greedy token)
+        matches :meth:`generate_batch`.  One scheduler per geometry is
+        kept for reuse."""
+        from music_analyst_tpu_torch.serving.decode_loop import (
+            ContinuousScheduler,
+        )
+
+        if speculate_k:
+            raise NotImplementedError(
+                "speculative decoding is not yet ported to "
+                "music_analyst_tpu_torch"
+            )
+        if not prompts:
+            return []
+        n_slots = int(n_slots or self.continuous_slots or 8)
+        budgets = ([int(b) for b in budgets] if budgets is not None
+                   else [int(max_new_tokens)] * len(prompts))
+        if len(budgets) != len(prompts):
+            raise ValueError("budgets must match prompts 1:1")
+        _, lens = self.tokenizer.encode_batch(prompts, self.max_prompt_len)
+        longest = int(lens.max()) if len(lens) else 1
+        region = min(round_pow2(longest, 64), self.max_prompt_len)
+        chunk = min(int(prefill_chunk), region)
+        cap = max(1, max(budgets))
+        key = (n_slots, chunk, region, cap, int(decode_span), page_size,
+               kv_pages, kv_quant, bool(prefix_cache))
+        sched = self._slot_schedulers.get(key)
+        if sched is None:
+            sched = ContinuousScheduler(
+                self, n_slots=n_slots, prefill_chunk=chunk,
+                prompt_region=region, max_new_tokens=cap,
+                decode_span=int(decode_span),
+                max_queue=max(len(prompts), 64), page_size=page_size,
+                kv_pages=kv_pages, kv_quant=kv_quant,
+                prefix_cache=prefix_cache,
+            )
+            self._slot_schedulers[key] = sched
+        reqs = [sched.submit(i, prompt, max_new_tokens=budget)
+                for i, (prompt, budget) in enumerate(zip(prompts, budgets))]
+        sched.run_until_idle()
+        outs = []
+        for req in reqs:
+            resp = req.response or {}
+            if not resp.get("ok"):
+                raise RuntimeError(
+                    f"continuous generation failed for prompt {req.id}: "
+                    f"{resp.get('error', 'unknown error')}"
+                )
+            outs.append(resp["text"])
+        return outs
+
+    def classify_by_generation(self, text: str) -> str:
+        """Reference semantics: generate text, normalise its first word."""
+        return normalise_label(self.generate(self._prompts([text])[0]))
+
+    def classify_batch_by_generation(self, texts: Sequence[str]) -> List[str]:
+        """Reference generation semantics at batch speed: greedy decode of
+        16 tokens (continuous when ``continuous_slots`` is set), then the
+        shared label normaliser; empty lyrics are ``Neutral``."""
+        prompts = self._prompts(texts)
+        if self.continuous_slots:
+            generations = self.generate_batch_continuous(
+                prompts, max_new_tokens=16, n_slots=self.continuous_slots)
+        else:
+            generations = self.generate_batch(prompts, max_new_tokens=16)
+        return ["Neutral" if not text.strip() else normalise_label(gen)
+                for text, gen in zip(texts, generations)]

@@ -1,11 +1,14 @@
-"""Tokenizers for the DistilBERT classifier.
+"""Tokenizers for the DistilBERT classifier and the Llama decoder.
 
-Counterpart of ``music_analyst_tpu/models/tokenization.py`` for the encoder
-path (the port keeps its own copy): a real WordPiece vocab (``vocab.txt``
-via path or ``$MUSICAAL_BERT_VOCAB``) gives exact DistilBERT tokenization;
-otherwise :class:`HashWordTokenizer` hashes words into the id space.  Hash
-ids are bit-identical to the JAX package's, so both packages feed their
-models the same ids.
+Counterpart of ``music_analyst_tpu/models/tokenization.py`` (the port keeps
+its own copy).  Encoder: a real WordPiece vocab (``vocab.txt`` via path or
+``$MUSICAAL_BERT_VOCAB``) gives exact DistilBERT tokenization; otherwise
+:class:`HashWordTokenizer` hashes words into the id space.  Hash ids are
+bit-identical to the JAX package's, so both packages feed their models the
+same ids.  Decoder: a local HF tokenizer directory
+(``$MUSICAAL_LLAMA_TOKENIZER``) gives Llama-3 BPE; otherwise
+:class:`ByteTokenizer` (UTF-8 bytes plus three specials) keeps the decoder
+runnable offline, with the JAX package's ids.
 """
 from __future__ import annotations
 
@@ -283,3 +286,92 @@ def resolve_bert_tokenizer(
     if path and os.path.exists(path):
         return WordPieceTokenizer(path)
     return NativeHashTokenizer(vocab_size=vocab_size)
+
+
+class ByteTokenizer:
+    """UTF-8 bytes + specials: the offline tokenizer for the decoder LM."""
+
+    PAD, BOS, EOS = 256, 257, 258
+
+    def __init__(self, vocab_size: int = 512) -> None:
+        if vocab_size < 259:
+            raise ValueError("vocab_size must cover 256 bytes + 3 specials")
+        self.vocab_size = vocab_size
+        self.pad_id = self.PAD
+        self.bos_id = self.BOS
+        self.eos_id = self.EOS
+
+    def encode(self, text: str, max_len: int) -> Tuple[np.ndarray, int]:
+        data = text.encode("utf-8")[: max_len - 1]
+        ids = [self.BOS] + list(data)
+        out = np.full(max_len, self.PAD, dtype=np.int32)
+        out[: len(ids)] = ids
+        return out, len(ids)
+
+    def encode_batch(
+        self, texts: Sequence[str], max_len: int
+    ) -> Tuple[np.ndarray, np.ndarray]:
+        batch = np.full((len(texts), max_len), self.PAD, dtype=np.int32)
+        lengths = np.zeros(len(texts), dtype=np.int32)
+        for i, text in enumerate(texts):
+            row, n = self.encode(text, max_len)
+            batch[i] = row
+            lengths[i] = n
+        return batch, lengths
+
+    def decode(self, ids: Sequence[int]) -> str:
+        data = bytes(i for i in ids if 0 <= i < 256)
+        return data.decode("utf-8", errors="replace")
+
+
+class HFTokenizerAdapter:
+    """A local HF tokenizer (e.g. Llama-3 BPE) behind the
+    ``encode``/``encode_batch``/``decode`` surface of the offline
+    tokenizers.  ``transformers`` is imported only here, and files are read
+    with ``local_files_only``: nothing is downloaded."""
+
+    def __init__(self, path: str) -> None:
+        from transformers import AutoTokenizer
+
+        self.tok = AutoTokenizer.from_pretrained(path, local_files_only=True)
+        self.vocab_size = len(self.tok)
+        eos = self.tok.eos_token_id
+        pad = self.tok.pad_token_id
+        self.eos_id = eos if eos is not None else 0
+        self.pad_id = pad if pad is not None else self.eos_id
+        self.bos_id = self.tok.bos_token_id  # may be None (no-BOS styles)
+
+    def encode(self, text: str, max_len: int) -> Tuple[np.ndarray, int]:
+        ids = self.tok.encode(text, truncation=True, max_length=max_len)
+        out = np.full(max_len, self.pad_id, dtype=np.int32)
+        out[: len(ids)] = ids
+        return out, len(ids)
+
+    def encode_batch(
+        self, texts: Sequence[str], max_len: int
+    ) -> Tuple[np.ndarray, np.ndarray]:
+        ids_list = self.tok(
+            list(texts), truncation=True, max_length=max_len
+        )["input_ids"]
+        batch = np.full((len(texts), max_len), self.pad_id, dtype=np.int32)
+        lengths = np.zeros(len(texts), dtype=np.int32)
+        for i, ids in enumerate(ids_list):
+            batch[i, : len(ids)] = ids
+            lengths[i] = len(ids)
+        return batch, lengths
+
+    def decode(self, ids: Sequence[int]) -> str:
+        return self.tok.decode(
+            [int(i) for i in ids if int(i) != self.pad_id],
+            skip_special_tokens=True,
+        )
+
+
+def resolve_llama_tokenizer(vocab_size: int, path: Optional[str] = None):
+    """Best-available decoder tokenizer: a local HF tokenizer directory
+    (``path`` or ``$MUSICAAL_LLAMA_TOKENIZER``) when one exists, else the
+    byte tokenizer."""
+    path = path or os.environ.get("MUSICAAL_LLAMA_TOKENIZER")
+    if path and os.path.exists(path):
+        return HFTokenizerAdapter(path)
+    return ByteTokenizer(vocab_size)

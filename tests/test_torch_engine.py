@@ -116,11 +116,16 @@ def test_cli_runs_distilbert_tiny_packed(fixture_csv, tmp_path):
     assert sum(json.loads(_totals(tmp_path)).values()) == 8
 
 
-def test_backend_guards():
+def test_backend_guards(monkeypatch):
+    monkeypatch.delenv("MUSICAAL_LLAMA_CKPT", raising=False)
     with pytest.raises(ValueError, match="encoder-classifier option"):
         get_backend("mock", mock=True, length_buckets=(32,), device="cpu")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    # llama3 is ported; as in the JAX package the 8B preset refuses to
+    # run on random weights (no checkpoint configured).
+    with pytest.raises(RuntimeError, match="needs a checkpoint"):
         get_backend("llama3", device="cpu")
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        get_backend("ollama:llama3", device="cpu")
     with pytest.raises(NotImplementedError, match="not yet ported"):
         get_backend("distilbert-tiny", weight_quant="int8", device="cpu")
     with pytest.raises(ValueError, match="unknown model"):

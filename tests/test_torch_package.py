@@ -90,3 +90,32 @@ def test_entry_points_raise_without_cuda(monkeypatch, fixture_csv, tmp_path):
     ]
     assert main(["sentiment", str(fixture_csv), "--mock", "--device", "cpu",
                  "--output-dir", str(tmp_path)]) == 0
+
+
+def test_scan_covers_the_decoder_slice():
+    scanned = {str(p.relative_to(ROOT)) for p in _port_files()}
+    for rel in ("models/llama.py", "ops/paged_attention.py", "ops/kv_pages.py",
+                "ops/quant.py", "serving/batcher.py", "serving/decode_loop.py"):
+        assert f"music_analyst_tpu_torch/{rel}" in scanned
+    assert (PORT / "csrc" / "paged_attention.cu").exists()
+
+
+def test_llama_entry_points_raise_without_cuda(monkeypatch, fixture_csv,
+                                               tmp_path):
+    from music_analyst_tpu_torch.cli.main import main
+    from music_analyst_tpu_torch.engines.sentiment import get_backend
+    from music_analyst_tpu_torch.models.llama import LlamaZeroShotClassifier
+
+    _no_cuda(monkeypatch)
+    calls = [
+        lambda: LlamaZeroShotClassifier(),
+        lambda: LlamaZeroShotClassifier.from_pretrained_or_random("llama3-tiny"),
+        lambda: get_backend("llama3-tiny"),
+        lambda: main(["sentiment", str(fixture_csv), "--model", "llama3-tiny",
+                      "--output-dir", str(tmp_path)]),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA was requested"):
+            call()
+    clf = get_backend("llama3-tiny", device="cpu")
+    assert clf.device == torch.device("cpu")
