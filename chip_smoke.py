@@ -3,21 +3,26 @@
 
     python3 chip_smoke.py          # from the root of a checkout
 
-1. Builds every kernel of the batch-sentiment path from ``csrc/`` (one
-   ``nvcc`` per source, started together) and the host C++ library.
+1. Builds every kernel from ``csrc/`` (one ``nvcc`` per source, started
+   together) and the host C++ library; ptxas must report no spills in the
+   flash and paged kernels.
 2. Holds each kernel against its plain PyTorch version on the card: flash
    attention at DistilBERT shapes (bf16, B=256, S=128, H=12, D=64, random
-   lengths; packed segments) and in causal + GQA + offset and residual modes
-   at D=128; the keyword scan exactly on a seeded 8192x4096 byte matrix.
+   lengths; packed segments), in causal + GQA + offset and residual modes
+   at D=128, and with one query row over 1,040 keys at D=128; the keyword
+   scan exactly on a seeded 8192x4096 byte matrix.
 3. Times each kernel, its plain version and (where one exists) the PyTorch
    library call for the same function, at the main path's shapes, beside
    the bound the card's bandwidth and peak rate put on the same work.  The
    paged-attention kernel is held at the Llama-3-8B decode shape (8 slots,
    page 16, region 1024, bf16 and int8 pools) against its f32 oracle and
    its exact-order plain version; a free slot must read zeros, NaN in the
-   trash page must change nothing, and a shifted page or a dropped key
-   must break the limits.  The
-   flash kernel's output at the main shape (B=8192, corpus lengths) is held
+   trash page must change nothing, two launches must agree bit for bit,
+   and a shifted page or a dropped key must break the limits; a case with
+   empty splits and a one-key slot is held too.  Paged times are kernel
+   device times from ``torch.profiler``, warm and with L2 flushed by a
+   128 MB write before each launch, beside CUDA events around back-to-back
+   calls and the wrapper's host time per call.  The flash kernel's output at the main shape (B=8192, corpus lengths) is held
    against its plain version too, and a variant that drops one key per row
    must break the limits.
 4. Drives the main path: ``run_sentiment`` with full-size DistilBERT
@@ -54,6 +59,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import threading
@@ -120,6 +126,50 @@ def time_ms(torch, fn, iters: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / iters
 
 
+def host_us(torch, fn, iters: int) -> float:
+    """Host time of one call of ``fn`` in microseconds: the mean over
+    ``iters`` back-to-back calls, read before the card is waited for (the
+    calls only enqueue work, and ``iters`` launches fit the launch queue)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / iters * 1e6
+
+
+L2_FLUSH_BYTES = 128 << 20   # a write of this many bytes evicts the 50 MB L2
+
+
+def device_ms(torch, fn, iters: int, flush: bool = False) -> float:
+    """Device time of one call of ``fn``: the durations of the kernels it
+    launches, summed over ``iters`` calls by ``torch.profiler`` (CUPTI) and
+    divided by ``iters``.  Host gaps between kernels are not counted, so a
+    kernel faster than its Python wrapper is still timed, not the wrapper.
+    With ``flush``, each call follows a write to a 128 MB buffer, which
+    pushes the inputs out of the 50 MB L2 (as each layer's pools are cold
+    in the decode loop); the write's own kernel is left out."""
+    from torch.profiler import ProfilerActivity, profile
+
+    buf = (torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32, device="cuda")
+           if flush else None)
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(iters):
+            if buf is not None:
+                buf.fill_(float(i))
+            fn()
+        torch.cuda.synchronize()
+    total = sum(ms for name, ms in device_kernel_ms(prof).items()
+                if "FillFunctor" not in name)
+    if not total:
+        fail("torch.profiler saw no device time: cannot time kernels")
+    return total / iters
+
+
 def flash_errors(got, ref):
     """Max abs error, and max error in units of the elementwise bound."""
     diff = (got.float() - ref).abs()
@@ -170,6 +220,11 @@ def build_all() -> dict:
     for name, lines in ptxas.items():
         for line in lines:
             log(f"{name}: {line}")
+    for name in ("flash_attention", "paged_attention"):
+        spills = [line for line in ptxas[name]
+                  if re.search(r"[1-9]\d* bytes spill (stores|loads)", line)]
+        if spills or not ptxas[name]:
+            fail(f"{name}: ptxas reports spills (or printed nothing): {spills}")
     return {"build_s": seconds, "ptxas": ptxas,
             "native_tokenizer": native.available()}
 
@@ -215,6 +270,10 @@ def check_flash(torch, dev) -> dict:
     lg = torch.tensor([328, 300, 170, 129], dtype=torch.int32, device=dev)
     cases["causal_gqa_offset_d128"] = (qg, kg, vg, dict(
         lengths=lg, causal=True, q_offset=128))
+    # One query row over 17 kv tiles at D=128.
+    q1, k1, v1 = randn(4, 1, 8, 128), randn(4, 1040, 8, 128), randn(4, 1040, 8, 128)
+    cases["s1_kv1040_d128"] = (q1, k1, v1, dict(
+        lengths=torch.tensor([1040, 1000, 65, 1], dtype=torch.int32, device=dev)))
     for name, (qq, kk, vv, kw) in cases.items():
         got = flash_attention(qq, kk, vv, **kw)
         ref = flash_attention_reference(qq.float(), kk.float(), vv.float(), **kw)
@@ -393,7 +452,7 @@ def breakdown(torch, clf, texts) -> dict:
     groups = {"flash_attention": 0.0, "gemm": 0.0, "memcpy": 0.0, "other": 0.0}
     for name, ms in kernels.items():
         low = name.lower()
-        key = ("flash_attention" if "flash_fwd" in low else
+        key = ("flash_attention" if "flash_fwd" in low or "flash_wgmma" in low else
                "memcpy" if "memcpy" in low else
                "gemm" if any(s in low for s in ("gemm", "xmma", "cutlass", "nvjet")) else
                "other")
@@ -609,6 +668,46 @@ def paged_within(got, ref) -> bool:
     return err <= PAGED_ABS_TOL and scaled <= 1.0
 
 
+def check_paged_sparse(torch, dev) -> dict:
+    """The split-K kernel where splits hold no key: slot 0 attends only to
+    its first 10 keys, slot 1 to exactly one key, slot 2 to 40 keys that
+    straddle a split boundary (the other splits of these slots are empty);
+    slots 3..6 as in ``paged_case``, slot 7 free.  Same limits as the main
+    case; the one-key slot must read that key's value row exactly (p = 1);
+    two launches must agree bit for bit."""
+    from music_analyst_tpu_torch.ops.paged_attention import (
+        paged_attention,
+        paged_attention_reference,
+        split_plan,
+    )
+
+    case = paged_case(torch, dev, False, seed=6)
+    mask = case["mask"].clone()
+    mask[:3] = False
+    mask[0, :10] = True
+    one = 700
+    mask[1, one] = True
+    chunk = split_plan(mask.shape[1], PAGED_P).chunk
+    mask[2, 5 * chunk - 20:5 * chunk + 20] = True
+    args, kw = _pargs(case, mask=mask)
+    got = paged_attention(*args, **kw)
+    again = paged_attention(*args, **kw)
+    ref = paged_attention_reference(*args, **kw)
+    err, scaled = paged_errors(got, ref)
+    if err > PAGED_ABS_TOL or scaled > 1.0:
+        fail(f"paged sparse splits: max abs err {err}, {scaled} x the bound")
+    page = int(case["table"][1, one // PAGED_P])
+    v_row = case["value_pages"][page, one % PAGED_P]          # [n_kv, D]
+    want = v_row.repeat_interleave(PAGED_H // PAGED_KV, dim=0)
+    if not torch.equal(got[1, 0], want):
+        fail("paged sparse splits: the one-key slot does not read its value row")
+    if not bool((got[-1] == 0).all()) or not torch.equal(got, again):
+        fail("paged sparse splits: free slot not zero, or launches differ")
+    out = dict(max_abs_err=err, bound_units=scaled, chunk=chunk)
+    log(f"paged kernel with empty splits and a one-key slot: {json.dumps(out)}")
+    return out
+
+
 def check_paged(torch, dev) -> dict:
     """Kernel vs its plain versions at the main decode shape, bf16 and
     int8; exact zeros for the free slot; NaN in the trash page changes
@@ -622,6 +721,7 @@ def check_paged(torch, dev) -> dict:
         paged_attention,
         paged_attention_plain,
         paged_attention_reference,
+        split_plan,
     )
     from music_analyst_tpu_torch.ops.quant import dequantize_kv_page
 
@@ -675,6 +775,8 @@ def check_paged(torch, dev) -> dict:
         dargs, dkw = _pargs(case, **dirty)
         if not torch.equal(paged_attention(*dargs, **dkw), got):
             fail(f"paged {name}: garbage in the trash page changed the output")
+        if not torch.equal(paged_attention(*args, **kw), got):
+            fail(f"paged {name}: two launches on the same inputs differ")
         shifted = case["table"].clone()
         shifted[0, 10] = case["table"][0, 11]
         sargs, skw = _pargs(case, table=shifted)
@@ -715,19 +817,41 @@ def check_paged(torch, dev) -> dict:
                 return F.scaled_dot_product_attention(qt, k, v, attn_mask=amask,
                                                       enable_gqa=True)
 
+            plan = split_plan(total, PAGED_P)
+            call = lambda: paged_attention(*args, **kw)  # noqa: E731
             entry.update(
                 shape=(f"q bf16 [{n},1,{H},{D}]; pools bf16 "
                        f"{list(case['key_pages'].shape)}; table int32 "
                        f"{list(case['table'].shape)}; mask [{n},{total}]"),
-                ms=time_ms(torch, lambda: paged_attention(*args, **kw), 50, 3),
+                split_plan=dict(chunk=plan.chunk, splits=plan.splits,
+                                blocks=n * PAGED_KV * plan.splits),
+                timing=("ms, library_ms: kernel device time by torch.profiler "
+                        "(CUPTI), mean over 100 / 50 calls, warm; *_l2_flushed: "
+                        "the same after a 128 MB write before each call, the "
+                        "write not counted; event_ms: CUDA events around "
+                        "back-to-back eager calls; host_us: host time of one "
+                        "wrapper call, mean over 200"),
+                # Kernel device time (profiler), warm and with L2 flushed;
+                # beside it the earlier method, CUDA events around
+                # back-to-back wrapper calls, which now also counts the
+                # wrapper's host time whenever that exceeds the kernel's.
+                ms=device_ms(torch, call, 100),
+                ms_l2_flushed=device_ms(torch, call, 100, flush=True),
+                event_ms=time_ms(torch, call, 100, 3),
+                host_us=host_us(torch, call, 200),
                 plain_ms=time_ms(torch, lambda: paged_attention_plain(*args, **kw), 5),
-                library_ms=time_ms(torch, gather_sdpa, 20),
+                library_ms=device_ms(torch, gather_sdpa, 50),
+                library_ms_l2_flushed=device_ms(torch, gather_sdpa, 50, flush=True),
+                library_event_ms=time_ms(torch, gather_sdpa, 20),
                 bound_ms=b_ms, bound_by=b_by, bytes=bytes_moved, flops=flops,
                 valid_rows=valid)
         else:
-            entry["ms"] = time_ms(torch, lambda: paged_attention(*args, **kw), 50, 3)
+            call = lambda: paged_attention(*args, **kw)  # noqa: E731
+            entry.update(ms=device_ms(torch, call, 100),
+                         ms_l2_flushed=device_ms(torch, call, 100, flush=True))
         out[name] = entry
         del case, dirty
+    out["sparse_splits"] = check_paged_sparse(torch, dev)
     torch.cuda.synchronize()
     log(f"paged kernel at the 8B decode shape: {json.dumps(out)}")
     return out
@@ -842,7 +966,7 @@ def decode_breakdown(torch, sched) -> dict:
     groups = {"paged_attention": 0.0, "gemm": 0.0, "other": 0.0}
     for name, ms in kernels.items():
         low = name.lower()
-        groups["paged_attention" if "paged_decode" in low else
+        groups["paged_attention" if "paged_split" in low else
                "gemm" if any(s in low for s in ("gemm", "gemv", "xmma", "cutlass",
                                                 "nvjet", "splitk")) else
                "other"] += ms
@@ -1072,7 +1196,9 @@ def main() -> int:
              launches=report["llama"]["generate"]["launches"]["paged_attention"],
              max_abs_err=max(v["max_abs_err"] for v in report["paged"].values()),
              **{key: report["paged"]["bf16"][key] for key in
-                ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}),
+                ("ms", "ms_l2_flushed", "event_ms", "host_us", "plain_ms",
+                 "bound_ms", "bound_by", "library_ms",
+                 "library_ms_l2_flushed")}),
     ]}
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as fh:

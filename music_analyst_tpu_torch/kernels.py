@@ -50,8 +50,9 @@ _KERNELS = {
     "paged_attention": (
         "paged_attention.cu",
         "paged_attention_fwd",
-        [_P, _P, _P, _P, _P, _P, _P, _P,               # q kp vp ks vs tab mask o
-         _I, _I, _I, _I, _I, _I, _I, _I,               # n H n_kv D P pps total quant
+        [_P, _P, _P, _P, _P, _P, _P, _P, _P,   # q kp vp ks vs tab mask o scratch
+         _I, _I, _I, _I, _I, _I, _I,                   # n H n_kv D P pps total
+         _I, _I, _I,                                   # chunk splits quant
          ctypes.c_float, _P],                          # scale stream
     ),
 }

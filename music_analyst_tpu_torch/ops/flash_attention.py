@@ -15,7 +15,9 @@ m [B,H,S], l [B,H,S])`` for cross-shard combination.
 
 :func:`flash_attention` launches the kernel for CUDA tensors and runs
 :func:`flash_attention_reference` only for CPU tensors.  The kernel has no
-block-size arguments: it tiles by 64 rows and masks ragged edges itself.
+block-size arguments: it tiles by 64 rows (bf16: 128 query rows per block,
+64-row K/V tiles through TMA, QK^T and PV on wgmma; f32: CUDA cores) and
+masks ragged edges itself.
 """
 
 from __future__ import annotations
@@ -172,6 +174,9 @@ def flash_attention(
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
         if not t.is_contiguous():
             raise ValueError(f"flash_attention kernel needs contiguous {name}")
+        if q.dtype == torch.bfloat16 and t.data_ptr() % 16:
+            # The bf16 kernel reads through TMA tensor maps.
+            raise ValueError(f"flash_attention kernel needs 16-byte aligned {name}")
     q_offset, kv_offset = int(q_offset), int(kv_offset)
     lens = _lengths(lengths, B, KV, kv_offset, q.device).contiguous()
     if lens.shape != (B,):

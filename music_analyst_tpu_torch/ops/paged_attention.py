@@ -7,13 +7,16 @@ body (``_stream_body``, the TPU's) and the exact batched body
 (``_exact_body``, interpret mode).  Here:
 
 * on a CUDA tensor, :func:`paged_attention` launches
-  ``csrc/paged_attention.cu`` (online softmax page by page in f32, one bf16
+  ``csrc/paged_attention.cu`` (split-K over the keys as :func:`split_plan`
+  lays them out, f32 softmax per split, a fixed-order combine, one bf16
   rounding of the result) or raises;
 * on a CPU tensor it runs :func:`paged_attention_plain`, the exact body's
   order: gather the slot views through the table, then
   ``models/layers.dot_product_attention``'s ops verbatim, so paged decode
   on the CPU is bitwise equal to dense attention over the gathered view;
-* :func:`paged_attention_reference` is the f32 oracle both are held to.
+* :func:`paged_attention_reference` is the f32 oracle both are held to;
+  :func:`paged_attention_split_reference` is the kernel's split-then-combine
+  order in plain f32 (the combine step's plain version; no path calls it).
 
 Layouts are the JAX function's: ``q [n, 1, H, D]``; pools ``[n_pages + 1,
 P, n_kv, D]`` (bf16, or int8 codes with ``[n_pages + 1, P]`` f32 scales;
@@ -29,7 +32,7 @@ place; int8 rows are quantized one by one) and ``attend`` calls
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -39,6 +42,43 @@ from music_analyst_tpu_torch.ops.quant import quantize_kv_page
 
 _HEAD_DIMS = (64, 128)
 _MAX_GROUP_COLUMNS = 8 * 128   # G * D the kernel's registers hold
+NEG_INF = -1e30
+
+# Keys per split, the most the kernel's shared memory holds: at the
+# Llama-3-8B decode shape (8 slots x 8 kv heads, 1,040 keys) 17 splits and
+# 1,088 blocks, a few for each SM.
+SPLIT_KEYS = 64
+
+
+@dataclasses.dataclass(frozen=True)
+class SplitPlan:
+    """Key ranges of the kernel's splits: split ``z`` owns keys
+    ``[z * chunk, min((z + 1) * chunk, total))``."""
+
+    chunk: int
+    total: int
+
+    @property
+    def splits(self) -> int:
+        return -(-self.total // self.chunk)
+
+    @property
+    def ranges(self) -> Tuple[Tuple[int, int], ...]:
+        return tuple((z * self.chunk, min((z + 1) * self.chunk, self.total))
+                     for z in range(self.splits))
+
+
+def split_plan(total: int, page_size: int) -> SplitPlan:
+    """How the kernel splits ``total`` keys: :data:`SPLIT_KEYS` keys a
+    split, cut to whole pages when a page fits in it.  Every key below
+    ``total`` lies in exactly one range, and no range is empty."""
+    if total <= 0 or page_size <= 0:
+        raise ValueError(f"split_plan needs a positive total and page size, "
+                         f"got {total}, {page_size}")
+    chunk = SPLIT_KEYS
+    if page_size <= chunk:
+        chunk -= chunk % page_size
+    return SplitPlan(chunk=chunk, total=total)
 
 
 def _geometry(q, key_pages, table, mask):
@@ -115,6 +155,43 @@ def paged_attention_reference(q, key_pages, value_pages, table, mask,
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
 
+def paged_attention_split_reference(q, key_pages, value_pages, table, mask,
+                                    key_scale=None, value_scale=None,
+                                    plan: Optional[SplitPlan] = None):
+    """The kernel's order in plain f32: per split of ``plan`` (default
+    :func:`split_plan`) the split's max ``m``, sum ``l`` and unnormalised
+    V sum over its valid keys; then the splits combined in order, a split
+    with no valid key skipped.  A slot with no valid key gives zeros."""
+    quantized = _check_scales(key_scale, value_scale)
+    n, H, n_kv, D, P, pps, total = _geometry(q, key_pages, table, mask)
+    plan = plan or split_plan(total, P)
+    group = H // n_kv
+    k = _gather(key_pages, key_scale if quantized else None, table, total,
+                torch.float32).float().repeat_interleave(group, dim=2)
+    v = _gather(value_pages, value_scale if quantized else None, table,
+                total, torch.float32).float().repeat_interleave(group, dim=2)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k) * (D ** -0.5)
+    parts = []
+    for start, end in plan.ranges:
+        valid = mask[:, None, None, start:end]
+        s = logits[..., start:end].masked_fill(~valid, NEG_INF)
+        m = s.amax(dim=-1, keepdim=True)                  # [n, H, 1, 1]
+        p = torch.where(valid, torch.exp(s - m), torch.zeros_like(s))
+        o = torch.einsum("bhqk,bkhd->bhqd", p, v[:, start:end])
+        parts.append((m, p.sum(dim=-1, keepdim=True), o))
+    m_all = torch.full_like(parts[0][0], NEG_INF)
+    for m, l, _ in parts:
+        m_all = torch.where(l > 0, torch.maximum(m_all, m), m_all)
+    o_all = torch.zeros_like(parts[0][2])
+    l_all = torch.zeros_like(parts[0][1])
+    for m, l, o in parts:
+        w = torch.where(l > 0, torch.exp(m - m_all), torch.zeros_like(m))
+        o_all = o_all + w * o
+        l_all = l_all + w * l
+    out = o_all / torch.where(l_all == 0, torch.ones_like(l_all), l_all)
+    return out.permute(0, 2, 1, 3)                        # [n, 1, H, D]
+
+
 def paged_attention(q, key_pages, value_pages, table, mask, *,
                     key_scale=None, value_scale=None):
     """Paged decode attention ``[n, 1, H, D]`` in ``q.dtype``.
@@ -165,7 +242,12 @@ def paged_attention(q, key_pages, value_pages, table, mask, *,
     for name, t in tensors[:3]:
         if t.data_ptr() % 16:
             raise ValueError(f"paged_attention kernel needs 16-byte aligned {name}")
+    plan = split_plan(total, P)
     out = torch.empty_like(q)
+    # This call's own scratch, on its stream: f32 partials o [n, n_kv,
+    # splits, G, D] and (m, l) [.., G, 2], then int32 tickets [n, n_kv].
+    scratch = torch.empty(n * H * plan.splits * (D + 2) + n * n_kv,
+                          dtype=torch.float32, device=q.device)
     fn = kernels.kernel("paged_attention")
     with torch.cuda.device(q.device):  # launch on q's card, its stream
         status = fn(
@@ -173,7 +255,8 @@ def paged_attention(q, key_pages, value_pages, table, mask, *,
             key_scale.data_ptr() if quantized else None,
             value_scale.data_ptr() if quantized else None,
             table.data_ptr(), mask.data_ptr(), out.data_ptr(),
-            n, H, n_kv, D, P, pps, total, int(quantized), float(D ** -0.5),
+            scratch.data_ptr(), n, H, n_kv, D, P, pps, total, plan.chunk,
+            plan.splits, int(quantized), float(D ** -0.5),
             torch.cuda.current_stream().cuda_stream,
         )
     kernels.check("paged_attention", status)

@@ -9,7 +9,9 @@ bf16 ulp at |o| < 8); the keyword scan exact.  The paged-attention kernel
 rounds an f32 result to bf16 once, so each element lies within
 ``2^-8 |ref| + 1e-5`` of the f32 oracle (and within 2e-2 absolute); a
 free slot reads exact zeros, and garbage (NaN) in the trash page changes
-nothing bit for bit.
+nothing bit for bit.  The bf16 flash kernel (wgmma) is held to the same
+elementwise half-ulp bound as the paged kernel; both agree bit for bit
+between two launches on the same inputs.
 """
 
 import numpy as np
@@ -83,6 +85,55 @@ def test_flash_kernel_residuals(dev):
     for got, want in zip(flash_attention(q, k, v, **kw),
                          flash_attention_reference(q, k, v, **kw)):
         torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+
+
+def _within_bf16_bound(got, want):
+    """The bf16 kernel rounds its f32 result once: half a bf16 ulp of the
+    f32 plain version, 2^-8 |ref| + 1e-5 elementwise, and 2e-2 absolute."""
+    err = (got.float() - want).abs()
+    return (float(err.max()) <= 2e-2
+            and bool((err <= 2.0 ** -8 * want.abs() + 1e-5).all()))
+
+
+@pytest.mark.parametrize("S", [1, 64, 127, 128, 129, 200])
+def test_flash_bf16_ragged_rows(dev, S):
+    """Query tiles of 128 rows and kv tiles of 64 with S and KV on neither
+    boundary; one row of length 0 reads exact zeros."""
+    q, k, v = _qkv(dev, torch.bfloat16, 3, S, 150, 4, 2, 64, seed=S)
+    kw = dict(lengths=torch.tensor([150, 97, 0], device=dev))
+    got = flash_attention(q, k, v, **kw)
+    want = flash_attention_reference(q.float(), k.float(), v.float(), **kw)
+    assert _within_bf16_bound(got, want)
+    assert bool((got[2] == 0).all())
+    assert torch.equal(flash_attention(q, k, v, **kw), got)   # run to run
+
+
+def test_flash_bf16_segments_cross_tiles(dev):
+    """Block-diagonal segments whose edges fall inside 64-row tiles, with
+    kv segment ids of their own (KV != S)."""
+    q, k, v = _qkv(dev, torch.bfloat16, 2, 150, 190, 4, 4, 64, seed=3)
+    q_seg = (torch.arange(150, device=dev) // 50 + 1).repeat(2, 1)
+    kv_seg = (torch.arange(190, device=dev) // 70 + 1).repeat(2, 1)
+    kw = dict(q_segment_ids=q_seg, kv_segment_ids=kv_seg,
+              lengths=torch.tensor([190, 120], device=dev))
+    got = flash_attention(q, k, v, **kw)
+    want = flash_attention_reference(q.float(), k.float(), v.float(), **kw)
+    assert _within_bf16_bound(got, want)
+
+
+def test_flash_bf16_residuals_d128(dev):
+    q, k, v = _qkv(dev, torch.bfloat16, 2, 130, 150, 8, 2, 128, seed=5)
+    kw = dict(causal=True, q_offset=32, return_residuals=True,
+              lengths=torch.tensor([150, 0], device=dev))
+    o, m, l = flash_attention(q, k, v, **kw)
+    ro, rm, rl = flash_attention_reference(q.float(), k.float(), v.float(), **kw)
+    assert o.dtype == m.dtype == l.dtype == torch.float32
+    live = rl > 0
+    norm = lambda o, l: o / l.clamp(min=1e-30).permute(0, 2, 1)[..., None]  # noqa: E731
+    assert float((norm(o, l) - norm(ro, rl)).abs().max()) <= 1e-3
+    assert float((m - rm).abs()[live].max()) <= 1e-3
+    assert float(((l - rl).abs() / rl.clamp(min=1e-30))[live].max()) <= 1e-3
+    assert bool((o[1] == 0).all()) and bool((l[1] == 0).all())
 
 
 def test_flash_kernel_rejects_what_it_cannot_take(dev):
@@ -182,3 +233,46 @@ def test_paged_kernel_rejects_what_it_cannot_take(dev):
                         v[..., :32].contiguous(), table, mask)
     with pytest.raises(ValueError, match="decode kernel"):
         paged_attention(q.expand(-1, 2, -1, -1).contiguous(), k, v, table, mask)
+
+
+def test_paged_kernel_empty_splits_and_one_key(dev):
+    """Splits with no valid key, a slot with exactly one valid key (it reads
+    that key's value row: p = 1), total not a multiple of P; two launches
+    agree bit for bit."""
+    args, kw, _ = _paged_case(dev, 16, 128, False, n=4, H=8, n_kv=2, pps=20)
+    q, k, v, table, mask = args
+    mask = torch.zeros_like(mask)
+    total = mask.shape[1]
+    mask[0, :5] = True
+    mask[1, total - 7] = True
+    mask[2, 60:70] = True
+    got = paged_attention(q, k, v, table, mask)
+    again = paged_attention(q, k, v, table, mask)
+    ref = paged_attention_reference(q, k, v, table, mask)
+    err = (got[:-1].float() - ref[:-1]).abs()
+    assert float(err.max()) <= 2e-2
+    assert bool((err <= 2.0 ** -8 * ref[:-1].abs() + 1e-5).all())
+    j = total - 7
+    row = v[int(table[1, j // 16]), j % 16]                       # [n_kv, D]
+    assert torch.equal(got[1, 0], row.repeat_interleave(4, dim=0))
+    assert bool((got[-1] == 0).all())
+    assert torch.equal(got, again)
+
+
+def test_paged_kernel_on_two_streams(dev):
+    """Each call owns its scratch (partials and tickets) on its stream, so
+    calls in flight on two streams at once each give the default stream's
+    result bit for bit."""
+    args, kw, _ = _paged_case(dev, 16, 128, False)
+    want = paged_attention(*args, **kw)
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(device=dev) for _ in range(2)]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream(dev))
+    outs = []
+    for _ in range(16):
+        for s in streams:
+            with torch.cuda.stream(s):
+                outs.append(paged_attention(*args, **kw))
+    torch.cuda.synchronize()
+    assert all(torch.equal(o, want) for o in outs)

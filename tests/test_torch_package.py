@@ -1,7 +1,7 @@
 """Package rules of the port: no JAX imports, and no quiet CPU fallback.
 
-Every ``.py`` under ``music_analyst_tpu_torch/`` and ``chip_smoke.py`` is
-scanned (AST) for imports of ``jax``, ``flax`` or ``music_analyst_tpu``.
+Every ``.py`` under ``music_analyst_tpu_torch/`` and ``tools/``, and
+``chip_smoke.py``, is scanned (AST) for imports of ``jax``, ``flax`` or ``music_analyst_tpu``.
 The entry points default to CUDA and must raise on a machine without a
 card unless the caller passes ``device="cpu"``.
 """
@@ -21,7 +21,8 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "music_analyst_tpu")
 
 
 def _port_files():
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return (sorted(PORT.rglob("*.py")) + sorted((ROOT / "tools").glob("*.py"))
+            + [ROOT / "chip_smoke.py"])
 
 
 def _imported_modules(path):
