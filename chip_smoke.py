@@ -55,6 +55,26 @@
    slot lengths must break that limit); reports how many prompts give the
    same greedy text as static ``generate_batch``, and a profile of one
    decode dispatch.
+6. Drives the word-count slice (run between steps 4 and 5):
+   ``python -m music_analyst_tpu_torch analyze --ingest native`` as a
+   process on a generated 57,650-song CSV (the real dataset's row count,
+   ~10 M tokens) in three layouts — auto (the word histogram streamed in
+   chunks), ``--chunk-songs 0`` (host-shard) and ``--chunk-songs 0
+   --count-mode device-ids`` — three runs each, median songs/s, tokens/s and
+   stage seconds reported.  Every run's ``word_counts.csv`` and
+   ``top_artists.csv`` must equal a host ``np.bincount`` oracle over the
+   same ingest and an ``--ingest python`` run byte for byte, and
+   ``performance_metrics.json`` must say ``gpu`` and one process; one run
+   is profiled in-process.  Then ``analyze --with-sentiment`` on the same
+   CSV: ``--mock`` (the keyword scan once per 4,096-song batch, labels equal
+   to the reference heuristic) and ``--model distilbert --batch-size 8192``
+   (flash six times a batch, every song labelled); their CSVs must equal
+   the plain run's.  Last, the histogram op at the 1 M-song north star's
+   size: ~180 M int32 ids drawn on the card (finite Zipf, s = 1, over 2^18
+   shuffled ranks, 1% ``PAD_ID``), device-ids and streaming (auto chunks)
+   held exactly against ``np.bincount``, with wall time, profiler device
+   time, the H2D share, peak device memory and the byte bound; a stream
+   that drops its last chunk must break exactness.
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line and,
 last, ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no
@@ -682,6 +702,371 @@ def main_path(torch, dev, dataset, card) -> dict:
     return report
 
 
+# ------------------------------------------- word count and joint (slice 6)
+
+# The real dataset's row count (spotify_millsongdata.csv): ~10 M tokens of
+# the synthetic corpus, which `--chunk-songs auto` streams in ~5 chunks.
+ANALYZE_SONGS = 57_650
+ANALYZE_LAYOUTS = {
+    "auto_streaming": [],
+    "host_shard": ["--chunk-songs", "0"],
+    "device_ids": ["--chunk-songs", "0", "--count-mode", "device-ids"],
+}
+JOINT_DISTILBERT_BATCH = 8192
+# The north star's corpus (BASELINE.json: 1 M songs): ~180 M int32 ids
+# from a finite Zipf law (s = 1) over 2^18 shuffled word ranks, 1% PAD_ID.
+HIST_IDS = 180_000_000
+HIST_SONGS = 1_000_000
+HIST_VOCAB = 1 << 18
+
+
+def analyze_cli(dataset, out_dir, flags):
+    """One ``python -m music_analyst_tpu_torch analyze`` process on the
+    card; returns its metrics, console report and process wall."""
+    cmd = [sys.executable, "-m", "music_analyst_tpu_torch", "analyze",
+           dataset, "--ingest", "native", "--no-corpus-cache",
+           "--output-dir", out_dir, *flags]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                          timeout=600)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"analyze {flags}: rc {proc.returncode}: {proc.stderr[-2000:]}")
+    with open(os.path.join(out_dir, "performance_metrics.json")) as fh:
+        metrics = json.load(fh)
+    return metrics, proc.stdout, wall
+
+
+def read_outputs(out_dir):
+    return {name: open(os.path.join(out_dir, name), "rb").read()
+            for name in ("word_counts.csv", "top_artists.csv")}
+
+
+def oracle_outputs(corpus, out_dir):
+    """The two count CSVs from a host ``np.bincount`` over the ingest."""
+    import numpy as np
+
+    from music_analyst_tpu_torch.data.csv_io import (
+        sort_count_entries,
+        write_count_csv,
+    )
+
+    os.makedirs(out_dir, exist_ok=True)
+    for name, header, ids, vocab in (
+            ("word_counts.csv", "word", corpus.word_ids, corpus.word_vocab),
+            ("top_artists.csv", "artist", corpus.artist_ids,
+             corpus.artist_vocab)):
+        ids = np.asarray(ids)
+        counts = np.bincount(ids[ids >= 0], minlength=max(1, len(vocab)))
+        write_count_csv(os.path.join(out_dir, name), header,
+                        sort_count_entries(vocab.counts_to_entries(counts)))
+    return read_outputs(out_dir)
+
+
+def check_metrics(name, metrics, songs, tokens):
+    if (metrics.get("device_platform") != "gpu" or metrics.get("processes") != 1
+            or [c["platform"] for c in metrics["per_chip"]] != ["gpu"]
+            or metrics["total_songs"] != songs
+            or metrics["total_words"] != tokens):
+        fail(f"{name}: performance_metrics.json says {json.dumps(metrics)}")
+
+
+def analyze_breakdown(torch, dev, corpus, dataset):
+    """One default-layout ``run_analysis`` on the ingested corpus under
+    ``torch.profiler``: stage seconds, device busy time, the H2D share of
+    it and the card's idle share over the histogram stage."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from music_analyst_tpu_torch.engines.wordcount import run_analysis
+
+    out_dir = os.path.join(WORK, "analyze_profiled")
+    run_analysis(dataset, output_dir=out_dir, corpus=corpus, quiet=True,
+                 write_split=False, device=dev)            # warm-up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        result = run_analysis(dataset, output_dir=out_dir, corpus=corpus,
+                              quiet=True, write_split=False, device=dev)
+        torch.cuda.synchronize()
+    kernels = device_kernel_ms(prof)
+    busy = sum(kernels.values())
+    h2d = sum(ms for name, ms in kernels.items() if "HtoD" in name)
+    compute_s = result.timings["device_compute"]
+    return dict(stages_s=result.timings, device_busy_ms=busy, h2d_ms=h2d,
+                h2d_share=h2d / busy if busy else None,
+                device_idle_share_of_device_compute=(
+                    max(0.0, 1 - busy / 1e3 / compute_s) if busy else None),
+                top_device_ms=sorted(kernels.items(), key=lambda kv: -kv[1])[:6])
+
+
+def analyze_path(torch, dev, card) -> dict:
+    """``analyze`` on the card at the real dataset's size in three layouts,
+    each three times; every layout, a ``--ingest python`` run and a host
+    ``np.bincount`` oracle must write the same bytes.  Returns the report
+    and the oracle's CSV bytes."""
+    import numpy as np
+
+    from music_analyst_tpu_torch.cli.main import main as cli_main
+    from music_analyst_tpu_torch.data.ingest import ingest_dataset
+    from music_analyst_tpu_torch.data.synthetic import generate_dataset
+    from music_analyst_tpu_torch.ops.histogram import (
+        chunk_token_bounds,
+        resolve_chunk_songs,
+    )
+
+    t0 = time.perf_counter()
+    dataset = os.path.join(WORK, f"songs_{ANALYZE_SONGS}.csv")
+    generate_dataset(dataset, num_songs=ANALYZE_SONGS, seed=17)
+    corpus = ingest_dataset(dataset, backend="native")
+    chunk = resolve_chunk_songs("auto", corpus.song_count, corpus.token_count)
+    n_chunks = len(chunk_token_bounds(corpus.word_offsets, chunk)) - 1
+    songs, tokens = corpus.song_count, corpus.token_count
+    log(f"analyze corpus: {songs} songs, {tokens} tokens, "
+        f"{len(corpus.word_vocab)} words, {len(corpus.artist_vocab)} artists; "
+        f"auto streams {n_chunks} chunks of {chunk} songs "
+        f"(set-up {time.perf_counter() - t0:.1f} s)")
+    if songs != ANALYZE_SONGS or n_chunks < 2:
+        fail(f"analyze corpus: {songs} songs, {n_chunks} chunks")
+    want = oracle_outputs(corpus, os.path.join(WORK, "analyze_oracle"))
+
+    report = dict(songs=songs, tokens=tokens, chunk_songs=chunk,
+                  chunks=n_chunks, layouts={})
+    for name, flags in ANALYZE_LAYOUTS.items():
+        runs = []
+        for i in range(REPEATS):
+            out_dir = os.path.join(WORK, f"analyze_{name}")
+            metrics, stdout, wall = analyze_cli(dataset, out_dir, flags)
+            check_metrics(f"analyze {name}", metrics, songs, tokens)
+            if f"Total songs processed: {songs}" not in stdout.splitlines():
+                fail(f"analyze {name}: console report lacks the song total")
+            if read_outputs(out_dir) != want:
+                fail(f"analyze {name}: CSVs differ from the np.bincount oracle")
+            engine_s = sum(metrics["stages"].values())
+            runs.append(dict(songs_per_s=songs / engine_s,
+                             tokens_per_s=tokens / engine_s,
+                             engine_s=engine_s, process_wall_s=wall,
+                             stages_s=metrics["stages"]))
+        med = lambda key: float(np.median([r[key] for r in runs]))  # noqa: E731
+        stage_med = {k: float(np.median([r["stages_s"][k] for r in runs]))
+                     for k in runs[0]["stages_s"]}
+        report["layouts"][name] = dict(
+            flags=flags, songs_per_s=med("songs_per_s"),
+            tokens_per_s=med("tokens_per_s"), engine_s=med("engine_s"),
+            process_wall_s=med("process_wall_s"), stages_s=stage_med,
+            runs=runs)
+        log(f"analyze {name} on {card}: median {med('songs_per_s'):.1f} songs/s, "
+            f"{med('tokens_per_s'):.1f} tokens/s over {med('engine_s'):.3f} s "
+            f"of stages (process {med('process_wall_s'):.2f} s); stages "
+            f"{json.dumps({k: round(v, 4) for k, v in stage_med.items()})}")
+
+    out_dir = os.path.join(WORK, "analyze_python_ingest")
+    rc = cli_main(["analyze", dataset, "--ingest", "python",
+                   "--no-corpus-cache", "--output-dir", out_dir])
+    if rc != 0 or read_outputs(out_dir) != want:
+        fail("analyze --ingest python: CSVs differ from the native layouts")
+    report["breakdown"] = analyze_breakdown(torch, dev, corpus, dataset)
+    log(f"analyze breakdown (auto layout, in-process): "
+        f"{json.dumps(report['breakdown'])}")
+    report["dataset"] = dataset
+    return report, want
+
+
+def joint_path(torch, card, analyze, oracle) -> dict:
+    """``analyze --with-sentiment`` on the analyze corpus: ``--mock``
+    (keyword scan, once per 4,096-song batch; labels equal the reference
+    heuristic) and full-size DistilBERT (flash, six launches a batch)."""
+    import csv
+
+    import numpy as np
+
+    from music_analyst_tpu_torch import kernels
+    from music_analyst_tpu_torch.cli.main import main as cli_main
+    from music_analyst_tpu_torch.data.ingest import ingest_dataset
+
+    dataset, songs = analyze["dataset"], analyze["songs"]
+    texts = [t for _, _, t in ingest_dataset(
+        dataset, backend="native", capture_records=True).iter_records()]
+    want_labels = [reference_mock_label(t) for t in texts]
+    report = {}
+    for name, flags, batch, kernel, per_batch in (
+            ("mock", ["--mock"], MOCK_BATCH, "keyword_scan", 1),
+            ("distilbert", ["--model", "distilbert"], JOINT_DISTILBERT_BATCH,
+             "flash_attention", 6)):
+        out_dir = os.path.join(WORK, f"joint_{name}")
+        rates, launch_runs = [], []
+        for _ in range(REPEATS if name == "mock" else 1):
+            kernels.reset_launches()
+            rc = cli_main(["analyze", dataset, "--with-sentiment", *flags,
+                           "--batch-size", str(batch), "--ingest", "native",
+                           "--no-corpus-cache", "--output-dir", out_dir])
+            torch.cuda.synchronize()
+            launches = kernels.launches()
+            want_launches = per_batch * -(-songs // batch)
+            if rc != 0 or launches[kernel] != want_launches:
+                fail(f"joint {name}: rc {rc}, launches {launches} "
+                     f"(want {kernel} x {want_launches})")
+            with open(os.path.join(out_dir, "performance_metrics.json")) as fh:
+                metrics = json.load(fh)
+            check_metrics(f"joint {name}", metrics, songs, analyze["tokens"])
+            rates.append(songs / metrics["total_time"]["max_seconds"])
+            launch_runs.append(launches)
+        if read_outputs(out_dir) != oracle:
+            fail(f"joint {name}: word/artist CSVs differ from the plain run's")
+        with open(os.path.join(out_dir, "sentiment_details.csv"), newline="",
+                  encoding="utf-8") as fh:
+            labels = [row["label"] for row in csv.DictReader(fh)]
+        with open(os.path.join(out_dir, "sentiment_totals.json")) as fh:
+            totals = json.load(fh)
+        if len(labels) != songs or sum(totals.values()) != songs:
+            fail(f"joint {name}: {len(labels)} labels, totals {totals}")
+        if name == "mock" and labels != want_labels:
+            bad = sum(a != b for a, b in zip(labels, want_labels))
+            fail(f"joint mock: labels differ from the reference on {bad} songs")
+        report[name] = dict(songs_per_s=float(np.median(rates)),
+                            songs_per_s_runs=rates, launches=launch_runs[-1],
+                            totals=totals, stages_s=metrics["stages"])
+        log(f"joint {name} on {card}: {float(np.median(rates)):.1f} songs/s "
+            f"(runs {[round(r, 1) for r in rates]}); launches "
+            f"{launch_runs[-1]}; totals {totals}; stages "
+            f"{json.dumps({k: round(v, 4) for k, v in metrics['stages'].items()})}")
+        torch.cuda.empty_cache()
+    return report
+
+
+def zipf_ids(torch, dev, n, ranks, seed):
+    """``n`` int32 ids drawn on the card from a finite Zipf law (s = 1)
+    over ``ranks`` shuffled ranks, 1% of them ``PAD_ID``."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    weights = 1.0 / torch.arange(1, ranks + 1, device=dev, dtype=torch.float64)
+    cdf = torch.cumsum(weights, 0) / weights.sum()
+    perm = torch.randperm(ranks, device=dev, generator=gen).to(torch.int32)
+    ids = torch.empty(n, dtype=torch.int32, device=dev)
+    step = 1 << 25
+    for s in range(0, n, step):
+        m = min(step, n - s)
+        u = torch.rand(m, device=dev, dtype=torch.float64, generator=gen)
+        rank = torch.searchsorted(cdf, u).clamp_(max=ranks - 1)
+        part = perm[rank]
+        pad = torch.rand(m, device=dev, generator=gen) < 0.01
+        ids[s:s + m] = part.masked_fill_(pad, -1)
+    return ids
+
+
+def histogram_path(torch, dev, card) -> dict:
+    """The port's histogram op on ~180 M ids (the 1 M-song north star),
+    device-ids and streaming (auto chunks), held exactly against
+    ``np.bincount``; wall, device time, H2D share, peak memory and the
+    byte bound for each.  Dropping the last chunk must break exactness."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from music_analyst_tpu_torch.ops.histogram import (
+        chunk_token_bounds,
+        resolve_chunk_songs,
+        sharded_histogram,
+        sharded_histogram_streaming,
+        token_histogram,
+    )
+    from music_analyst_tpu_torch.parallel.mesh import data_parallel_mesh
+
+    t0 = time.perf_counter()
+    ids_dev = zipf_ids(torch, dev, HIST_IDS, HIST_VOCAB, seed=23)
+    gen = torch.Generator(device=dev).manual_seed(29)
+    cuts = torch.sort(torch.randint(0, HIST_IDS + 1, (HIST_SONGS - 1,),
+                                    device=dev, generator=gen)).values
+    offsets = torch.cat([cuts.new_zeros(1), cuts,
+                         cuts.new_full((1,), HIST_IDS)]).cpu().numpy()
+    ids = ids_dev.cpu().numpy()
+    want = np.bincount(ids[ids >= 0], minlength=HIST_VOCAB).astype(np.int32)
+    setup_s = time.perf_counter() - t0
+    mesh = data_parallel_mesh(device=dev)
+    chunk = resolve_chunk_songs("auto", HIST_SONGS, HIST_IDS)
+    bounds = chunk_token_bounds(offsets, chunk)
+    bytes_read = HIST_IDS * 4
+    # Bytes: each id read once, the int32 counts written once; operations:
+    # one integer add per id, against the int8 peak (never the bound).
+    bound_ms, bound_by = bound(bytes_read + HIST_VOCAB * 4, HIST_IDS,
+                               PEAK_INT8_OPS)
+    log(f"histogram input: {HIST_IDS} ids ({bytes_read / 1e6:.1f} MB), "
+        f"{(ids < 0).mean():.4f} PAD_ID, hottest bin {int(want.max())}, "
+        f"{HIST_SONGS} songs; auto chunks {len(bounds) - 1} of {chunk} "
+        f"songs; set-up {setup_s:.1f} s; bound {bound_ms:.4f} ms ({bound_by})")
+
+    calls = {
+        "device_ids": lambda: sharded_histogram(
+            ids, HIST_VOCAB, mesh).cpu().numpy(),
+        "streaming": lambda: sharded_histogram_streaming(
+            ids, offsets, HIST_VOCAB, mesh, chunk_songs=chunk),
+    }
+    report = dict(ids=HIST_IDS, songs=HIST_SONGS, vocab=HIST_VOCAB,
+                  chunk_songs=chunk, chunks=len(bounds) - 1,
+                  hottest_bin=int(want.max()), bound_ms=bound_ms,
+                  bound_by=bound_by, setup_s=setup_s)
+    for name, call in calls.items():
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        got = call()
+        peak = torch.cuda.max_memory_allocated(dev) - base
+        if not np.array_equal(got, want):
+            fail(f"histogram {name}: counts differ from np.bincount on "
+                 f"{int((got != want).sum())} bins")
+        walls = []
+        for _ in range(REPEATS):
+            t0 = time.perf_counter()
+            got = call()
+            walls.append((time.perf_counter() - t0) * 1e3)
+            if not np.array_equal(got, want):
+                fail(f"histogram {name}: a repeat run is not exact")
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            call()
+            torch.cuda.synchronize()
+        kernels = device_kernel_ms(prof)
+        busy = sum(kernels.values())
+        if not busy:
+            fail(f"histogram {name}: torch.profiler saw no device time")
+        h2d = sum(ms for key, ms in kernels.items() if "HtoD" in key)
+        if name == "device_ids":
+            # The whole put is one synchronous copy from pageable memory,
+            # which torch.profiler may not record: time it on the host too.
+            copies = []
+            for _ in range(REPEATS):
+                t0 = time.perf_counter()
+                torch.from_numpy(ids).to(dev)
+                torch.cuda.synchronize()
+                copies.append((time.perf_counter() - t0) * 1e3)
+            h2d_wall = float(np.median(copies))
+        else:
+            h2d_wall = None
+        report[name] = dict(
+            wall_ms=float(np.median(walls)), wall_ms_runs=walls,
+            h2d_wall_ms=h2d_wall, h2d_wall_share=(
+                h2d_wall / float(np.median(walls)) if h2d_wall else None),
+            device_ms=busy, h2d_ms=h2d, h2d_share=h2d / busy,
+            non_h2d_device_ms=busy - h2d, max_memory_allocated=peak,
+            top_device_ms=sorted(kernels.items(), key=lambda kv: -kv[1])[:5])
+        log(f"histogram {name} on {card}: wall {np.median(walls):.2f} ms "
+            f"(runs {[round(w, 2) for w in walls]}), device {busy:.3f} ms of "
+            f"which H2D {h2d:.3f} ({h2d / busy:.1%}); host-clock H2D "
+            f"{h2d_wall} ms; peak {peak / 2**20:.1f} MiB; exact")
+    # The scatter alone on ids already on the card, against the byte bound.
+    scatter_ms = device_ms(torch, lambda: token_histogram(ids_dev, HIST_VOCAB),
+                           iters=3)
+    report["scatter_only_device_ms"] = scatter_ms
+    log(f"histogram scatter on ids on the card: {scatter_ms:.3f} ms device "
+        f"(bound {bound_ms:.4f} ms, {scatter_ms / bound_ms:.0f}x)")
+    # A variant that drops the last chunk must break exactness.
+    short = sharded_histogram_streaming(
+        ids[:bounds[-2]], offsets[:np.searchsorted(offsets, bounds[-2]) + 1],
+        HIST_VOCAB, mesh, chunk_songs=chunk)
+    if np.array_equal(short, want):
+        fail("histogram: dropping the last chunk still passes the check")
+    report["dropped_chunk_bins_differ"] = int((short != want).sum())
+    del ids_dev
+    torch.cuda.empty_cache()
+    return report
+
+
 # ------------------------------------------------- paged attention (slice 2)
 
 # Llama-3-8B decode geometry on the continuous scheduler's defaults:
@@ -1271,6 +1656,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     report["main_path"] = main_path(torch, dev, dataset, card)
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    report["analyze"], oracle = analyze_path(torch, dev, card)
+    report["joint"] = joint_path(torch, card, report["analyze"], oracle)
+    report["histogram"] = histogram_path(torch, dev, card)
+    report["slice6_s"] = time.perf_counter() - t0
+    log(f"word-count, joint and histogram phases: {report['slice6_s']:.1f} s")
     report["paged"] = check_paged(torch, dev)
     torch.cuda.empty_cache()
     report["llama"] = llama_path(torch, dev, card)
@@ -1285,6 +1676,8 @@ def main() -> int:
              source="music_analyst_tpu_torch/csrc/flash_attention.cu",
              replaces="music_analyst_tpu/ops/flash_attention.py:45",
              launches=mp["distilbert_flat"]["launches"]["flash_attention"],
+             joint_launches=report["joint"]["distilbert"]["launches"][
+                 "flash_attention"],
              max_abs_err=max(errs.values()),
              **{key: timing["flash_attention"][key] for key in
                 ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}),
@@ -1292,6 +1685,7 @@ def main() -> int:
              source="music_analyst_tpu_torch/csrc/keyword_scan.cu",
              replaces="music_analyst_tpu/ops/pallas_keyword.py:63",
              launches=mp["mock_cli"]["launches"]["keyword_scan"],
+             joint_launches=report["joint"]["mock"]["launches"]["keyword_scan"],
              max_abs_err=0.0,
              **{key: timing["keyword_scan"][key] for key in
                 ("shape", "ms", "ms_l2_flushed", "event_ms", "plain_ms",
@@ -1311,7 +1705,10 @@ def main() -> int:
         json.dump(report, fh, indent=2)
     log(f"songs/s on {card}: flat {mp['distilbert_flat']['songs_per_s']:.1f}, "
         f"packed {mp['distilbert_packed']['songs_per_s']:.1f}, llama3_8b "
-        f"generate {report['llama']['generate']['songs_per_s']:.2f}; "
+        f"generate {report['llama']['generate']['songs_per_s']:.2f}; analyze "
+        f"{report['analyze']['layouts']['auto_streaming']['songs_per_s']:.1f}, "
+        f"joint mock {report['joint']['mock']['songs_per_s']:.1f}, joint "
+        f"distilbert {report['joint']['distilbert']['songs_per_s']:.1f}; "
         f"total {report['seconds']:.1f} s")
     print(json.dumps(kernels_line))
     print(card)

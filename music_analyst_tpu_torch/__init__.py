@@ -8,16 +8,23 @@ with ``ctypes``), with a plain PyTorch version of the same function beside
 each wrapper.  The wrappers launch the kernel for CUDA tensors and run the
 plain version only for CPU tensors (the CPU parity tests).
 
-Ported so far (the batch-sentiment slice):
+Ported so far (batch sentiment, Llama decode, word count):
 
-* ``data/``     — CSV reader and synthetic dataset generator (copies).
-* ``ops/``      — keyword scan (``--mock``) and flash attention, each a
-                  wrapper over a hand-written kernel plus its plain version.
-* ``models/``   — tokenizers, attention/MLP layers, the DistilBERT
-                  classifier, the keyword classifier.
-* ``runtime/``  — the host→device wire and the bounded prefetch pipeline.
-* ``engines/``  — ``run_sentiment``.
-* ``cli/``      — ``python -m music_analyst_tpu_torch sentiment ...``.
+* ``data/``     — CSV readers and the exact parser, tokenizers, vocab,
+                  corpus ingest (C++ or Python) with its persistent cache,
+                  the column splitters, the synthetic dataset generator.
+* ``ops/``      — keyword scan (``--mock``), flash attention and paged
+                  attention, each a wrapper over a hand-written kernel plus
+                  its plain version; the word-count histograms (torch ops
+                  on the card: the JAX package has no kernel there).
+* ``models/``   — tokenizers, attention/MLP layers, the DistilBERT and
+                  Llama classifiers, the keyword classifier.
+* ``runtime/``, ``serving/`` — the host→device wire, the bounded prefetch
+                  pipeline, the continuous decode scheduler.
+* ``metrics/``, ``parallel/`` — stage timers, ``performance_metrics.json``,
+                  the one-device mesh.
+* ``engines/``  — ``run_sentiment``, ``run_analysis``, ``run_joint``.
+* ``cli/``      — ``python -m music_analyst_tpu_torch {analyze,sentiment,split}``.
 
 The package imports neither JAX nor anything of ``music_analyst_tpu``.
 """

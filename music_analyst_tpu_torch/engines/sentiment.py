@@ -122,7 +122,16 @@ def get_backend(
             "length_buckets is an encoder-classifier option; "
             f"model {model!r} does not support it"
         )
-    if weight_quant not in (None, "none"):
+    has_wq = weight_quant not in (None, "none")
+    if has_wq and (
+        mock or not (model.startswith("distilbert")
+                     or model.startswith("llama"))
+    ):
+        raise ValueError(
+            "weight_quant is an on-device model option; "
+            f"model {model!r} does not support it"
+        )
+    if has_wq:
         raise NotImplementedError(
             "weight_quant is not yet ported to music_analyst_tpu_torch"
         )
@@ -241,13 +250,20 @@ def run_sentiment(
     rows: List[SentimentRow] = []  # rows classified by THIS run
     start = time.perf_counter()
 
+    # Duck-typed backends (test doubles, user plugins) may implement only
+    # submit/collect, as the JAX engine allows: missing staged hooks fall
+    # back to that, with everything done in the launch stage.
+    clf_prepare = getattr(clf, "prepare", None) or (lambda texts: texts)
+    clf_transfer = getattr(clf, "transfer", None) or (lambda prepared: prepared)
+    clf_launch = getattr(clf, "launch", None) or clf.submit
+
     def tokenize_stage(rows_batch):
-        return rows_batch, clf.prepare([text for _, _, text in rows_batch])
+        return rows_batch, clf_prepare([text for _, _, text in rows_batch])
 
     def h2d_stage(item):
         rows_batch, prepared = item
         t0 = time.perf_counter()
-        return rows_batch, clf.launch(clf.transfer(prepared)), t0
+        return rows_batch, clf_launch(clf_transfer(prepared)), t0
 
     def batches(source):
         batch: List[Tuple[str, str, str]] = []

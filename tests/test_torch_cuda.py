@@ -349,3 +349,106 @@ def test_paged_kernel_on_two_streams(dev):
                 outs.append(paged_attention(*args, **kw))
     torch.cuda.synchronize()
     assert all(torch.equal(o, want) for o in outs)
+
+
+# ------------------------------------------------ word-count histograms
+# Exact against np.bincount (integer counts, order-free atomics).
+
+
+def _zipf_ids(n, ranks, seed, pad_share=0.01):
+    rng = np.random.default_rng(seed)
+    p = 1.0 / np.arange(1, ranks + 1)
+    ids = rng.permutation(ranks)[rng.choice(ranks, size=n, p=p / p.sum())]
+    ids[rng.random(n) < pad_share] = -1
+    return ids.astype(np.int32)
+
+
+def _bincount(ids, vocab):
+    return np.bincount(ids[(ids >= 0) & (ids < vocab)], minlength=vocab)
+
+
+def _one_card_mesh(dev):
+    from music_analyst_tpu_torch.parallel.mesh import data_parallel_mesh
+
+    return data_parallel_mesh(device=dev)
+
+
+def test_histogram_pad_ids_and_empty_stream(dev):
+    from music_analyst_tpu_torch.ops.histogram import token_histogram
+
+    rng = np.random.default_rng(0)
+    ids = rng.integers(-1, 1000, size=1_000_003).astype(np.int32)
+    ids[:5] = [-1, -7, 999, 1000, 5000]          # PAD_ID, negative, past vocab
+    got = token_histogram(torch.from_numpy(ids).to(dev), 1000)
+    assert got.device == dev and got.dtype == torch.int32
+    np.testing.assert_array_equal(got.cpu().numpy(), _bincount(ids, 1000))
+    empty = token_histogram(torch.zeros(0, dtype=torch.int32, device=dev), 9)
+    np.testing.assert_array_equal(empty.cpu().numpy(), np.zeros(9))
+    one = token_histogram(torch.tensor([0, -1, 0, 3], dtype=torch.int32,
+                                       device=dev), 1)
+    assert one.cpu().tolist() == [2]
+
+
+def test_histogram_zipf_hot_stream_both_device_paths(dev):
+    from music_analyst_tpu_torch.ops.histogram import (
+        sharded_histogram,
+        sharded_histogram_streaming,
+    )
+
+    vocab = 1 << 18
+    ids = _zipf_ids(20_000_000, vocab, seed=1)
+    want = _bincount(ids, vocab)
+    mesh = _one_card_mesh(dev)
+    got = sharded_histogram(ids, vocab, mesh)
+    np.testing.assert_array_equal(got.cpu().numpy(), want)
+    offsets = np.arange(0, ids.shape[0] + 1, 150, dtype=np.int64)
+    offsets[-1] = ids.shape[0]
+    stream = sharded_histogram_streaming(ids, offsets, vocab, mesh,
+                                         chunk_songs=10_000)
+    np.testing.assert_array_equal(stream, want)
+
+
+@pytest.mark.parametrize("depth", [0, 1, 2])
+def test_histogram_streaming_reuses_its_buffer_ring(dev, depth):
+    """Many more chunks than ring slots, of uneven sizes, so every pinned
+    and device buffer is rewritten many times: the counts must equal the
+    whole put's.  Reusing a pinned buffer before its copy has completed,
+    or a device buffer before its accumulate, would change them."""
+    from music_analyst_tpu_torch.ops.histogram import (
+        chunk_token_bounds,
+        sharded_histogram,
+        sharded_histogram_streaming,
+    )
+
+    rng = np.random.default_rng(2 + depth)
+    vocab = 50_000
+    ids = _zipf_ids(6_000_000, vocab, seed=3)
+    cuts = np.sort(rng.integers(0, ids.shape[0], size=3_999))
+    offsets = np.concatenate([[0], cuts, [ids.shape[0]]]).astype(np.int64)
+    mesh = _one_card_mesh(dev)
+    whole = sharded_histogram(ids, vocab, mesh).cpu().numpy()
+    assert len(chunk_token_bounds(offsets, 37)) - 1 > 10 * (depth + 1)
+    for _ in range(3):
+        got = sharded_histogram_streaming(ids, offsets, vocab, mesh,
+                                          chunk_songs=37, prefetch_depth=depth)
+        np.testing.assert_array_equal(got, whole)
+    np.testing.assert_array_equal(whole, _bincount(ids, vocab))
+
+
+def test_histogram_device_ids_holds_no_int64_copy(dev):
+    """The device-ids path keeps 4 bytes per id on the card plus one
+    slice of temporaries; an int64 copy of the stream would add 8 per id."""
+    from music_analyst_tpu_torch.ops import histogram
+
+    n, vocab = 64 << 20, 1 << 16
+    ids = np.random.default_rng(4).integers(-1, vocab, size=n).astype(np.int32)
+    mesh = _one_card_mesh(dev)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    got = histogram.sharded_histogram(ids, vocab, mesh).cpu().numpy()
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    np.testing.assert_array_equal(got, _bincount(ids, vocab))
+    limit = 4 * n + 8 * histogram._SLICE + 8 * (vocab + 1) + (8 << 20)
+    assert peak <= limit < 12 * n, (peak, limit)

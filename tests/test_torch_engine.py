@@ -145,3 +145,79 @@ def test_stage_failure_reaches_the_caller(fixture_csv, tmp_path, depth):
         run_sentiment(str(fixture_csv), backend=Broken(device="cpu"),
                       output_dir=str(tmp_path), quiet=True,
                       prefetch_depth=depth)
+
+
+class _SubmitCollectOnly:
+    """A backend with only submit/collect, like a user plugin."""
+
+    name = "duck"
+    reports_latency = False
+
+    def submit(self, texts):
+        return ["Positive" if "love" in t.lower() else "Neutral" for t in texts]
+
+    def collect(self, handle):
+        return handle
+
+
+@pytest.mark.parametrize("depth", [0, 2])
+def test_duck_typed_backend_matches_jax(fixture_csv, tmp_path, depth):
+    jax_run(str(fixture_csv), backend=_SubmitCollectOnly(),
+            output_dir=str(tmp_path / "jax"), quiet=True, batch_size=3,
+            prefetch_depth=depth)
+    run_sentiment(str(fixture_csv), backend=_SubmitCollectOnly(),
+                  output_dir=str(tmp_path / "port"), quiet=True, batch_size=3,
+                  prefetch_depth=depth)
+    assert _totals(tmp_path / "port") == _totals(tmp_path / "jax")
+    assert _details(tmp_path / "port") == _details(tmp_path / "jax")
+
+
+def test_weight_quant_order_of_checks_matches_jax():
+    from music_analyst_tpu.engines.sentiment import get_backend as jax_backend
+
+    for model, mock in (("mock", True), ("distilbert-tiny", True),
+                        ("ollama:llama3", False)):
+        with pytest.raises(ValueError, match="on-device model option"):
+            jax_backend(model, mock=mock, weight_quant="int8")
+        with pytest.raises(ValueError, match="on-device model option"):
+            get_backend(model, mock=mock, weight_quant="int8", device="cpu")
+
+
+# JAX flags at their no-op values run; any other value is a usage error.
+_NO_OP_FLAGS = [
+    ["--weight-quant", "none"], ["--no-telemetry"], ["--devices", "1"],
+    ["--watchdog-timeout", "0"], ["--watchdog-timeout", "0.0"],
+]
+_UNPORTED_FLAGS = [
+    (["--weight-quant", "int8", "--model", "distilbert-tiny"], "not yet ported"),
+    (["--weight-quant", "int8"], "on-device model family"),
+    (["--devices", "2"], "not yet ported"),
+    (["--trace-dir", "t"], "not yet ported"),
+    (["--telemetry-dir", "t"], "not yet ported"),
+    (["--profile-dir", "t"], "not yet ported"),
+    (["--watchdog-timeout", "5"], "not yet ported"),
+    (["--watchdog-timeout", "soon"], "number of seconds"),
+    (["--inject-faults", "ingest.read:error@1"], "not yet ported"),
+]
+
+
+@pytest.mark.parametrize("flags", _NO_OP_FLAGS, ids=" ".join)
+def test_sentiment_cli_accepts_no_op_flags(fixture_csv, tmp_path, flags):
+    assert port_main(["sentiment", str(fixture_csv), "--mock", "--device",
+                      "cpu", "--output-dir", str(tmp_path), *flags]) == 0
+    assert json.loads(_totals(tmp_path)) == {
+        "Positive": 3, "Neutral": 4, "Negative": 1,
+    }
+
+
+@pytest.mark.parametrize("flags,message", _UNPORTED_FLAGS,
+                         ids=[" ".join(f) for f, _ in _UNPORTED_FLAGS])
+def test_sentiment_cli_refuses_unported_values(fixture_csv, tmp_path, capsys,
+                                               flags, message):
+    backend = [] if "--model" in flags else ["--mock"]
+    with pytest.raises(SystemExit) as exc:
+        port_main(["sentiment", str(fixture_csv), *backend, "--device", "cpu",
+                   "--output-dir", str(tmp_path), *flags])
+    assert exc.value.code == 2
+    assert message in capsys.readouterr().err
+    assert not (tmp_path / "sentiment_totals.json").exists()

@@ -120,3 +120,12 @@ def test_llama_entry_points_raise_without_cuda(monkeypatch, fixture_csv,
             call()
     clf = get_backend("llama3-tiny", device="cpu")
     assert clf.device == torch.device("cpu")
+
+
+def test_scan_covers_the_wordcount_slice():
+    scanned = {str(p.relative_to(ROOT)) for p in _port_files()}
+    for rel in ("data/tokenizer.py", "data/vocab.py", "data/ingest.py",
+                "data/corpus_cache.py", "data/splitter.py", "metrics/timer.py",
+                "metrics/perf.py", "parallel/mesh.py", "ops/histogram.py",
+                "engines/wordcount.py", "engines/joint.py"):
+        assert f"music_analyst_tpu_torch/{rel}" in scanned
