@@ -47,7 +47,7 @@
 5. Drives the Llama slice at full width: ``LlamaConfig.llama3_8b()``
    (32 layers, seeded random bf16 weights drawn on the card) through
    ``run_sentiment`` in generate mode on the continuous paged scheduler
-   (64 songs, 8 slots, three runs, median reported; ``paged_attention``
+   (64 songs, 8 slots, one run after a warm-up on 16 prompts; ``paged_attention``
    must launch exactly once per layer per decode step), in score mode (16
    songs) and with int8 pages (16 prompts).  Checks: every song labelled,
    totals complete, one decode step's logits through the kernel against
@@ -60,8 +60,8 @@
    process on a generated 57,650-song CSV (the real dataset's row count,
    ~10 M tokens) in three layouts — auto (the word histogram streamed in
    chunks), ``--chunk-songs 0`` (host-shard) and ``--chunk-songs 0
-   --count-mode device-ids`` — three runs each, median songs/s, tokens/s and
-   stage seconds reported.  Every run's ``word_counts.csv`` and
+   --count-mode device-ids`` — one process each (``ANALYZE_REPEATS``),
+   songs/s, tokens/s and stage seconds reported.  Every run's ``word_counts.csv`` and
    ``top_artists.csv`` must equal a host ``np.bincount`` oracle over the
    same ingest and an ``--ingest python`` run byte for byte, and
    ``performance_metrics.json`` must say ``gpu`` and one process; one run
@@ -76,8 +76,32 @@
    time, the H2D share, peak device memory and the byte bound; a stream
    that drops its last chunk must break exactness.
 
-Prints the card's name and power limit, a ``{"kernels": [...]}`` line and,
-last, ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no
+7. Drives the quantized paths and ``wordcount-per-song``.  Products first
+   (after step 3): ``quant_matmul`` (dynamic) and ``wq_matmul`` int8 / int4
+   at the Llama-3-8B decode shapes (M = 8, the projections of q, gate, down
+   and lm_head) and one prefill shape (gate, M = 512), device time warm and
+   L2-flushed beside the bf16 cuBLAS product and the bound, each held
+   against its plain version on the CPU from the same codes (an int4
+   weight with its nibbles swapped, or one group's scale dropped, must
+   break the limit).  After step 4, full DistilBERT ``-int8`` and
+   ``weight_quant`` int8 / int4 through ``run_sentiment`` once each (flash
+   must launch), logits on the first 8,192 songs against the bf16 model on
+   the same weights, stored bytes and peak memory.  After step 6,
+   ``wordcount-per-song`` as one process on the 57,650-song CSV (global
+   counts sum to the per-song counts, ranked by count, one row group per
+   song with tokens).  After step 5 (whose bf16 generate phase runs once
+   now), Llama-3-8B with weights drawn on the card and quantized kernel by
+   kernel: ``weight_quant`` int8 in generate mode (64 songs, 8 continuous
+   slots) and score mode (16), int4 in generate mode (16), dynamic int8 in
+   score mode (16), paged attention once per layer per decode step; a
+   decoder layer rebuilt in f32 on the card and on the CPU from the same
+   codes must agree; stored bytes, init and run peak memory (the init
+   must peak below the bf16 weights' bytes), and a profiled decode
+   dispatch per weight scheme.
+
+Prints the card's name and power limit, a ``{"quant_gemm": [...]}`` line,
+a ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
+{...}}``.  Exits non-zero, printing no
 result, when no card is present or when run outside a checkout.  A fuller
 report goes to ``chiprun_out/chip_smoke.json``.
 """
@@ -179,6 +203,15 @@ def device_ms(torch, fn, iters: int, flush: bool = False) -> float:
     With ``flush``, each call follows a write to a 128 MB buffer, which
     pushes the inputs out of the 50 MB L2 (as each layer's pools are cold
     in the decode loop); the write's own kernel is left out."""
+    total = profiled_ms(torch, fn, iters, flush)
+    if not total:
+        fail("torch.profiler saw no device time: cannot time kernels")
+    return total
+
+
+def profiled_ms(torch, fn, iters: int, flush: bool = False) -> float:
+    """:func:`device_ms` without the failure: 0.0 when the profiler saw
+    no kernel."""
     from torch.profiler import ProfilerActivity, profile
 
     buf = (torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32, device="cuda")
@@ -193,8 +226,6 @@ def device_ms(torch, fn, iters: int, flush: bool = False) -> float:
         torch.cuda.synchronize()
     total = sum(ms for name, ms in device_kernel_ms(prof).items()
                 if "FillFunctor" not in name)
-    if not total:
-        fail("torch.profiler saw no device time: cannot time kernels")
     return total / iters
 
 
@@ -707,6 +738,7 @@ def main_path(torch, dev, dataset, card) -> dict:
 # The real dataset's row count (spotify_millsongdata.csv): ~10 M tokens of
 # the synthetic corpus, which `--chunk-songs auto` streams in ~5 chunks.
 ANALYZE_SONGS = 57_650
+ANALYZE_REPEATS = 1   # analyze processes per layout
 ANALYZE_LAYOUTS = {
     "auto_streaming": [],
     "host_shard": ["--chunk-songs", "0"],
@@ -800,9 +832,9 @@ def analyze_breakdown(torch, dev, corpus, dataset):
 
 def analyze_path(torch, dev, card) -> dict:
     """``analyze`` on the card at the real dataset's size in three layouts,
-    each three times; every layout, a ``--ingest python`` run and a host
-    ``np.bincount`` oracle must write the same bytes.  Returns the report
-    and the oracle's CSV bytes."""
+    ``ANALYZE_REPEATS`` processes each; every layout, a ``--ingest
+    python`` run and a host ``np.bincount`` oracle must write the same
+    bytes.  Returns the report and the oracle's CSV bytes."""
     import numpy as np
 
     from music_analyst_tpu_torch.cli.main import main as cli_main
@@ -832,7 +864,7 @@ def analyze_path(torch, dev, card) -> dict:
                   chunks=n_chunks, layouts={})
     for name, flags in ANALYZE_LAYOUTS.items():
         runs = []
-        for i in range(REPEATS):
+        for i in range(ANALYZE_REPEATS):
             out_dir = os.path.join(WORK, f"analyze_{name}")
             metrics, stdout, wall = analyze_cli(dataset, out_dir, flags)
             check_metrics(f"analyze {name}", metrics, songs, tokens)
@@ -1092,9 +1124,11 @@ PAGED_PLAIN_REL = 2.0 ** -5
 #    5e-2 of the logit scale (max |logit|).  A step that ignores the slot
 #    lengths (attends to every row of its pages) must break it.
 LLAMA_LOGIT_REL_TOL = 5e-2
-LLAMA_SONGS = 64          # generate mode, median of REPEATS runs
+LLAMA_SONGS = 64          # generate mode
+LLAMA_REPEATS = 1         # bf16 generate runs
 LLAMA_SCORE_SONGS = 16    # score mode, one batch
 LLAMA_INT8_PROMPTS = 16
+LLAMA_COMPARE = 16        # warm-up and static-vs-continuous prompts
 
 
 def paged_case(torch, dev, quantized: bool, seed: int = 5) -> dict:
@@ -1378,10 +1412,12 @@ def _step_inputs(torch, sched):
         active=arr([True] * len(slots), bool))
 
 
-def decode_logits_check(torch, clf, sched) -> dict:
+def decode_logits_check(torch, clf, sched, limit: bool = True) -> dict:
     """One decode step from the same pool state through the paged kernel
     and through dense attention over the gathered view; a step with the
-    slot lengths ignored must break the limit."""
+    slot lengths ignored must break the limit.  ``limit=False`` reports
+    the difference only (a model with dynamically quantized activations,
+    where a rounding tie can amplify attention's rounding differences)."""
     from music_analyst_tpu_torch.models.layers import KVCache
     from music_analyst_tpu_torch.ops.paged_attention import (
         PagedAttnView,
@@ -1425,7 +1461,11 @@ def decode_logits_check(torch, clf, sched) -> dict:
                argmax_agree=int((paged.argmax(-1) == dense.argmax(-1)).sum()),
                rows=int(dense.shape[0]))
     log(f"llama decode-step logits, paged kernel vs dense: {json.dumps(out)}")
-    if not torch.isfinite(paged).all() or diff > LLAMA_LOGIT_REL_TOL * scale:
+    if not torch.isfinite(paged).all():
+        fail("llama paged decode-step logits are not finite")
+    if not limit:
+        return out
+    if diff > LLAMA_LOGIT_REL_TOL * scale:
         fail(f"llama paged vs dense logits differ by {diff} "
              f"(> {LLAMA_LOGIT_REL_TOL} x {scale})")
     if bad <= LLAMA_LOGIT_REL_TOL * scale:
@@ -1509,15 +1549,16 @@ def llama_path(torch, dev, card) -> dict:
     prompts = [PROMPT_TEMPLATE.format(lyrics=t.strip()[:LYRICS_TRUNCATION])
                for _, _, t in songs]
 
-    # Warm-up that doubles as the continuous side of the token comparison.
+    # Warm-up that doubles as the continuous side of the token comparison
+    # (the first LLAMA_COMPARE prompts, to keep the script's time).
     t0 = time.perf_counter()
-    continuous = clf.generate_batch_continuous(prompts, max_new_tokens=16,
-                                               n_slots=PAGED_SLOTS)
+    continuous = clf.generate_batch_continuous(
+        prompts[:LLAMA_COMPARE], max_new_tokens=16, n_slots=PAGED_SLOTS)
     report["warmup_s"] = time.perf_counter() - t0
 
     out_dir = os.path.join(WORK, "llama_generate")
     runs = []
-    for _ in range(REPEATS):
+    for _ in range(LLAMA_REPEATS):
         clf._slot_schedulers.clear()            # each run: empty prefix cache
         torch.cuda.synchronize()
         kernels.reset_launches()
@@ -1557,16 +1598,14 @@ def llama_path(torch, dev, card) -> dict:
     log(f"llama generate mode on {card}: median {median['songs_per_s']:.2f} "
         f"songs/s (runs {[round(r, 2) for r in rates]}); {json.dumps(median)}")
 
-    # Continuous-paged vs static greedy text, 64 prompts (static in four
-    # batches of 16; a batch's padded width can differ from the
-    # continuous region, so this is a report, not a check).
-    static = []
-    for i in range(0, LLAMA_SONGS, 16):
-        static += clf.generate_batch(prompts[i:i + 16], max_new_tokens=16)
+    # Continuous-paged vs static greedy text on LLAMA_COMPARE prompts (a
+    # static batch's padded width can differ from the continuous region,
+    # so this is a report, not a check).
+    static = clf.generate_batch(prompts[:LLAMA_COMPARE], max_new_tokens=16)
     same = sum(a == b for a, b in zip(static, continuous))
     report["static_vs_continuous_same_text"] = same
     log(f"llama greedy text, continuous paged == static on {same} of "
-        f"{LLAMA_SONGS} prompts")
+        f"{LLAMA_COMPARE} prompts")
 
     # Score mode, one batch of 16.
     clf.decode_mode = "score"
@@ -1612,6 +1651,553 @@ def llama_path(torch, dev, card) -> dict:
     return report
 
 
+# ------------------------------------------ quantized inference (slice 7)
+
+# The Llama-3-8B projections at the 8-slot decode shape (M = 8, padded to
+# 32 rows inside the int8 product) and one prefill chunk of 64 tokens for
+# each of the 8 slots (M = 512).
+QUANT_SHAPES = [("q_proj", 8, 4096, 4096), ("gate_proj", 8, 4096, 14336),
+                ("down_proj", 8, 14336, 4096), ("lm_head", 8, 4096, 128256),
+                ("gate_proj", 512, 4096, 14336)]
+# Tolerances, with their reasons.
+#  - quantized products against their plain versions (CPU, float64 integer
+#    sums, same codes): the int32 accumulations are exact on both sides,
+#    so only the f32 epilogue (and, for int4, the sum over groups in
+#    another order) differs: 1e-6 of the output's largest magnitude.
+QUANT_REL_TOL = 1e-6
+#  - quantized DistilBERT against the bf16 flash model on the same weights,
+#    with the JAX package's own bounds: logit correlation > 0.99 for every
+#    scheme (tests/test_wq_store.py:83-93 holds int4 to that), and for the
+#    int8 schemes max |diff| < 0.1 of the bf16 logits' spread
+#    (tests/test_quant.py:54-77, a dynamic int8 bound).  The JAX package
+#    holds int4 to no such bound: its step (max|w| / 7 per group of 128)
+#    is ~18x int8's, and its max |diff| is reported.
+QUANT_LOGIT_CORR = 0.99
+QUANT_LOGIT_SPREAD = 0.1
+#  - one quantized layer (DistilBERT encoder layer 0 on 8 x 128 tokens;
+#    Llama decoder layer 0 on 64 tokens): every quantized projection, in
+#    f32 on the card and on the CPU from the same codes and the same input
+#    (the layer's own activations), within QUANT_REL_TOL.  The whole layer
+#    in f32 on both is reported, not limited: the float operations before
+#    each product (LayerNorm, softmax, GELU) differ by ulps between the
+#    card and the CPU, which moves activation codes at rounding ties.
+# Each limit is shown to catch a broken variant in every run: int4 codes
+# with their nibbles swapped and one group's scale dropped (products), the
+# model with every o_proj zeroed (DistilBERT; the correlation alone does
+# not catch it, since a random model's logits vary little from song to
+# song), each layer projection with one scale or weight row dropped.
+LLAMA_WQ_SONGS = 64        # weight_quant int8, generate mode
+LLAMA_WQ_INT4_SONGS = 16   # weight_quant int4, generate mode
+LLAMA_Q_SCORE_SONGS = 16   # weight_quant int8 and dynamic int8, score mode
+
+
+def _swap_nibbles(torch, q):
+    lo = torch.bitwise_and(q, 0x0F)
+    hi = torch.bitwise_and(torch.bitwise_right_shift(q, 4), 0x0F)
+    return torch.bitwise_or(torch.bitwise_left_shift(lo, 4), hi)
+
+
+def _rel_err(got, want) -> float:
+    return float((got.float().cpu() - want).abs().max()) / max(
+        float(want.abs().max()), 1e-30)
+
+
+def quant_gemm_probe(torch, dev) -> list:
+    """The quantized products at the Llama-3-8B decode and prefill shapes:
+    device time (torch.profiler, warm and L2-flushed) of ``quant_matmul``
+    (dynamic, the weight quantized inside the call) and ``wq_matmul`` int8
+    / int4 beside the bf16 cuBLAS product; each card result against its
+    plain version on the CPU from the same codes."""
+    import dataclasses
+
+    from music_analyst_tpu_torch.ops import quant
+
+    gen = torch.Generator(device=dev).manual_seed(7)
+    rows = []
+    for i, (proj, M, K, N) in enumerate(QUANT_SHAPES):
+        x = torch.randn(M, K, device=dev, generator=gen).to(torch.bfloat16)
+        w = (torch.randn(N, K, device=dev, generator=gen)
+             * K ** -0.5).to(torch.bfloat16)                  # [out, in]
+        qps = {s: quant.kernel_major(quant.quantize_array(w.t(), s))
+               for s in ("int8", "int4")}
+        fns = {
+            "bf16": lambda: x @ w.t(),
+            "dynamic": lambda: quant.quant_matmul(x, w.t()),
+            "int8": lambda: quant.wq_matmul(x, qps["int8"]),
+            "int4": lambda: quant.wq_matmul(x, qps["int4"]),
+        }
+        xc = x.cpu()
+        plains = {
+            "dynamic": lambda: quant.quant_matmul(xc, w.cpu().t()),
+            "int8": lambda: quant.wq_matmul(xc, qps["int8"].to("cpu")),
+            "int4": lambda: quant.wq_matmul(xc, qps["int4"].to("cpu")),
+        }
+        G = K // qps["int4"].group_size
+        weight_bytes = {"bf16": 2 * K * N, "dynamic": 2 * K * N,
+                        "int8": K * N + 4 * N, "int4": K * N // 2 + 4 * G * N}
+        iters = 3 if proj == "lm_head" or M > 8 else 10
+        entry = dict(proj=proj, M=M, K=K, N=N, groups=G)
+        for name, fn in fns.items():
+            out = fn()
+            torch.cuda.synchronize()
+            res = dict(ms=profiled_ms(torch, fn, iters, flush=True),
+                       ms_warm=profiled_ms(torch, fn, iters), timed_by="profiler")
+            if not (res["ms"] and res["ms_warm"]):
+                # The profiler has been seen to record no kernel for the
+                # lm_head product: CUDA events around back-to-back calls.
+                res.update(ms=time_ms(torch, fn, iters),
+                           ms_warm=time_ms(torch, fn, iters), timed_by="events")
+            moved = weight_bytes[name] + 2 * M * K + out.element_size() * M * N
+            res["bound_ms"], res["bound_by"] = bound(
+                moved, 2 * M * K * N,
+                PEAK_BF16_FLOPS if name == "bf16" else PEAK_INT8_OPS)
+            if name != "bf16":
+                want = plains[name]()
+                err = _rel_err(out, want)
+                res["rel_err"] = err
+                if not torch.isfinite(out).all() or err > QUANT_REL_TOL:
+                    fail(f"quantized {name} {proj} M={M}: card vs plain "
+                         f"{err} of the scale (limit {QUANT_REL_TOL})")
+                if name == "int4" and i == 0:
+                    qp = qps["int4"]
+                    swapped = dataclasses.replace(
+                        qp, q=_swap_nibbles(torch, qp.q))
+                    scale = qp.scale.clone()
+                    scale[0] = 0
+                    dropped = dataclasses.replace(qp, scale=scale)
+                    res["broken"] = {
+                        "swapped_nibbles": _rel_err(
+                            quant.wq_matmul(x, swapped), want),
+                        "group_scale_dropped": _rel_err(
+                            quant.wq_matmul(x, dropped), want)}
+                    if min(res["broken"].values()) <= QUANT_REL_TOL:
+                        fail(f"the product limit passes a broken int4 "
+                             f"variant: {res['broken']}")
+            entry[name] = res
+        rows.append(entry)
+        log(f"quantized products {proj} M={M}: " + json.dumps(
+            {k: {kk: (round(vv, 5) if isinstance(vv, float) else vv)
+                 for kk, vv in v.items()} if isinstance(v, dict) else v
+             for k, v in entry.items()}))
+        del x, w, qps, fns, out
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _zero_o_proj(torch, model):
+    """Zero every layer's attention output projection in place; returns
+    the function that restores it."""
+    saved = []
+    for layer in model.encoder.layers:
+        proj = layer.attention.o_proj
+        t = proj.scale if getattr(proj, "q", None) is not None else proj.weight
+        saved.append((t, t.detach().clone()))
+        with torch.no_grad():
+            t.zero_()
+
+    def restore():
+        with torch.no_grad():
+            for t, value in saved:
+                t.copy_(value)
+
+    return restore
+
+
+def _f32_projection(torch, mod, where):
+    """An f32-output copy of a quantized projection on ``where``, holding
+    the same codes (or, for the dynamic path, the same weights)."""
+    from music_analyst_tpu_torch.models.layers import QuantLinear, WqLinear
+    from music_analyst_tpu_torch.ops.quant import WQ_DEFAULT_GROUP
+
+    bias = mod.bias is not None
+    if isinstance(mod, WqLinear):
+        copy = WqLinear(mod.in_features, mod.out_features, mod.scheme,
+                        bias=bias, dtype=torch.float32,
+                        kernel_shape=mod.kernel_shape,
+                        n_contract=mod.n_contract,
+                        group_size=mod.group_size or WQ_DEFAULT_GROUP,
+                        device=where)
+    else:
+        copy = QuantLinear(mod.in_features, mod.out_features, bias=bias,
+                           dtype=torch.float32, device=where)
+    copy.load_state_dict(mod.state_dict())
+    return copy.eval()
+
+
+def _break_projection(torch, mod) -> None:
+    """Drop one group's scale (int4), one output channel's scale (int8),
+    or one output channel's weights (dynamic)."""
+    with torch.no_grad():
+        if getattr(mod, "q", None) is None:
+            mod.weight[0].zero_()
+        elif mod.scheme == "int4":
+            mod.scale[0].zero_()
+        else:
+            mod.scale.view(-1)[0] = 0
+
+
+def quantized_layer_check(torch, dev, layer, run) -> dict:
+    """One quantized layer on the card: ``run(layer)`` drives it on the
+    card, and every quantized projection's input is recorded; each
+    projection, in f32 on the card and on the CPU from the same codes,
+    must give the same output on that input (the int32 sums are exact:
+    QUANT_REL_TOL), and the card copy with one scale (or weight row)
+    dropped must not.  The whole layer is then run in f32 on the card and
+    on the CPU and their difference reported: activation codes flip at
+    rounding ties when the float operations before a product differ by an
+    ulp, so that difference is a measurement, not a limit."""
+    import dataclasses
+
+    from music_analyst_tpu_torch.models.layers import QuantLinear, WqLinear
+
+    mods = {n: m for n, m in layer.named_modules()
+            if isinstance(m, (QuantLinear, WqLinear))}
+    caps = []
+    hooks = [m.register_forward_pre_hook(
+        lambda mod, args, n=n: caps.append((n, args[0].detach())))
+        for n, m in mods.items()]
+    try:
+        with torch.inference_mode():
+            run(layer)
+    finally:
+        for h in hooks:
+            h.remove()
+    worst, least_broken = 0.0, float("inf")
+    for name, x in caps:
+        card = _f32_projection(torch, mods[name], dev)
+        cpu = _f32_projection(torch, mods[name], "cpu")
+        with torch.inference_mode():
+            want = cpu(x.cpu())
+            err = _rel_err(card(x), want)
+            _break_projection(torch, card)
+            bad = _rel_err(card(x), want)
+        worst, least_broken = max(worst, err), min(least_broken, bad)
+        if err > QUANT_REL_TOL:
+            fail(f"quantized projection {name}: card vs CPU {err} of the "
+                 f"scale (limit {QUANT_REL_TOL})")
+    if least_broken <= QUANT_REL_TOL:
+        fail(f"the projection limit passes a dropped scale ({least_broken})")
+    return dict(projections=len(caps), max_rel_err=worst,
+                min_broken_rel_err=least_broken)
+
+
+def _whole_layer_f32(torch, dev, layer, make, run) -> dict:
+    """``layer`` rebuilt in f32 (``make(cfg)``) on the card and on the
+    CPU from the same state; ``run(layer, where)`` returns its output."""
+    state = {k: v.detach().cpu() for k, v in layer.state_dict().items()}
+    outs = {}
+    for where in ("cpu", dev):
+        copy = make()
+        copy.load_state_dict(state)
+        with torch.inference_mode():
+            outs[str(where)] = run(copy.to(where).eval(), where).cpu()
+    want = outs["cpu"]
+    return dict(max_abs_diff=float((outs[str(dev)] - want).abs().max()),
+                scale=float(want.abs().max()))
+
+
+def distilbert_layer_check(torch, dev, clf, tlen) -> dict:
+    """Encoder layer 0 of the quantized DistilBERT on 8 x 128 tokens of
+    random activations with the first songs' lengths."""
+    import dataclasses
+
+    from music_analyst_tpu_torch.models.distilbert import TransformerBlock
+
+    gen = torch.Generator().manual_seed(22)
+    x = torch.randn(8, clf.max_len, clf.config.dim, generator=gen)
+    lens = tlen[:8].to(torch.int32)
+    layer = clf.model.encoder.layers[0]
+    out = quantized_layer_check(
+        torch, dev, layer,
+        lambda l: l(x.to(dev, clf.config.torch_dtype), None, lens))
+    cfg32 = dataclasses.replace(clf.config, dtype="float32")
+    out["whole_layer_f32"] = _whole_layer_f32(
+        torch, dev, layer, lambda: TransformerBlock(cfg32),
+        lambda l, where: l(x.to(where), None, lens.to(where)))
+    return out
+
+
+def distilbert_quant_path(torch, dev, dataset, card) -> dict:
+    """Full DistilBERT, flash attention, at batch 8192 on the 16,384-song
+    corpus: ``-int8`` (dynamic) and ``weight_quant`` int8 / int4, each
+    through ``run_sentiment`` once, against the bf16 model on the same
+    weights (seed 0) on the first batch; encoder layer 0 against its plain
+    version on the CPU."""
+    import dataclasses
+
+    from music_analyst_tpu_torch import kernels
+    from music_analyst_tpu_torch.data.csv_io import iter_songs
+    from music_analyst_tpu_torch.engines.sentiment import run_sentiment
+    from music_analyst_tpu_torch.models.distilbert import (
+        DistilBertClassifier,
+        DistilBertConfig,
+    )
+    from music_analyst_tpu_torch.ops import quant
+    from music_analyst_tpu_torch.runtime.wire import to_device
+
+    texts = [t for _, _, t in iter_songs(dataset, limit=BATCH)]
+    cfg = DistilBertConfig(attn_impl="flash")
+    ref = DistilBertClassifier(config=cfg, seed=0, device=dev)
+    ids, lens = ref.tokenizer.encode_batch(texts, ref.max_len)
+    tid, tlen = to_device([ids, lens], dev)
+    want = ref.forward_logits(tid, tlen).float()
+    spread = float(want.max() - want.min())
+    report = dict(bf16_stored_bytes=quant.param_tree_bytes(ref.model)[
+        "stored_bytes"], bf16_logit_spread=spread)
+    del ref
+    torch.cuda.empty_cache()
+
+    def compare(logits):
+        a, b = logits.float().flatten(), want.flatten()
+        corr = float(torch.corrcoef(torch.stack([a, b]))[0, 1])
+        return corr, float((a - b).abs().max())
+
+    for name, field in (("int8_dynamic", dict(quant="int8")),
+                        ("wq_int8", dict(weight_quant="int8")),
+                        ("wq_int4", dict(weight_quant="int4"))):
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        clf = DistilBertClassifier(config=dataclasses.replace(cfg, **field),
+                                   seed=0, device=dev)
+        torch.cuda.synchronize()
+        entry = dict(init_s=time.perf_counter() - t0,
+                     bytes=quant.param_tree_bytes(clf.model))
+        logits = clf.forward_logits(tid, tlen)
+        corr, diff = compare(logits)
+        restore = _zero_o_proj(torch, clf.model)
+        bad_corr, bad_diff = compare(clf.forward_logits(tid, tlen))
+        restore()
+        diff_limit = QUANT_LOGIT_SPREAD * spread if name != "wq_int4" else None
+        entry.update(logit_corr=corr, max_abs_diff=diff, spread=spread,
+                     max_abs_diff_limit=diff_limit, broken_corr=bad_corr,
+                     broken_max_abs_diff=bad_diff)
+        if (not torch.isfinite(logits).all() or corr <= QUANT_LOGIT_CORR
+                or (diff_limit is not None and diff >= diff_limit)):
+            fail(f"distilbert {name}: logits vs bf16 corr {corr}, max |diff| "
+                 f"{diff} (spread {spread})")
+        if diff_limit is not None and bad_diff < diff_limit:
+            fail(f"distilbert {name}: the logit limits pass a model without "
+                 f"attention outputs (corr {bad_corr}, diff {bad_diff})")
+        entry["layer_check"] = distilbert_layer_check(torch, dev, clf, tlen)
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        quant.reset_quant_calls()
+        result = run_sentiment(dataset, backend=clf, batch_size=BATCH,
+                               quiet=True,
+                               output_dir=os.path.join(WORK, f"distilbert_{name}"))
+        torch.cuda.synchronize()
+        launches, calls = kernels.launches(), quant.quant_calls()
+        if launches["flash_attention"] == 0 or calls["int_mm"] == 0:
+            fail(f"distilbert {name}: launches {launches}, products {calls}")
+        if sum(result.counts.values()) != N_SONGS:
+            fail(f"distilbert {name}: totals {result.counts}")
+        entry.update(songs_per_s=result.songs_per_second, launches=launches,
+                     int_mm_calls=calls["int_mm"], totals=result.counts,
+                     peak_memory_bytes=torch.cuda.max_memory_allocated())
+        report[name] = entry
+        log(f"distilbert {name} on {card}: {result.songs_per_second:.1f} "
+            f"songs/s; {json.dumps(entry)}")
+        del clf, logits
+        torch.cuda.empty_cache()
+    return report
+
+
+def llama_layer_check(torch, dev, clf) -> dict:
+    """Decoder layer 0 of the quantized Llama on 64 tokens of random
+    activations (causal mask)."""
+    import dataclasses
+
+    from music_analyst_tpu_torch.models.layers import causal_mask
+    from music_analyst_tpu_torch.models.llama import LlamaBlock
+
+    gen = torch.Generator().manual_seed(21)
+    x = torch.randn(1, 64, clf.config.dim, generator=gen)
+    pos = torch.arange(64)[None, :]
+    mask = causal_mask(64, 64, 0)
+    layer = clf.model.layers[0]
+    out = quantized_layer_check(
+        torch, dev, layer,
+        lambda l: l(x.to(dev, clf.config.torch_dtype), mask.to(dev),
+                    pos.to(dev)))
+    cfg32 = dataclasses.replace(clf.config, dtype="float32")
+    out["whole_layer_f32"] = _whole_layer_f32(
+        torch, dev, layer, lambda: LlamaBlock(cfg32),
+        lambda l, where: l(x.to(where), mask.to(where), pos.to(where))[0])
+    return out
+
+
+def llama_quant_path(torch, dev, card) -> dict:
+    """Full-width Llama-3-8B with random weights drawn on the card and
+    quantized kernel by kernel: weight_quant int8 (generate, 64 songs on
+    8 continuous slots; score, 16), weight_quant int4 (generate, 16) and
+    dynamic int8 (score, 16), each through ``run_sentiment`` once."""
+    import dataclasses
+
+    from music_analyst_tpu_torch import kernels
+    from music_analyst_tpu_torch.data.csv_io import iter_songs
+    from music_analyst_tpu_torch.data.synthetic import generate_dataset
+    from music_analyst_tpu_torch.engines.sentiment import run_sentiment
+    from music_analyst_tpu_torch.models.llama import (
+        LYRICS_TRUNCATION,
+        PROMPT_TEMPLATE,
+        LlamaConfig,
+        LlamaZeroShotClassifier,
+    )
+    from music_analyst_tpu_torch.ops import quant
+    from music_analyst_tpu_torch.utils.labels import SUPPORTED_LABELS
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dataset = os.path.join(WORK, f"songs_{LLAMA_SONGS}.csv")
+    if not os.path.exists(dataset):
+        generate_dataset(dataset, num_songs=LLAMA_SONGS, seed=13)
+    prompts = [PROMPT_TEMPLATE.format(lyrics=t.strip()[:LYRICS_TRUNCATION])
+               for _, _, t in iter_songs(dataset)]
+    base = LlamaConfig.llama3_8b()
+    bf16_bytes = 2 * (2 * base.vocab_size * base.dim + base.n_layers * (
+        2 * base.dim * base.dim + 2 * base.dim * base.head_dim
+        * base.n_kv_heads + 3 * base.dim * base.hidden_dim))
+    report = dict(bf16_weight_bytes=bf16_bytes)
+
+    def build(**field):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        clf = LlamaZeroShotClassifier(
+            config=dataclasses.replace(base, **field),
+            max_prompt_len=PAGED_REGION, device=dev, seed=0,
+            decode_mode="generate", continuous_slots=PAGED_SLOTS)
+        torch.cuda.synchronize()
+        info = dict(init_s=time.perf_counter() - t0,
+                    init_peak_memory_bytes=torch.cuda.max_memory_allocated(),
+                    bytes=quant.param_tree_bytes(clf.model))
+        return clf, info
+
+    def run(clf, mode, n, tag):
+        clf.decode_mode = mode
+        clf._slot_schedulers.clear()
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        quant.reset_quant_calls()
+        result = run_sentiment(dataset, backend=clf, limit=n, batch_size=n,
+                               quiet=True,
+                               output_dir=os.path.join(WORK, f"llama_{tag}"))
+        torch.cuda.synchronize()
+        launches, calls = kernels.launches(), quant.quant_calls()
+        labels = [r.label for r in result.rows]
+        if (len(labels) != n or sum(result.counts.values()) != n
+                or any(label not in SUPPORTED_LABELS for label in labels)):
+            fail(f"llama {tag}: totals {result.counts} over {len(labels)} rows")
+        if calls["int_mm"] == 0:
+            fail(f"llama {tag}: no quantized product ran")
+        out = dict(songs_per_s=result.songs_per_second, launches=launches,
+                   int_mm_calls=calls["int_mm"], totals=result.counts)
+        if mode == "generate":
+            (sched,) = clf._slot_schedulers.values()
+            stats = sched.stats()
+            want = clf.config.n_layers * stats["decode_steps"]
+            if launches["paged_attention"] != want or want == 0:
+                fail(f"llama {tag}: paged_attention launched "
+                     f"{launches['paged_attention']} times, expected {want}")
+            out.update(
+                prefill_tokens_per_s=stats["prefill_tokens"]
+                / stats["prefill_seconds"],
+                decode_tokens_per_s=stats["tokens_generated"]
+                / stats["decode_seconds"],
+                ms_per_decode_step=stats["decode_seconds"]
+                / stats["decode_steps"] * 1e3,
+                decode_steps=stats["decode_steps"],
+                tokens_generated=stats["tokens_generated"])
+        log(f"llama {tag} on {card}: {json.dumps(out)}")
+        return out
+
+    clf, info = build(weight_quant="int8")
+    report["wq_int8"] = dict(info, layer_check=llama_layer_check(torch, dev, clf))
+    report["wq_int8"]["generate"] = run(clf, "generate", LLAMA_WQ_SONGS,
+                                        "wq_int8_generate")
+    report["wq_int8"]["score"] = run(clf, "score", LLAMA_Q_SCORE_SONGS,
+                                     "wq_int8_score")
+    clf._slot_schedulers.clear()
+    sched = _active_scheduler(torch, clf, prompts)
+    report["wq_int8"]["decode_logits_paged_vs_dense"] = decode_logits_check(
+        torch, clf, sched, limit=False)
+    report["wq_int8"]["decode_breakdown"] = decode_breakdown(torch, sched)
+    report["wq_int8"]["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    del sched, clf
+    clf, info = build(weight_quant="int4")
+    report["wq_int4"] = dict(info, layer_check=llama_layer_check(torch, dev, clf))
+    report["wq_int4"]["generate"] = run(clf, "generate", LLAMA_WQ_INT4_SONGS,
+                                        "wq_int4_generate")
+    clf._slot_schedulers.clear()
+    sched = _active_scheduler(torch, clf, prompts)
+    report["wq_int4"]["decode_breakdown"] = decode_breakdown(torch, sched)
+    report["wq_int4"]["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    del sched, clf
+    clf, info = build(quant="int8")
+    report["int8_dynamic"] = dict(info,
+                                  layer_check=llama_layer_check(torch, dev, clf))
+    report["int8_dynamic"]["score"] = run(clf, "score", LLAMA_Q_SCORE_SONGS,
+                                          "int8_dynamic_score")
+    report["int8_dynamic"]["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    del clf
+    torch.cuda.empty_cache()
+    for name in ("wq_int8", "wq_int4"):
+        peak = report[name]["init_peak_memory_bytes"]
+        if peak >= bf16_bytes:
+            fail(f"llama {name}: init peaked at {peak} bytes, no less than the "
+                 f"bf16 weights ({bf16_bytes})")
+    log(f"llama quantized: " + json.dumps(
+        {k: {kk: vv for kk, vv in v.items() if kk in (
+            "init_s", "init_peak_memory_bytes", "peak_memory_bytes",
+            "layer_check")} for k, v in report.items() if isinstance(v, dict)}))
+    return report
+
+
+def persong_path(dataset, card) -> dict:
+    """``wordcount-per-song`` as one process on the analyze corpus; the
+    two files must agree with each other and with the CSV."""
+    import csv
+
+    from music_analyst_tpu_torch.data.tokenizer import tokenize_latin1
+
+    out_dir = os.path.join(WORK, "persong")
+    t0 = time.perf_counter()
+    # csv.Sniffer takes this corpus's spaces for the delimiter (in both
+    # packages), so the delimiter is given, as a user of the tool would.
+    proc = subprocess.run(
+        [sys.executable, "-m", "music_analyst_tpu_torch", "wordcount-per-song",
+         dataset, "--output-dir", out_dir, "--delimiter", ","],
+        cwd=ROOT, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"wordcount-per-song rc {proc.returncode}: {proc.stderr[-2000:]}")
+    with open(os.path.join(out_dir, "word_counts_global.csv"), newline="",
+              encoding="utf-8") as fh:
+        ranked = [(w, int(c)) for w, c in list(csv.reader(fh))[1:]]
+    per_song_total, keyed = 0, set()
+    with open(os.path.join(out_dir, "word_counts_by_song.csv"), newline="",
+              encoding="utf-8") as fh:
+        for artist, song, _, count in list(csv.reader(fh))[1:]:
+            per_song_total += int(count)
+            keyed.add((artist, song))
+    rows = with_tokens = 0
+    with open(dataset, newline="", encoding="utf-8-sig") as fh:
+        for row in csv.DictReader(fh):
+            rows += 1
+            if next(iter(tokenize_latin1(row.get("text") or "")), None):
+                with_tokens += 1
+    counts = [c for _, c in ranked]
+    out = dict(songs=rows, process_wall_s=wall, songs_per_s=rows / wall,
+               words=len(ranked), tokens=sum(counts),
+               songs_with_tokens=with_tokens)
+    if (sum(counts) != per_song_total or counts != sorted(counts, reverse=True)
+            or len(keyed) != with_tokens
+            or f"Processed {rows} row(s)" not in proc.stdout):
+        fail(f"wordcount-per-song: inconsistent outputs {json.dumps(out)} "
+             f"(per-song total {per_song_total}, keyed songs {len(keyed)})")
+    log(f"wordcount-per-song on {card}: {json.dumps(out)}")
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -1654,17 +2240,32 @@ def main() -> int:
                                lyric_share)
     del x, corpus_batch
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    report["quant_gemm"] = quant_gemm_probe(torch, dev)
+    slice7_s = time.perf_counter() - t0
     report["main_path"] = main_path(torch, dev, dataset, card)
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    report["distilbert_quant"] = distilbert_quant_path(torch, dev, dataset,
+                                                       card)
+    slice7_s += time.perf_counter() - t0
     t0 = time.perf_counter()
     report["analyze"], oracle = analyze_path(torch, dev, card)
     report["joint"] = joint_path(torch, card, report["analyze"], oracle)
     report["histogram"] = histogram_path(torch, dev, card)
     report["slice6_s"] = time.perf_counter() - t0
     log(f"word-count, joint and histogram phases: {report['slice6_s']:.1f} s")
+    t0 = time.perf_counter()
+    report["persong"] = persong_path(report["analyze"]["dataset"], card)
+    slice7_s += time.perf_counter() - t0
     report["paged"] = check_paged(torch, dev)
     torch.cuda.empty_cache()
     report["llama"] = llama_path(torch, dev, card)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    report["llama_quant"] = llama_quant_path(torch, dev, card)
+    report["slice7_s"] = slice7_s + time.perf_counter() - t0
+    log(f"quantized and per-song phases: {report['slice7_s']:.1f} s")
     report["seconds"] = time.perf_counter() - t_start
 
     timing = report["timing"]
@@ -1678,6 +2279,9 @@ def main() -> int:
              launches=mp["distilbert_flat"]["launches"]["flash_attention"],
              joint_launches=report["joint"]["distilbert"]["launches"][
                  "flash_attention"],
+             **{f"{name}_launches": report["distilbert_quant"][name][
+                 "launches"]["flash_attention"]
+                for name in ("int8_dynamic", "wq_int8", "wq_int4")},
              max_abs_err=max(errs.values()),
              **{key: timing["flash_attention"][key] for key in
                 ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}),
@@ -1694,6 +2298,10 @@ def main() -> int:
              source="music_analyst_tpu_torch/csrc/paged_attention.cu",
              replaces="music_analyst_tpu/ops/paged_attention.py:138",
              launches=report["llama"]["generate"]["launches"]["paged_attention"],
+             wq_launches=report["llama_quant"]["wq_int8"]["generate"][
+                 "launches"]["paged_attention"],
+             wq_int4_launches=report["llama_quant"]["wq_int4"]["generate"][
+                 "launches"]["paged_attention"],
              max_abs_err=max(v["max_abs_err"] for v in report["paged"].values()),
              **{key: report["paged"]["bf16"][key] for key in
                 ("ms", "ms_l2_flushed", "event_ms", "host_us", "plain_ms",
@@ -1710,6 +2318,7 @@ def main() -> int:
         f"joint mock {report['joint']['mock']['songs_per_s']:.1f}, joint "
         f"distilbert {report['joint']['distilbert']['songs_per_s']:.1f}; "
         f"total {report['seconds']:.1f} s")
+    print(json.dumps({"quant_gemm": report["quant_gemm"]}))
     print(json.dumps(kernels_line))
     print(card)
     print(json.dumps({"ok": True, "device": {

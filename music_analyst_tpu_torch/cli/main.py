@@ -2,15 +2,17 @@
 
 Counterpart of ``music_analyst_tpu/cli/main.py`` for the subcommands
 ported so far — ``analyze`` (with ``--with-sentiment``, the joint
-pipeline), ``sentiment`` and ``split`` — with the JAX flags and defaults,
+pipeline), ``sentiment`` (``--weight-quant``, ``--model ollama[:tag]``),
+``wordcount-per-song`` and ``split`` — with the JAX flags and defaults,
 plus ``--device {cuda,cpu}`` on ``analyze`` and ``sentiment`` (the
 counterpart of ``JAX_PLATFORMS``; default ``cuda``, which fails rather
-than falling back when no card is present).  ``split`` is host-only.
+than falling back when no card is present).  ``wordcount-per-song`` takes
+``--device`` too, though it is host-only like ``split``.
 
 Every JAX flag parses.  A flag whose feature is not ported yet passes at
 its default or no-op value (``--no-telemetry``, ``--devices 1``,
-``--weight-quant none``, ``--watchdog-timeout 0``) and is a usage error
-naming the flag at any other value.
+``--watchdog-timeout 0``) and is a usage error naming the flag at any
+other value.
 """
 
 from __future__ import annotations
@@ -160,10 +162,11 @@ def _add_sentiment(sub: argparse._SubParsersAction) -> None:
     p.add_argument("dataset")
     # Reference flags (scripts/sentiment_classifier.py:128-136)
     p.add_argument("--model", default="llama3",
-                   help="Model family: mock, distilbert[-tiny][-packed], "
-                        "llama3[-8b|-tiny] (the 8B needs "
+                   help="Model family: mock, distilbert[-tiny][-packed]"
+                        "[-int8], llama3[-8b|-tiny][-int8] (the 8B needs "
                         "$MUSICAAL_LLAMA_CKPT; $MUSICAAL_CONTINUOUS_SLOTS "
-                        "selects continuous generation)")
+                        "selects continuous generation), ollama[:tag] "
+                        "($OLLAMA_ENDPOINT)")
     p.add_argument("--limit", type=int, default=None)
     p.add_argument("--output-dir", default="output")
     p.add_argument("--mock", action="store_true",
@@ -181,9 +184,30 @@ def _add_sentiment(sub: argparse._SubParsersAction) -> None:
                         "or $MUSICAAL_PREFETCH_DEPTH; 0 = no overlap)")
     p.add_argument("--weight-quant", choices=("none", "int8", "int4"),
                    default="none",
-                   help="Quantized weight store (only 'none' is ported)")
+                   help="Store model weights quantized on the device "
+                        "(int8 per-channel / int4 grouped); checkpoints "
+                        "stream layer by layer through the quantized "
+                        "cache ($MUSICAAL_WQ_CACHE)")
     _add_device_flag(p)
     _add_run_flags(p)
+
+
+def _add_wordcount_per_song(sub: argparse._SubParsersAction) -> None:
+    p = sub.add_parser(
+        "wordcount-per-song",
+        help="serial per-song word counts (independent oracle)",
+    )
+    # Reference flags (scripts/word_count_per_song.py:52-81)
+    p.add_argument("csv_path")
+    p.add_argument("--output-dir", default="output/serial_word_counts")
+    p.add_argument("--encoding", default="utf-8-sig")
+    p.add_argument("--delimiter", default=None)
+    p.add_argument("--workers", type=int, default=0)
+    p.add_argument("--chunk-rows", type=int, default=512,
+                   help="Rows per tokenize task (streaming granularity; "
+                        "bounds in-flight memory)")
+    _add_device_flag(p)
+    _add_run_flags(p, devices=False)
 
 
 def _add_split(sub: argparse._SubParsersAction) -> None:
@@ -248,7 +272,6 @@ def _run_sentiment(parser: argparse.ArgumentParser,
                 "--weight-quant requires an on-device model family "
                 "(distilbert[-*] or llama[3*])"
             )
-        parser.error(f"--weight-quant {args.weight_quant} {_NOT_PORTED}")
     run_sentiment(
         args.dataset,
         model=args.model,
@@ -260,6 +283,25 @@ def _run_sentiment(parser: argparse.ArgumentParser,
         length_buckets=args.length_buckets,
         prefetch_depth=args.prefetch_depth,
         device=args.device,
+        weight_quant=args.weight_quant,
+    )
+    return 0
+
+
+def _run_wordcount_per_song(args: argparse.Namespace) -> int:
+    from music_analyst_tpu_torch.device import resolve_device
+    from music_analyst_tpu_torch.engines.persong import run_per_song_wordcount
+
+    # Host-only work; the device rule of every entry point still holds
+    # (the default cuda refuses a machine without a card).
+    resolve_device(args.device)
+    run_per_song_wordcount(
+        args.csv_path,
+        output_dir=args.output_dir,
+        encoding=args.encoding,
+        delimiter=args.delimiter,
+        workers=args.workers,
+        chunk_rows=args.chunk_rows,
     )
     return 0
 
@@ -290,6 +332,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     sub = parser.add_subparsers(dest="command", required=True)
     _add_analyze(sub)
     _add_sentiment(sub)
+    _add_wordcount_per_song(sub)
     _add_split(sub)
     args = parser.parse_args(argv)
     _check_run_flags(parser, args)
@@ -298,6 +341,8 @@ def main(argv: Optional[List[str]] = None) -> int:
         return _run_analyze(args)
     if args.command == "sentiment":
         return _run_sentiment(parser, args)
+    if args.command == "wordcount-per-song":
+        return _run_wordcount_per_song(args)
     if args.command == "split":
         return _run_split(args)
     parser.error(f"unknown command {args.command!r}")

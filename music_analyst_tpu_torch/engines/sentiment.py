@@ -7,11 +7,14 @@ artifacts are written byte for byte: ``sentiment_totals.json``
 (label→count, 2-space JSON) and ``sentiment_details.csv``
 (``artist,song,label,latency_seconds`` with 4-decimal latency).
 
-Backends ported so far: ``mock`` (keyword-scan kernel), ``distilbert*``
-(encoder classifier with the flash-attention kernel) and ``llama*``
-(zero-shot decoder; its continuous generation decodes through the
-paged-attention kernel).  Residency,
-failover, the watchdog and telemetry are not part of the port yet.
+Backends: ``mock`` (keyword-scan kernel), ``distilbert*`` (encoder
+classifier with the flash-attention kernel; ``-int8`` and ``weight_quant``
+quantize its projections), ``llama*`` (zero-shot decoder; its continuous
+generation decodes through the paged-attention kernel; ``-int8`` and
+``weight_quant`` as for DistilBERT) and ``ollama[:tag]`` (the reference's
+HTTP path, whose per-song request latency is written as measured).
+Residency, failover, the watchdog and telemetry are not part of the port
+yet.
 """
 
 from __future__ import annotations
@@ -131,14 +134,17 @@ def get_backend(
             "weight_quant is an on-device model option; "
             f"model {model!r} does not support it"
         )
-    if has_wq:
-        raise NotImplementedError(
-            "weight_quant is not yet ported to music_analyst_tpu_torch"
-        )
     if mock or model == "mock":
         from music_analyst_tpu_torch.models.mock import MockKeywordClassifier
 
         return MockKeywordClassifier(device=device, **kwargs)
+    if model.startswith("ollama:") or model == "ollama":
+        from music_analyst_tpu_torch.models.ollama import OllamaClassifier
+
+        tag = model.split(":", 1)[1] if ":" in model else "llama3"
+        return OllamaClassifier(model=tag, **kwargs)
+    if has_wq:
+        kwargs["weight_quant"] = weight_quant
     if model.startswith("distilbert"):
         from music_analyst_tpu_torch.models.distilbert import (
             DistilBertClassifier,
@@ -159,10 +165,6 @@ def get_backend(
 
         return LlamaZeroShotClassifier.from_pretrained_or_random(
             model, device=device, **kwargs
-        )
-    if model.startswith("ollama"):
-        raise NotImplementedError(
-            f"model {model!r} is not yet ported to music_analyst_tpu_torch"
         )
     raise ValueError(
         f"unknown model {model!r}: expected 'mock', 'distilbert*' or 'llama*'"
@@ -216,6 +218,7 @@ def run_sentiment(
     length_buckets: Optional[Sequence[int]] = None,
     prefetch_depth: Optional[int] = None,
     device: DeviceLike = "cuda",
+    weight_quant: Optional[str] = None,
 ) -> SentimentResult:
     """Classify the dataset and write the reference output artifacts.
 
@@ -224,19 +227,25 @@ def run_sentiment(
     ``songs`` replaces the dataset read with ``(artist, song, text)`` rows.
     ``prefetch_depth`` bounds how many batches ride ahead of the device
     (default 2, ``$MUSICAAL_PREFETCH_DEPTH``; 0 = no overlap).  ``backend``
-    injects a constructed backend; otherwise one is built on ``device``.
+    injects a constructed backend; otherwise one is built on ``device``
+    (``weight_quant`` "int8"/"int4" stores the model's kernels quantized).
+    A backend that measures each song (``last_latencies``, Ollama) has its
+    latencies written as measured; others get the batch's amortized time.
     """
     if songs is not None and resume:
         raise ValueError("resume=True cannot be combined with songs=")
-    if backend is not None and _has_buckets(length_buckets):
+    if backend is not None and (
+            _has_buckets(length_buckets)
+            or weight_quant not in (None, "none")):
         raise ValueError(
-            "length_buckets= configures backend construction and cannot be "
-            "combined with an explicit backend="
+            "length_buckets=/weight_quant= configure backend construction "
+            "and cannot be combined with an explicit backend="
         )
     os.makedirs(output_dir, exist_ok=True)
     depth = resolve_prefetch_depth(prefetch_depth)
     clf = backend if backend is not None else get_backend(
-        model, mock=mock, length_buckets=length_buckets, device=device
+        model, mock=mock, length_buckets=length_buckets,
+        weight_quant=weight_quant, device=device,
     )
 
     totals_path = os.path.join(output_dir, "sentiment_totals.json")
@@ -263,7 +272,11 @@ def run_sentiment(
     def h2d_stage(item):
         rows_batch, prepared = item
         t0 = time.perf_counter()
-        return rows_batch, clf_launch(clf_transfer(prepared)), t0
+        handle = clf_launch(clf_transfer(prepared))
+        # Snapshot measured latencies now: a synchronous backend (Ollama)
+        # classifies inside launch and overwrites them on the next batch.
+        measured = getattr(clf, "last_latencies", None)
+        return rows_batch, handle, t0, list(measured) if measured else None
 
     def batches(source):
         batch: List[Tuple[str, str, str]] = []
@@ -293,16 +306,22 @@ def run_sentiment(
         # closing(): a collect()/write error must cancel and join the
         # pipeline threads, not leave them prefetching into a dead run.
         with contextlib.closing(pipe.run(batches(source))) as results:
-            for rows_batch, handle, t_submit in results:
+            for rows_batch, handle, t_submit, measured in results:
                 labels = clf.collect(handle)
-                # Submit→collect wall time per batch, amortized per song.
+                # Submit→collect wall time per batch, amortized per song,
+                # unless the backend measured each song.
                 elapsed = time.perf_counter() - t_submit
                 per_song = (
                     elapsed / max(1, len(rows_batch))
                     if clf.reports_latency else 0.0
                 )
-                for (artist, song, text), label in zip(rows_batch, labels):
-                    latency = 0.0 if not text.strip() else per_song
+                exact = measured and len(measured) == len(rows_batch)
+                for i, ((artist, song, text), label) in enumerate(
+                        zip(rows_batch, labels)):
+                    if exact:
+                        latency = measured[i]
+                    else:
+                        latency = 0.0 if not text.strip() else per_song
                     counts[label] += 1
                     rows.append(SentimentRow(artist, song, label, latency))
                     writer.writerow({

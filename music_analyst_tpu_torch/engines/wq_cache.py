@@ -1,0 +1,272 @@
+"""Content-addressed quantized-checkpoint cache.
+
+Counterpart of ``music_analyst_tpu/engines/wq_cache.py``, with the same
+key and on-disk layout, so an entry either package writes loads in the
+other to the same codes (the default directory is shared):
+
+* **Key**: (schema version, family, scheme, int4 group size, per-shard
+  sizes + BLAKE2b content hash of the source checkpoint).  Renames don't
+  invalidate; any byte change, or another scheme, does.
+* **Layout**: one directory per entry: ``meta.json`` listing the
+  "/"-joined Flax tree paths in load order, plus one ``.npy`` file per
+  leaf (``<i>.q.npy`` / ``<i>.scale.npy`` for quantized kernels in their
+  Flax layout, ``<i>.npy`` for float leaves).
+* **Streaming writer**: leaves are appended as the quantize-on-load
+  pipeline (``engines/checkpoint.py``) produces them; ``publish()``
+  renames the staged directory into place (concurrent writers race
+  benignly).  A failed store leaves the load uncached; it never fails it.
+* **Readback**: ``.npy`` files memory-mapped; any failure (a truncated
+  file, a stale schema, a shape that disagrees with ``meta.json``) counts
+  as corrupt, evicts the entry and reports a miss.
+
+Resolution: an explicit ``cache_dir`` wins, then ``$MUSICAAL_WQ_CACHE`` (a
+directory, or ``0``/``off``/``false``/``no`` to disable), then
+``~/.cache/musicaal_wq``.  Not ported: the JAX package's fault-injection
+seam, its telemetry mirror and its publish retries.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import json
+import os
+import shutil
+import threading
+import uuid
+from typing import Dict, Iterable, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from music_analyst_tpu_torch.ops.quant import QuantizedParam
+
+SCHEMA_VERSION = 1
+
+_META_NAME = "meta.json"
+_HASH_CHUNK = 1 << 22  # 4 MiB reads: streaming hash, bounded memory
+
+_STATS_LOCK = threading.Lock()
+_STATS: Dict[str, int] = {
+    "hits": 0,
+    "misses": 0,
+    "stores": 0,
+    "corrupt": 0,
+    "bytes_saved": 0,
+}
+
+
+def _bump(name: str, n: int = 1) -> None:
+    with _STATS_LOCK:
+        _STATS[name] += n
+
+
+def cache_stats() -> Dict[str, int]:
+    """Snapshot of this process's hit/miss/store/corrupt/bytes-saved."""
+    with _STATS_LOCK:
+        return dict(_STATS)
+
+
+def resolve_cache_dir(
+    cache_dir: Optional[str] = None, use_cache: Optional[bool] = None
+) -> Optional[str]:
+    """The directory to cache under, or ``None`` when caching is off."""
+    if use_cache is False:
+        return None
+    if cache_dir:
+        return cache_dir
+    env = os.environ.get("MUSICAAL_WQ_CACHE", "").strip()
+    if env.lower() in ("0", "off", "false", "no"):
+        return None
+    if env:
+        return env
+    return os.path.expanduser("~/.cache/musicaal_wq")
+
+
+def checkpoint_files(path: str) -> List[str]:
+    """The weight shard files a checkpoint path denotes (one file, or the
+    shard set ``models/llama.py:load_torch_state_dict`` merges)."""
+    if not os.path.isdir(path):
+        return [path]
+    names = sorted(os.listdir(path))
+    shards = [n for n in names
+              if n.startswith("pytorch_model") and n.endswith(".bin")]
+    if not shards:
+        shards = [n for n in names
+                  if n.endswith((".bin", ".pt"))
+                  and n not in ("training_args.bin", "optimizer.pt",
+                                "scheduler.pt", "rng_state.pth")]
+    return [os.path.join(path, n) for n in shards]
+
+
+def wq_key(
+    checkpoint_path: str, family: str, scheme: str, group_size: int
+) -> str:
+    """Content-addressed entry name for (checkpoint bytes, quant scheme)."""
+    digest = hashlib.blake2b(digest_size=16)
+    total = 0
+    for shard in checkpoint_files(checkpoint_path):
+        size = os.path.getsize(shard)
+        total += size
+        digest.update(os.path.basename(shard).encode("utf-8"))
+        digest.update(str(size).encode("ascii"))
+        with open(shard, "rb") as fh:
+            while True:
+                block = fh.read(_HASH_CHUNK)
+                if not block:
+                    break
+                digest.update(block)
+    group = f"-g{int(group_size)}" if scheme == "int4" else ""
+    return (
+        f"v{SCHEMA_VERSION}-{family}-{scheme}{group}"
+        f"-{total}-{digest.hexdigest()}"
+    )
+
+
+def _entry_bytes(entry: str) -> int:
+    total = 0
+    for name in os.listdir(entry):
+        try:
+            total += os.path.getsize(os.path.join(entry, name))
+        except OSError:
+            pass
+    return total
+
+
+def _host_array(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+class WqCacheWriter:
+    """Streaming store: leaves appended in load order, one atomic publish.
+
+    Never raises out of ``add``/``publish``: a failed store degrades to an
+    uncached load.
+    """
+
+    def __init__(self, cache_dir: str, key: str) -> None:
+        self._final = os.path.join(cache_dir, key)
+        self._tmp = os.path.join(
+            cache_dir, f"{key}.tmp-{os.getpid()}-{uuid.uuid4().hex[:8]}"
+        )
+        self._leaves: List[dict] = []
+        self._broken = os.path.exists(self._final)  # already published
+        if not self._broken:
+            try:
+                os.makedirs(self._tmp, exist_ok=True)
+            except OSError:
+                self._broken = True
+
+    def add(self, path_str: str, leaf) -> None:
+        if self._broken:
+            return
+        idx = len(self._leaves)
+        try:
+            if isinstance(leaf, QuantizedParam):
+                np.save(os.path.join(self._tmp, f"{idx}.q.npy"),
+                        _host_array(leaf.q))
+                np.save(os.path.join(self._tmp, f"{idx}.scale.npy"),
+                        _host_array(leaf.scale))
+                self._leaves.append({
+                    "path": path_str, "kind": "qp", "index": idx,
+                    "scheme": leaf.scheme, "shape": list(leaf.shape),
+                    "n_contract": leaf.n_contract,
+                    "group_size": leaf.group_size,
+                })
+            else:
+                arr = _host_array(leaf)
+                np.save(os.path.join(self._tmp, f"{idx}.npy"), arr)
+                self._leaves.append({
+                    "path": path_str, "kind": "array", "index": idx,
+                    "shape": list(arr.shape), "dtype": str(arr.dtype),
+                })
+        except Exception:
+            self.abort()
+
+    def publish(self) -> bool:
+        if self._broken:
+            self.abort()
+            return False
+        try:
+            meta = {"schema": SCHEMA_VERSION, "leaves": self._leaves}
+            with open(os.path.join(self._tmp, _META_NAME), "w",
+                      encoding="utf-8") as fh:
+                json.dump(meta, fh)
+            os.rename(self._tmp, self._final)
+        except Exception:
+            # Benign race: another writer published first.
+            self.abort()
+            return os.path.isdir(self._final)
+        _bump("stores")
+        return True
+
+    def abort(self) -> None:
+        self._broken = True
+        shutil.rmtree(self._tmp, ignore_errors=True)
+
+
+def load_entry(
+    cache_dir: str, key: str
+) -> Optional[List[Tuple[str, object]]]:
+    """Warm-path readback: ``[(tree_path, leaf), ...]`` in stored order,
+    arrays memory-mapped; ``None`` on a miss or corruption (entry
+    evicted)."""
+    entry = os.path.join(cache_dir, key)
+    if not os.path.isdir(entry):
+        _bump("misses")
+        return None
+    try:
+        with open(os.path.join(entry, _META_NAME), encoding="utf-8") as fh:
+            meta = json.load(fh)
+        if meta.get("schema") != SCHEMA_VERSION:
+            raise ValueError(f"stale cache schema {meta.get('schema')!r}")
+        out: List[Tuple[str, object]] = []
+        for rec in meta["leaves"]:
+            idx = rec["index"]
+            if rec["kind"] == "qp":
+                q = np.load(os.path.join(entry, f"{idx}.q.npy"),
+                            mmap_mode="r")
+                scale = np.load(os.path.join(entry, f"{idx}.scale.npy"),
+                                mmap_mode="r")
+                qp = QuantizedParam(
+                    q=q, scale=scale, scheme=rec["scheme"],
+                    shape=tuple(rec["shape"]),
+                    n_contract=int(rec["n_contract"]),
+                    group_size=int(rec["group_size"]),
+                )
+                expect0 = (qp.shape[0] // 2 if qp.scheme == "int4"
+                           else qp.shape[0])
+                if (q.shape[0] != expect0
+                        or tuple(q.shape[1:]) != qp.shape[1:]):
+                    raise ValueError(
+                        f"cached codes shape {q.shape} inconsistent with "
+                        f"kernel {qp.shape} ({qp.scheme})"
+                    )
+                out.append((rec["path"], qp))
+            else:
+                arr = np.load(os.path.join(entry, f"{idx}.npy"),
+                              mmap_mode="r")
+                if tuple(arr.shape) != tuple(rec["shape"]):
+                    raise ValueError(
+                        f"cached array shape {arr.shape} != meta "
+                        f"{rec['shape']}"
+                    )
+                out.append((rec["path"], arr))
+    except Exception:
+        _bump("corrupt")
+        _bump("misses")
+        shutil.rmtree(entry, ignore_errors=True)
+        return None
+    _bump("hits")
+    _bump("bytes_saved", _entry_bytes(entry))
+    return out
+
+
+def iter_entry_or_none(
+    cache_dir: Optional[str], key: Optional[str]
+) -> Optional[Iterable[Tuple[str, object]]]:
+    """``load_entry`` guarded for a disabled cache (no stats noise)."""
+    if not cache_dir or not key:
+        return None
+    return load_entry(cache_dir, key)

@@ -4,8 +4,17 @@ Counterpart of ``music_analyst_tpu/models/distilbert.py``: a 6-layer post-LN
 transformer encoder with learned positions and a CLS head, in the layout of
 ``distilbert-base-uncased-finetuned-sst-2-english`` so real checkpoints load
 (``load_hf_torch_checkpoint``), with seeded random init otherwise.
-``params_from_jax`` carries a JAX classifier's parameters over, which is how
-the parity tests give both packages the same weights.
+``params_from_jax`` carries a JAX classifier's parameters over (stored
+``QuantizedParam`` kernels included), which is how the parity tests give
+both packages the same weights.
+
+Quantized inference (JAX ``quant`` / ``weight_quant``): ``-int8`` runs the
+projections and the MLP through the dynamic int8 path; ``weight_quant``
+("int8" / "int4") stores them quantized (``models/layers.py:WqLinear``).
+Random weights are drawn as for the float model and then quantized; a
+checkpoint streams layer by layer through quantize-on-load and the
+quantized-checkpoint cache (``engines/checkpoint.py``,
+``engines/wq_cache.py``), so its float tree never exists whole.
 
 The port's default attention is ``attn_impl="flash"``: every encoder
 layer's attention runs the hand-written CUDA kernel
@@ -35,10 +44,14 @@ from music_analyst_tpu_torch.models.layers import (
     GeluMLP,
     LayerNorm,
     MultiHeadAttention,
+    WqLinear,
     padding_mask,
+    param_slots,
     segment_mask,
+    use_float_slots_,
 )
 from music_analyst_tpu_torch.models.tokenization import resolve_bert_tokenizer
+from music_analyst_tpu_torch.models.tree import as_tensor, f32, put_kernel
 from music_analyst_tpu_torch.runtime.wire import narrow_lengths, to_device
 from music_analyst_tpu_torch.utils.shapes import round_pow2
 
@@ -61,8 +74,23 @@ class DistilBertConfig:
     # "flash" = the CUDA flash-attention kernel (lengths + segment masks);
     # "dense" = materialised logits with a mask array.
     attn_impl: str = "flash"
+    # "int8" = dynamic-quant projections/MLP (ops/quant.py).
+    quant: str = "none"
+    # "int8"/"int4" = stored weight-quantized projection/MLP kernels;
+    # embeddings, norms and the classifier heads stay float.
+    weight_quant: str = "none"
 
     def __post_init__(self):
+        if self.weight_quant not in ("none", "int8", "int4"):
+            raise ValueError(
+                f"weight_quant must be none/int8/int4, got "
+                f"{self.weight_quant!r}"
+            )
+        if self.weight_quant != "none" and self.quant != "none":
+            raise ValueError(
+                "weight_quant and dynamic quant are mutually exclusive — "
+                "the stored-weight path already runs the int8 matmul"
+            )
         if self.attn_impl not in ("dense", "flash"):
             raise ValueError(
                 f"attn_impl must be dense/flash, got {self.attn_impl!r}"
@@ -90,10 +118,11 @@ class TransformerBlock(nn.Module):
         # HF DistilBERT q/k/v/out projections carry biases.
         self.attention = MultiHeadAttention(
             cfg.dim, cfg.n_heads, attn_impl=cfg.attn_impl, use_bias=True,
-            dtype=dtype,
+            dtype=dtype, quant=cfg.quant, weight_quant=cfg.weight_quant,
         )
         self.sa_layer_norm = LayerNorm(cfg.dim, LN_EPS)
-        self.ffn = GeluMLP(cfg.dim, cfg.hidden_dim, dtype=dtype)
+        self.ffn = GeluMLP(cfg.dim, cfg.hidden_dim, dtype=dtype,
+                           quant=cfg.quant, weight_quant=cfg.weight_quant)
         self.output_layer_norm = LayerNorm(cfg.dim, LN_EPS)
 
     def forward(self, x, mask, lengths=None, segment_ids=None):
@@ -180,66 +209,181 @@ class DistilBertForSentiment(nn.Module):
 def init_random_(model: DistilBertForSentiment, seed: int) -> None:
     """Seeded random init, drawn in f32 on the CPU from one generator:
     normal(0, 1/sqrt(fan_in)) linear weights, normal(0, 1/sqrt(rows))
-    embeddings, zero biases, unit LayerNorm scales."""
+    embeddings, zero biases, unit LayerNorm scales.  A weight-quantized
+    projection draws the same values and stores them quantized."""
     gen = torch.Generator().manual_seed(seed)
     with torch.no_grad():
-        for name, param in model.named_parameters():
-            owner = model.get_submodule(name.rsplit(".", 1)[0])
+        for name, shape, owner in param_slots(model):
             if isinstance(owner, LayerNorm):
                 value = (torch.ones if name.endswith("weight")
-                         else torch.zeros)(param.shape)
+                         else torch.zeros)(shape)
             elif name.endswith("bias"):
-                value = torch.zeros(param.shape)
+                value = torch.zeros(shape)
             else:
-                fan = param.shape[1] if isinstance(owner, nn.Linear) else param.shape[0]
-                value = torch.randn(param.shape, generator=gen) * fan ** -0.5
-            param.copy_(value)
+                linear = isinstance(owner, (nn.Linear, WqLinear))
+                fan = shape[1] if linear else shape[0]
+                value = torch.randn(shape, generator=gen) * fan ** -0.5
+            if isinstance(owner, WqLinear) and name.endswith("weight"):
+                owner.quantize_from_(value)
+            else:
+                model.get_parameter(name).copy_(value)
 
 
-def params_from_jax(tree: Mapping) -> Dict[str, np.ndarray]:
-    """Map the JAX classifier's parameter tree (numpy leaves) onto this
-    model's ``state_dict`` names and layouts.
+def params_from_jax(tree: Mapping) -> Dict[str, object]:
+    """Map the JAX classifier's parameter tree onto this model's
+    ``state_dict`` names and layouts.
 
     Flax ``Dense`` kernels are ``[in, out]`` (torch ``[out, in]``);
     ``DenseGeneral`` ``q/k/v_proj`` kernels are ``[dim, H, Dh]`` with bias
     ``[H, Dh]`` and ``o_proj`` is ``[H, Dh, dim]``; embeddings are
-    ``embedding``, LayerNorms ``scale``/``bias``.
+    ``embedding``, LayerNorms ``scale``/``bias``.  A stored quantized
+    kernel (any object with ``q``/``scale``/``scheme``, JAX's
+    ``QuantizedParam`` included) keeps its Flax layout as ``{name}.q`` and
+    ``{name}.scale`` (``WqLinear``'s buffers).  Leaves may be numpy arrays
+    or tensors; the result holds the same kind.
     """
-    def a(x):
-        return np.asarray(x, dtype=np.float32)
-
     enc = tree["encoder"]
-    out: Dict[str, np.ndarray] = {
-        "encoder.word_embeddings.weight": a(enc["word_embeddings"]["embedding"]),
+    out: Dict[str, object] = {
+        "encoder.word_embeddings.weight": f32(enc["word_embeddings"]["embedding"]),
         "encoder.position_embeddings.weight":
-            a(enc["position_embeddings"]["embedding"]),
-        "encoder.embed_layer_norm.weight": a(enc["embed_layer_norm"]["scale"]),
-        "encoder.embed_layer_norm.bias": a(enc["embed_layer_norm"]["bias"]),
+            f32(enc["position_embeddings"]["embedding"]),
+        "encoder.embed_layer_norm.weight": f32(enc["embed_layer_norm"]["scale"]),
+        "encoder.embed_layer_norm.bias": f32(enc["embed_layer_norm"]["bias"]),
     }
     n_layers = sum(1 for k in enc if k.startswith("layer_"))
     for i in range(n_layers):
         src = enc[f"layer_{i}"]
         dst = f"encoder.layers.{i}"
         att = src["attention"]
-        for proj in ("q_proj", "k_proj", "v_proj"):
-            kernel = a(att[proj]["kernel"])                  # [dim, H, Dh]
-            out[f"{dst}.attention.{proj}.weight"] = (
-                kernel.reshape(kernel.shape[0], -1).T.copy()
-            )
-            out[f"{dst}.attention.{proj}.bias"] = a(att[proj]["bias"]).reshape(-1)
-        o = a(att["o_proj"]["kernel"])                       # [H, Dh, dim]
-        out[f"{dst}.attention.o_proj.weight"] = o.reshape(-1, o.shape[-1]).T.copy()
-        out[f"{dst}.attention.o_proj.bias"] = a(att["o_proj"]["bias"])
+        for proj in ("q_proj", "k_proj", "v_proj", "o_proj"):
+            put_kernel(out, f"{dst}.attention.{proj}", att[proj]["kernel"],
+                       n_contract=2 if proj == "o_proj" else 1)
+            out[f"{dst}.attention.{proj}.bias"] = f32(att[proj]["bias"]).reshape(-1)
         for ln in ("sa_layer_norm", "output_layer_norm"):
-            out[f"{dst}.{ln}.weight"] = a(src[ln]["scale"])
-            out[f"{dst}.{ln}.bias"] = a(src[ln]["bias"])
+            out[f"{dst}.{ln}.weight"] = f32(src[ln]["scale"])
+            out[f"{dst}.{ln}.bias"] = f32(src[ln]["bias"])
         for lin in ("lin1", "lin2"):
-            out[f"{dst}.ffn.{lin}.weight"] = a(src["ffn"][lin]["kernel"]).T.copy()
-            out[f"{dst}.ffn.{lin}.bias"] = a(src["ffn"][lin]["bias"])
+            put_kernel(out, f"{dst}.ffn.{lin}", src["ffn"][lin]["kernel"])
+            out[f"{dst}.ffn.{lin}.bias"] = f32(src["ffn"][lin]["bias"])
     for head in ("pre_classifier", "classifier"):
-        out[f"{head}.weight"] = a(tree[head]["kernel"]).T.copy()
-        out[f"{head}.bias"] = a(tree[head]["bias"])
+        put_kernel(out, head, tree[head]["kernel"])
+        out[f"{head}.bias"] = f32(tree[head]["bias"])
     return out
+
+
+def param_shapes(cfg: DistilBertConfig) -> Dict:
+    """The Flax parameter tree's structure, with ``meta`` tensors of each
+    leaf's float shape (the port's ``jax.eval_shape`` of ``model.init``)."""
+    def leaf(*shape):
+        return torch.empty(shape, device="meta")
+
+    D, H, Dh = cfg.dim, cfg.n_heads, cfg.dim // cfg.n_heads
+    enc = {
+        "word_embeddings": {"embedding": leaf(cfg.vocab_size, D)},
+        "position_embeddings": {"embedding": leaf(cfg.max_positions, D)},
+        "embed_layer_norm": {"scale": leaf(D), "bias": leaf(D)},
+    }
+    for i in range(cfg.n_layers):
+        att = {p: {"kernel": leaf(D, H, Dh), "bias": leaf(H, Dh)}
+               for p in ("q_proj", "k_proj", "v_proj")}
+        att["o_proj"] = {"kernel": leaf(H, Dh, D), "bias": leaf(D)}
+        enc[f"layer_{i}"] = {
+            "attention": att,
+            "sa_layer_norm": {"scale": leaf(D), "bias": leaf(D)},
+            "ffn": {"lin1": {"kernel": leaf(D, cfg.hidden_dim),
+                             "bias": leaf(cfg.hidden_dim)},
+                    "lin2": {"kernel": leaf(cfg.hidden_dim, D),
+                             "bias": leaf(D)}},
+            "output_layer_norm": {"scale": leaf(D), "bias": leaf(D)},
+        }
+    return {
+        "encoder": enc,
+        "pre_classifier": {"kernel": leaf(D, D), "bias": leaf(D)},
+        "classifier": {"kernel": leaf(D, cfg.n_classes),
+                       "bias": leaf(cfg.n_classes)},
+    }
+
+
+def iter_hf_param_units(params, path: str, mmap: bool = False):
+    """Stream an HF DistilBERT torch ``state_dict`` as layer-sized units.
+
+    Yields ``(unit_name, [("/"-joined Flax path, np.ndarray), ...])``:
+    embeddings, one unit per transformer layer, then the classifier head,
+    in Flax layouts (kernels ``[in, out]``, attention projections and
+    their biases in the head layout), which is what the quantize-on-load
+    pipeline and the quantized cache consume.  Every checkpoint tensor
+    must be consumed (leftovers raise at the end).  ``params`` supplies
+    shapes only (:func:`param_shapes`).
+    """
+    try:
+        sd = torch.load(path, map_location="cpu", weights_only=True,
+                        mmap=mmap)
+    except (RuntimeError, ValueError, TypeError):
+        sd = torch.load(path, map_location="cpu", weights_only=True)
+    enc_shapes = params["encoder"]
+    cfg_heads = enc_shapes["layer_0"]["attention"]["q_proj"]["kernel"].shape[1]
+    dim = enc_shapes["word_embeddings"]["embedding"].shape[1]
+    head_dim = dim // cfg_heads
+    consumed = set()
+
+    def t(name):
+        consumed.add(name)
+        return np.asarray(sd[name].numpy())
+
+    yield "embeddings", [
+        ("encoder/word_embeddings/embedding",
+         t("distilbert.embeddings.word_embeddings.weight")),
+        ("encoder/position_embeddings/embedding",
+         t("distilbert.embeddings.position_embeddings.weight")),
+        ("encoder/embed_layer_norm/scale",
+         t("distilbert.embeddings.LayerNorm.weight")),
+        ("encoder/embed_layer_norm/bias",
+         t("distilbert.embeddings.LayerNorm.bias")),
+    ]
+    n_layers = sum(1 for k in enc_shapes if k.startswith("layer_"))
+    for i in range(n_layers):
+        hf = f"distilbert.transformer.layer.{i}"
+        p = f"encoder/layer_{i}"
+        leaves = []
+        for ours, theirs in (("q_proj", "q_lin"), ("k_proj", "k_lin"),
+                             ("v_proj", "v_lin")):
+            w = t(f"{hf}.attention.{theirs}.weight").T
+            leaves.append((f"{p}/attention/{ours}/kernel",
+                           w.reshape(dim, cfg_heads, head_dim)))
+            leaves.append((f"{p}/attention/{ours}/bias",
+                           t(f"{hf}.attention.{theirs}.bias").reshape(
+                               cfg_heads, head_dim)))
+        leaves.append((f"{p}/attention/o_proj/kernel",
+                       t(f"{hf}.attention.out_lin.weight").T.reshape(
+                           cfg_heads, head_dim, dim)))
+        leaves.append((f"{p}/attention/o_proj/bias",
+                       t(f"{hf}.attention.out_lin.bias")))
+        leaves.append((f"{p}/sa_layer_norm/scale",
+                       t(f"{hf}.sa_layer_norm.weight")))
+        leaves.append((f"{p}/sa_layer_norm/bias",
+                       t(f"{hf}.sa_layer_norm.bias")))
+        for lin in ("lin1", "lin2"):
+            leaves.append((f"{p}/ffn/{lin}/kernel",
+                           t(f"{hf}.ffn.{lin}.weight").T))
+            leaves.append((f"{p}/ffn/{lin}/bias", t(f"{hf}.ffn.{lin}.bias")))
+        leaves.append((f"{p}/output_layer_norm/scale",
+                       t(f"{hf}.output_layer_norm.weight")))
+        leaves.append((f"{p}/output_layer_norm/bias",
+                       t(f"{hf}.output_layer_norm.bias")))
+        yield f"layer_{i}", leaves
+    yield "head", [
+        ("pre_classifier/kernel", t("pre_classifier.weight").T),
+        ("pre_classifier/bias", t("pre_classifier.bias")),
+        ("classifier/kernel", t("classifier.weight").T),
+        ("classifier/bias", t("classifier.bias")),
+    ]
+    ignorable = {k for k in sd if k.endswith("position_ids")}
+    leftovers = set(sd) - consumed - ignorable
+    if leftovers:
+        raise ValueError(
+            "checkpoint keys not consumed by the DistilBERT mapping: "
+            + ", ".join(sorted(leftovers)[:8])
+        )
 
 
 def load_hf_torch_checkpoint(model: DistilBertForSentiment, path: str) -> None:
@@ -402,6 +546,7 @@ class DistilBertClassifier(ClassifierBackend):
         packed: bool = False,
         device: DeviceLike = "cuda",
         state_dict: Optional[Mapping[str, np.ndarray]] = None,
+        wq_cache_dir: Optional[str] = None,
     ) -> None:
         self.device = resolve_device(device)
         self.config = config or DistilBertConfig()
@@ -426,16 +571,42 @@ class DistilBertClassifier(ClassifierBackend):
         )
         model = DistilBertForSentiment(self.config)
         self.pretrained = False
-        if state_dict is not None:
-            model.load_state_dict(
-                {k: torch.tensor(np.asarray(v)) for k, v in state_dict.items()}
+        wq = self.config.weight_quant
+        if checkpoint_path and wq != "none" and state_dict is None:
+            # Streaming quantize-on-load: the float tree never exists
+            # whole; a warm quantized-cache entry skips torch.load.
+            from music_analyst_tpu_torch.engines import wq_cache
+            from music_analyst_tpu_torch.engines.checkpoint import (
+                load_quantized_params,
             )
+            from music_analyst_tpu_torch.ops.quant import WQ_DEFAULT_GROUP
+
+            shapes = param_shapes(self.config)
+            cache_dir = wq_cache.resolve_cache_dir(wq_cache_dir)
+            cache_key = (
+                wq_cache.wq_key(checkpoint_path, "distilbert", wq,
+                                WQ_DEFAULT_GROUP)
+                if cache_dir else None
+            )
+            state_dict = params_from_jax(load_quantized_params(
+                shapes,
+                lambda: iter_hf_param_units(shapes, checkpoint_path,
+                                            mmap=True),
+                wq, group_size=WQ_DEFAULT_GROUP, device=self.device,
+                cache_dir=cache_dir, cache_key=cache_key,
+            ))
+            self.pretrained = True
+        model = model.to(self.device)
+        if state_dict is not None:
+            use_float_slots_(model, state_dict)
+            model.load_state_dict(
+                {k: as_tensor(v) for k, v in state_dict.items()})
         elif checkpoint_path:
             load_hf_torch_checkpoint(model, checkpoint_path)
             self.pretrained = True
         else:
             init_random_(model, seed)
-        self.model = model.to(self.device).eval()
+        self.model = model.eval()
         # Token ids ride the wire as int16 when every id fits (sized from
         # the tokenizer's range: a supplied vocab.txt can exceed the
         # config's); segment starts / row lengths likewise by max_len.
@@ -444,40 +615,41 @@ class DistilBertClassifier(ClassifierBackend):
 
     @classmethod
     def from_pretrained_or_random(cls, model: str, **kwargs):
-        """Resolve ``--model distilbert[-tiny][-packed]`` to a backend.
+        """Resolve ``--model distilbert[-tiny][-packed][-int8]`` to a
+        backend.
 
         Checkpoint: explicit kwarg, else ``$MUSICAAL_DISTILBERT_CKPT``;
         without one the weights are seeded random.  Suffixes compose in any
-        order.  ``-int8`` and ``weight_quant`` are not yet ported.
+        order; ``-int8`` selects the dynamic int8 path and ``weight_quant``
+        the stored-weight one.
         """
         ckpt = kwargs.pop("checkpoint_path", None) or os.environ.get(
             "MUSICAAL_DISTILBERT_CKPT"
         )
         config = kwargs.pop("config", None)
-        weight_quant = kwargs.pop("weight_quant", "none") or "none"
-        if weight_quant != "none":
-            raise NotImplementedError(
-                "weight_quant is not yet ported to music_analyst_tpu_torch"
-            )
-        tiny = False
+        quant, tiny = "none", False
         stripped = True
         while stripped:
             if model.endswith("-packed"):
                 model = model[: -len("-packed")]
                 kwargs.setdefault("packed", True)
+            elif model.endswith("-int8"):
+                model, quant = model[: -len("-int8")], "int8"
             elif model.endswith("-tiny"):
                 model, tiny = model[: -len("-tiny")], True
-            elif model.endswith("-int8"):
-                raise NotImplementedError(
-                    "the -int8 DistilBERT path is not yet ported to "
-                    "music_analyst_tpu_torch"
-                )
             else:
                 stripped = False
         if model != "distilbert":
             raise ValueError(f"unknown DistilBERT model name {model!r}")
         if tiny:
             config = config or DistilBertConfig.tiny()
+        if quant != "none":
+            config = dataclasses.replace(config or DistilBertConfig(),
+                                         quant=quant)
+        weight_quant = kwargs.pop("weight_quant", "none") or "none"
+        if weight_quant != "none":
+            config = dataclasses.replace(config or DistilBertConfig(),
+                                         weight_quant=weight_quant)
         return cls(config=config, checkpoint_path=ckpt, **kwargs)
 
     @staticmethod

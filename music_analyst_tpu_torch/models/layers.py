@@ -3,9 +3,11 @@
 Counterpart of ``music_analyst_tpu/models/layers.py``:
 ``dot_product_attention`` (GQA included), ``MultiHeadAttention`` (dense
 and flash paths, optional biases, GQA, RoPE, a KV cache), ``KVCache``,
-``RMSNorm``, ``SwiGLU``, ``GeluMLP``, ``rope_frequencies``/``apply_rope``
-and the ``causal_mask``/``padding_mask``/``segment_mask`` helpers.  The
-quantized projections are not ported yet.
+``RMSNorm``, ``SwiGLU``, ``GeluMLP``, ``rope_frequencies``/``apply_rope``,
+the ``causal_mask``/``padding_mask``/``segment_mask`` helpers, and the
+quantized projections: ``QuantLinear`` (JAX ``QuantDenseGeneral``, dynamic
+int8) and ``WqLinear`` (JAX ``WqDenseGeneral``, stored int8 / int4 codes),
+picked by ``pick_dense_cls`` as JAX does.
 
 Layouts follow the JAX package at the function boundaries (``[B, S, H, D]``
 attention tensors, boolean masks broadcastable to ``[B, H, S, KV]``); the
@@ -16,6 +18,7 @@ projections are ``nn.Linear`` (weights ``[out, in]``), which the models'
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Dict, Optional, Tuple, Union
 
 import torch
@@ -23,6 +26,15 @@ import torch.nn.functional as F
 from torch import nn
 
 from music_analyst_tpu_torch.ops.flash_attention import flash_attention
+from music_analyst_tpu_torch.ops.quant import (
+    WQ_DEFAULT_GROUP,
+    QuantizedParam,
+    kernel_major_empty,
+    quant_linear,
+    quantize_array,
+    wq_group_size,
+    wq_linear,
+)
 
 
 def dot_product_attention(
@@ -189,6 +201,169 @@ class LayerNorm(nn.Module):
         return y.to(x.dtype)
 
 
+class QuantLinear(nn.Linear):
+    """``nn.Linear`` whose product runs the dynamic int8 path
+    (``ops/quant.py``: weights per output channel, activations per row,
+    int32 accumulation).  Parameters are ``nn.Linear``'s, so loaders and
+    initialisers treat it as the float layer; output in the weight's
+    dtype, bias added in f32 (JAX ``QuantDenseGeneral``)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return quant_linear(x, self.weight, self.bias,
+                            out_dtype=self.weight.dtype)
+
+
+class WqLinear(nn.Module):
+    """A projection over a *stored* weight-quantized kernel (JAX
+    ``WqDenseGeneral``).
+
+    ``kernel_shape`` is the Flax kernel's shape ``[*contract, *features]``
+    (``n_contract`` leading axes contracted; ``o_proj`` has two), whose
+    flattened sizes are ``in_features`` and ``out_features``.  The buffers
+    ``q`` (int8 codes, or packed int4 pairs along axis 0) and ``scale``
+    (f32) keep Flax's logical shapes, so checkpoints and the quantized
+    cache map onto them unchanged; ``q`` is laid out kernel-major (the
+    flattened feature axis outermost in memory), the layout the card's
+    int8 product is fast on.  The bias is f32.  The input's last axis is
+    the flattened contraction; the output is ``[..., out_features]`` in
+    ``dtype``.
+
+    With a float kernel in the slot (:meth:`use_float_`) it computes the
+    float product in ``dtype`` instead, as JAX does when the slot holds a
+    float array.
+    """
+
+    def __init__(self, in_features: int, out_features: int, scheme: str,
+                 bias: bool = True, dtype: torch.dtype = torch.bfloat16,
+                 kernel_shape: Optional[Tuple[int, ...]] = None,
+                 n_contract: int = 1, group_size: int = WQ_DEFAULT_GROUP,
+                 device=None) -> None:
+        super().__init__()
+        shape = tuple(kernel_shape or (in_features, out_features))
+        K = math.prod(shape[:n_contract])
+        F = math.prod(shape[n_contract:])
+        if (K, F) != (in_features, out_features):
+            raise ValueError(f"kernel shape {shape} does not contract "
+                             f"{in_features} into {out_features}")
+        if scheme == "int8":
+            q_shape, group, G = shape, 0, 1
+        elif scheme == "int4":
+            if shape[0] % 2:
+                raise ValueError(
+                    f"int4 packing pairs elements along axis 0, which must "
+                    f"be even (kernel shape {shape})")
+            q_shape = (shape[0] // 2,) + shape[1:]
+            group = wq_group_size(K, group_size)
+            G = K // group
+        else:
+            raise ValueError(f"scheme must be int8/int4, got {scheme!r}")
+        self.in_features, self.out_features = in_features, out_features
+        self.scheme, self.kernel_shape = scheme, shape
+        self.n_contract, self.group_size = n_contract, group
+        self.dtype = dtype
+        self.register_buffer("q", kernel_major_empty(q_shape, n_contract,
+                                                     device=device))
+        self.register_buffer("scale", torch.empty(
+            (G,) + shape[n_contract:], dtype=torch.float32, device=device))
+        self.weight = None
+        self.bias = (nn.Parameter(torch.zeros(out_features, device=device))
+                     if bias else None)
+
+    @property
+    def qparam(self) -> Optional[QuantizedParam]:
+        """The stored kernel (views of the buffers), or ``None`` when the
+        slot holds a float kernel."""
+        if self.q is None:
+            return None
+        return QuantizedParam(self.q, self.scale, self.scheme,
+                              self.kernel_shape, self.n_contract,
+                              self.group_size)
+
+    @torch.no_grad()
+    def set_quantized(self, qp: QuantizedParam) -> None:
+        """Copy a Flax-layout ``QuantizedParam`` into the buffers."""
+        if (qp.scheme, tuple(qp.shape), qp.n_contract, qp.group_size) != (
+                self.scheme, self.kernel_shape, self.n_contract,
+                self.group_size):
+            raise ValueError(
+                f"quantized kernel {qp.scheme} {tuple(qp.shape)} "
+                f"(n_contract {qp.n_contract}, group {qp.group_size}) does "
+                f"not fit this slot: {self.scheme} {self.kernel_shape} "
+                f"(n_contract {self.n_contract}, group {self.group_size})")
+        self.q.copy_(torch.as_tensor(qp.q))
+        self.scale.copy_(torch.as_tensor(qp.scale))
+
+    @torch.no_grad()
+    def quantize_from_(self, weight: torch.Tensor) -> None:
+        """Quantize a float ``[out, in]`` weight (``nn.Linear`` layout)
+        into the buffers, on the buffers' device."""
+        kernel = weight.t().reshape(self.kernel_shape).to(self.q.device)
+        self.set_quantized(quantize_array(kernel, self.scheme,
+                                          self.n_contract, self.group_size))
+
+    def use_float_(self, weight: Optional[torch.Tensor] = None) -> None:
+        """Hold a float ``[out, in]`` kernel instead of codes."""
+        device = self.scale.device
+        self.q = self.scale = None
+        w = torch.empty(self.out_features, self.in_features, dtype=self.dtype,
+                        device=device)
+        self.weight = nn.Parameter(w, requires_grad=False)
+        if weight is not None:
+            with torch.no_grad():
+                self.weight.copy_(weight)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.weight is not None:
+            bias = None if self.bias is None else self.bias.to(self.dtype)
+            return F.linear(x.to(self.dtype), self.weight.to(self.dtype), bias)
+        return wq_linear(x, self.qparam, self.bias, out_dtype=self.dtype)
+
+    def extra_repr(self) -> str:
+        return (f"{self.in_features} -> {self.out_features}, {self.scheme}, "
+                f"kernel {self.kernel_shape}, n_contract={self.n_contract}, "
+                f"group={self.group_size}")
+
+
+def pick_dense_cls(weight_quant: str, quant: str):
+    """One projection decision for every model family: stored weight-quant
+    wins, then dynamic int8, then float.  Returns a factory
+    ``make(in_features, out_features, bias, dtype, kernel_shape=None,
+    n_contract=1)``; the Flax kernel shape matters only to ``WqLinear``."""
+    def make(in_features, out_features, bias, dtype, kernel_shape=None,
+             n_contract=1):
+        if weight_quant != "none":
+            return WqLinear(in_features, out_features, weight_quant,
+                            bias=bias, dtype=dtype, kernel_shape=kernel_shape,
+                            n_contract=n_contract)
+        cls = QuantLinear if quant == "int8" else nn.Linear
+        return cls(in_features, out_features, bias=bias, dtype=dtype)
+
+    return make
+
+
+def use_float_slots_(model: nn.Module, state_dict) -> None:
+    """Switch each ``WqLinear`` whose slot the state dict fills with a
+    float ``weight`` (a Flax tree holding a float kernel there) to its
+    float path, so the state dict loads."""
+    for name, module in model.named_modules():
+        if isinstance(module, WqLinear) and f"{name}.weight" in state_dict:
+            module.use_float_()
+
+
+def param_slots(model: nn.Module):
+    """``(name, shape, module)`` for every float parameter slot in
+    ``named_parameters`` order, with each ``WqLinear``'s kernel as a
+    ``{name}.weight`` slot of ``nn.Linear`` shape ``[out, in]`` (so seeded
+    initialisers draw the same values with or without quantization)."""
+    for mname, module in model.named_modules():
+        prefix = f"{mname}." if mname else ""
+        if isinstance(module, WqLinear) and module.weight is None:
+            yield (f"{prefix}weight",
+                   (module.out_features, module.in_features), module)
+        for pname, param in module.named_parameters(recurse=False):
+            yield f"{prefix}{pname}", tuple(param.shape), module
+
+
 class MultiHeadAttention(nn.Module):
     """MHA/GQA self-attention with per-Q/K/V/O projections, optional RoPE
     and an optional KV cache.
@@ -214,6 +389,8 @@ class MultiHeadAttention(nn.Module):
         use_rope: bool = False,
         rope_theta: float = 10_000.0,
         max_positions: int = 4096,
+        quant: str = "none",
+        weight_quant: str = "none",
     ) -> None:
         super().__init__()
         if attn_impl not in ("dense", "flash"):
@@ -227,10 +404,15 @@ class MultiHeadAttention(nn.Module):
         self.max_positions = max_positions
         q_dim = self.n_heads * self.head_dim
         kv_dim = self.n_kv_heads * self.head_dim
-        self.q_proj = nn.Linear(dim, q_dim, bias=use_bias, dtype=dtype)
-        self.k_proj = nn.Linear(dim, kv_dim, bias=use_bias, dtype=dtype)
-        self.v_proj = nn.Linear(dim, kv_dim, bias=use_bias, dtype=dtype)
-        self.o_proj = nn.Linear(q_dim, dim, bias=use_bias, dtype=dtype)
+        dense = pick_dense_cls(weight_quant, quant)
+        self.q_proj = dense(dim, q_dim, use_bias, dtype,
+                            (dim, self.n_heads, self.head_dim))
+        self.k_proj = dense(dim, kv_dim, use_bias, dtype,
+                            (dim, self.n_kv_heads, self.head_dim))
+        self.v_proj = dense(dim, kv_dim, use_bias, dtype,
+                            (dim, self.n_kv_heads, self.head_dim))
+        self.o_proj = dense(q_dim, dim, use_bias, dtype,
+                            (self.n_heads, self.head_dim, dim), n_contract=2)
 
     def forward(
         self,
@@ -289,11 +471,13 @@ class SwiGLU(nn.Module):
     """Llama-style gated MLP: ``down(silu(gate(x)) * up(x))``."""
 
     def __init__(self, dim: int, hidden_dim: int,
-                 dtype: torch.dtype = torch.bfloat16) -> None:
+                 dtype: torch.dtype = torch.bfloat16, quant: str = "none",
+                 weight_quant: str = "none") -> None:
         super().__init__()
-        self.gate_proj = nn.Linear(dim, hidden_dim, bias=False, dtype=dtype)
-        self.up_proj = nn.Linear(dim, hidden_dim, bias=False, dtype=dtype)
-        self.down_proj = nn.Linear(hidden_dim, dim, bias=False, dtype=dtype)
+        dense = pick_dense_cls(weight_quant, quant)
+        self.gate_proj = dense(dim, hidden_dim, False, dtype)
+        self.up_proj = dense(dim, hidden_dim, False, dtype)
+        self.down_proj = dense(hidden_dim, dim, False, dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
@@ -303,10 +487,12 @@ class GeluMLP(nn.Module):
     """BERT-style 2-layer MLP with biases and exact (erf) GELU."""
 
     def __init__(self, dim: int, hidden_dim: int,
-                 dtype: torch.dtype = torch.bfloat16) -> None:
+                 dtype: torch.dtype = torch.bfloat16, quant: str = "none",
+                 weight_quant: str = "none") -> None:
         super().__init__()
-        self.lin1 = nn.Linear(dim, hidden_dim, dtype=dtype)
-        self.lin2 = nn.Linear(hidden_dim, dim, dtype=dtype)
+        dense = pick_dense_cls(weight_quant, quant)
+        self.lin1 = dense(dim, hidden_dim, True, dtype)
+        self.lin2 = dense(hidden_dim, dim, True, dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.lin2(F.gelu(self.lin1(x), approximate="none"))

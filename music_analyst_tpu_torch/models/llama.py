@@ -19,9 +19,15 @@ is off for matmuls (PyTorch's default).
 
 Weights: ``load_hf_torch_checkpoint`` (an HF ``LlamaForCausalLM`` state
 dict, float weights), ``params_from_jax`` (a JAX parameter tree, for the
-parity tests), else seeded random weights drawn on the target device with
-the Flax initializers' distributions.  Not yet ported: weight / dynamic
-int8 quantization, MoE, the flash prefill and meshes.
+parity tests; stored ``QuantizedParam`` kernels included), else seeded
+random weights drawn on the target device with the Flax initializers'
+distributions.  Quantized inference: ``-int8`` (dynamic int8
+projections) and ``weight_quant`` int8 / int4 (stored projection and
+``lm_head`` kernels, ``models/layers.py:WqLinear``).  Under
+``weight_quant`` random weights are drawn and quantized one kernel at a
+time, and a checkpoint streams through quantize-on-load and the
+quantized-checkpoint cache, so the float tree never exists whole.  Not yet
+ported: MoE, the flash prefill and meshes.
 """
 
 from __future__ import annotations
@@ -43,13 +49,18 @@ from music_analyst_tpu_torch.models.layers import (
     MultiHeadAttention,
     RMSNorm,
     SwiGLU,
+    WqLinear,
     causal_mask,
     padding_mask,
+    param_slots,
+    use_float_slots_,
 )
 from music_analyst_tpu_torch.models.tokenization import (
     ByteTokenizer,
     resolve_llama_tokenizer,
 )
+from music_analyst_tpu_torch.models.tree import as_tensor, f32, put_kernel
+from music_analyst_tpu_torch.ops.quant import WQ_DEFAULT_GROUP
 from music_analyst_tpu_torch.utils.labels import SUPPORTED_LABELS, normalise_label
 from music_analyst_tpu_torch.utils.shapes import round_pow2
 
@@ -80,7 +91,9 @@ class LlamaConfig:
     # the default raises in LlamaModel.
     n_experts: int = 0
     attn_impl: str = "dense"
+    # "int8" = dynamic-quant attention/MLP projections (ops/quant.py).
     quant: str = "none"
+    # "int8"/"int4" = stored weight-quantized projection + lm_head kernels.
     weight_quant: str = "none"
 
     def __post_init__(self):
@@ -91,7 +104,13 @@ class LlamaConfig:
             )
         if self.weight_quant != "none" and self.quant != "none":
             raise ValueError(
-                "weight_quant and dynamic quant are mutually exclusive"
+                "weight_quant and dynamic quant are mutually exclusive — "
+                "the stored-weight path already runs the int8 matmul"
+            )
+        if self.weight_quant != "none" and self.n_experts > 0:
+            raise ValueError(
+                "weight_quant does not cover the MoE expert stacks yet; "
+                "use the dynamic quant='int8' path for MoE configs"
             )
         if self.dtype not in _DTYPES:
             raise ValueError(f"dtype must be one of {sorted(_DTYPES)}")
@@ -127,8 +146,6 @@ PRESETS = {
 
 def _check_ported(cfg: LlamaConfig) -> None:
     for what, on in (
-        ("weight_quant", cfg.weight_quant != "none"),
-        ("dynamic int8 quant", cfg.quant != "none"),
         ("MoE (n_experts > 0)", cfg.n_experts > 0),
         ("the flash prefill (attn_impl='flash')", cfg.attn_impl != "dense"),
     ):
@@ -146,11 +163,14 @@ class LlamaBlock(nn.Module):
             cfg.dim, cfg.n_heads, attn_impl="dense", use_bias=False,
             dtype=dtype, n_kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim,
             use_rope=True, rope_theta=cfg.rope_theta,
-            max_positions=cfg.max_seq_len,
+            max_positions=cfg.max_seq_len, quant=cfg.quant,
+            weight_quant=cfg.weight_quant,
         )
         self.attention_norm = RMSNorm(cfg.dim)
         self.ffn_norm = RMSNorm(cfg.dim)
-        self.feed_forward = SwiGLU(cfg.dim, cfg.hidden_dim, dtype=dtype)
+        self.feed_forward = SwiGLU(cfg.dim, cfg.hidden_dim, dtype=dtype,
+                                   quant=cfg.quant,
+                                   weight_quant=cfg.weight_quant)
 
     def forward(self, x, mask, positions, cache=None):
         h = self.attention_norm(x)
@@ -181,8 +201,13 @@ class LlamaModel(nn.Module):
                                            dtype=cfg.torch_dtype)
         self.layers = nn.ModuleList(LlamaBlock(cfg) for _ in range(cfg.n_layers))
         self.norm = RMSNorm(cfg.dim)
-        self.lm_head = nn.Linear(cfg.dim, cfg.vocab_size, bias=False,
-                                 dtype=torch.float32)
+        if cfg.weight_quant != "none":
+            self.lm_head = WqLinear(cfg.dim, cfg.vocab_size, cfg.weight_quant,
+                                    bias=False, dtype=torch.float32,
+                                    group_size=_wq_group_size())
+        else:
+            self.lm_head = nn.Linear(cfg.dim, cfg.vocab_size, bias=False,
+                                     dtype=torch.float32)
 
     def forward(self, token_ids, positions, mask, caches=None,
                 last_position=None):
@@ -218,59 +243,86 @@ def init_random_(model: LlamaModel, seed: int) -> None:
     N(0, 1/dim); projections ``lecun_normal`` (normal truncated at two
     standard deviations, std sqrt(1/fan_in) / 0.8796); RMSNorm scales 1.
     Each tensor is drawn in f32 and then stored in its parameter's dtype,
-    one parameter at a time, so no f32 copy of the whole model exists."""
-    device = next(model.parameters()).device
+    or quantized into a ``WqLinear``'s codes, one at a time, so no f32
+    (nor, under ``weight_quant``, float) copy of the whole model exists."""
+    device = model.norm.weight.device
     gen = torch.Generator(device=device).manual_seed(seed)
-    for name, param in model.named_parameters():
+    for name, shape, owner in param_slots(model):
         if name.endswith("norm.weight"):
-            param.fill_(1.0)
+            model.get_parameter(name).fill_(1.0)
             continue
-        value = torch.empty(param.shape, dtype=torch.float32, device=device)
+        value = torch.empty(shape, dtype=torch.float32, device=device)
         if name == "tok_embeddings.weight":
-            value.normal_(0.0, param.shape[1] ** -0.5, generator=gen)
+            value.normal_(0.0, shape[1] ** -0.5, generator=gen)
         else:
             nn.init.trunc_normal_(value, 0.0, 1.0, -2.0, 2.0, generator=gen)
-            fan_in = param.shape[1]         # nn.Linear weights: [out, in]
+            fan_in = shape[1]               # nn.Linear weights: [out, in]
             value.mul_(math.sqrt(1.0 / fan_in) / 0.87962566103423978)
-        param.copy_(value)
+        if isinstance(owner, WqLinear):
+            owner.quantize_from_(value)
+        else:
+            model.get_parameter(name).copy_(value)
         del value
 
 
-def params_from_jax(tree: Mapping) -> Dict[str, np.ndarray]:
-    """Map the JAX ``LlamaModel`` parameter tree (numpy leaves) onto this
-    model's ``state_dict``: Flax ``[in, out]`` kernels transpose to torch
+def params_from_jax(tree: Mapping) -> Dict[str, object]:
+    """Map the JAX ``LlamaModel`` parameter tree onto this model's
+    ``state_dict``: Flax ``[in, out]`` kernels transpose to torch
     ``[out, in]``; ``q/k/v_proj`` kernels ``[dim, H, Dh]`` and ``o_proj``
-    ``[H, Dh, dim]`` flatten their head axes."""
-    def a(x):
-        return np.asarray(x, dtype=np.float32)
-
-    out: Dict[str, np.ndarray] = {
-        "tok_embeddings.weight": a(tree["tok_embeddings"]["embedding"]),
-        "norm.weight": a(tree["norm"]["scale"]),
-        "lm_head.weight": a(tree["lm_head"]["kernel"]).T.copy(),
+    ``[H, Dh, dim]`` flatten their head axes; stored quantized kernels
+    keep their Flax layout as ``.q`` / ``.scale`` (``WqLinear``)."""
+    out: Dict[str, object] = {
+        "tok_embeddings.weight": f32(tree["tok_embeddings"]["embedding"]),
+        "norm.weight": f32(tree["norm"]["scale"]),
     }
+    put_kernel(out, "lm_head", tree["lm_head"]["kernel"])
     n_layers = sum(1 for k in tree if k.startswith("layer_"))
     for i in range(n_layers):
         src = tree[f"layer_{i}"]
         dst = f"layers.{i}"
         att = src["attention"]
-        for proj in ("q_proj", "k_proj", "v_proj"):
-            kernel = a(att[proj]["kernel"])
-            out[f"{dst}.attention.{proj}.weight"] = (
-                kernel.reshape(kernel.shape[0], -1).T.copy())
-        o = a(att["o_proj"]["kernel"])
-        out[f"{dst}.attention.o_proj.weight"] = o.reshape(-1, o.shape[-1]).T.copy()
-        out[f"{dst}.attention_norm.weight"] = a(src["attention_norm"]["scale"])
-        out[f"{dst}.ffn_norm.weight"] = a(src["ffn_norm"]["scale"])
+        for proj in ("q_proj", "k_proj", "v_proj", "o_proj"):
+            put_kernel(out, f"{dst}.attention.{proj}", att[proj]["kernel"],
+                       n_contract=2 if proj == "o_proj" else 1)
+        out[f"{dst}.attention_norm.weight"] = f32(src["attention_norm"]["scale"])
+        out[f"{dst}.ffn_norm.weight"] = f32(src["ffn_norm"]["scale"])
         for lin in ("gate_proj", "up_proj", "down_proj"):
-            out[f"{dst}.feed_forward.{lin}.weight"] = (
-                a(src["feed_forward"][lin]["kernel"]).T.copy())
+            put_kernel(out, f"{dst}.feed_forward.{lin}",
+                       src["feed_forward"][lin]["kernel"])
     return out
 
 
-def load_torch_state_dict(path: str) -> dict:
+def param_shapes(cfg: LlamaConfig) -> Dict:
+    """The Flax parameter tree's structure, with ``meta`` tensors of each
+    leaf's float shape (the port's ``jax.eval_shape`` of ``model.init``)."""
+    def leaf(*shape):
+        return torch.empty(shape, device="meta")
+
+    D, H, Hkv, Dh = cfg.dim, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    tree: Dict = {"tok_embeddings": {"embedding": leaf(cfg.vocab_size, D)}}
+    for i in range(cfg.n_layers):
+        tree[f"layer_{i}"] = {
+            "attention": {"q_proj": {"kernel": leaf(D, H, Dh)},
+                          "k_proj": {"kernel": leaf(D, Hkv, Dh)},
+                          "v_proj": {"kernel": leaf(D, Hkv, Dh)},
+                          "o_proj": {"kernel": leaf(H, Dh, D)}},
+            "attention_norm": {"scale": leaf(D)},
+            "ffn_norm": {"scale": leaf(D)},
+            "feed_forward": {
+                "gate_proj": {"kernel": leaf(D, cfg.hidden_dim)},
+                "up_proj": {"kernel": leaf(D, cfg.hidden_dim)},
+                "down_proj": {"kernel": leaf(cfg.hidden_dim, D)}},
+        }
+    tree["norm"] = {"scale": leaf(D)}
+    tree["lm_head"] = {"kernel": leaf(D, cfg.vocab_size)}
+    return tree
+
+
+def load_torch_state_dict(path: str, mmap: bool = False) -> dict:
     """Merge a ``pytorch_model.bin``-style file or a directory of shards
-    (``pytorch_model*.bin`` / ``*.pt``) into one raw state dict."""
+    (``pytorch_model*.bin`` / ``*.pt``) into one raw state dict.  With
+    ``mmap`` the tensors stay memory-mapped (pages are read as a unit
+    touches them); formats torch cannot map load eagerly."""
     if os.path.isdir(path):
         names = sorted(os.listdir(path))
         shards = [n for n in names
@@ -288,7 +340,16 @@ def load_torch_state_dict(path: str) -> dict:
     sd = {}
     for shard in shards:
         try:
-            loaded = torch.load(shard, map_location="cpu", weights_only=True)
+            loaded = None
+            if mmap:
+                try:
+                    loaded = torch.load(shard, map_location="cpu",
+                                        weights_only=True, mmap=True)
+                except (RuntimeError, ValueError):
+                    loaded = None
+            if loaded is None:
+                loaded = torch.load(shard, map_location="cpu",
+                                    weights_only=True)
         except Exception as exc:
             raise RuntimeError(f"failed to load shard {shard}") from exc
         if isinstance(loaded, dict):
@@ -296,6 +357,76 @@ def load_torch_state_dict(path: str) -> dict:
     if not sd:
         raise ValueError(f"no tensors found in {path} — not a torch state_dict?")
     return sd
+
+
+def iter_hf_param_units(params, path: str, mmap: bool = False):
+    """Yield an HF ``LlamaForCausalLM`` checkpoint as per-unit leaf lists
+    in Flax paths and layouts: ``(unit_name, [(tree_path, np.ndarray),
+    ...])`` for the embeddings, each decoder layer, the final norm and the
+    ``lm_head`` (tied to the embeddings when the checkpoint has none).
+    Linear kernels ``[out, in]`` transpose to ``[in, out]``; attention
+    projections reshape to the head layout.  ``params`` supplies shapes
+    only (:func:`param_shapes`)."""
+    sd = load_torch_state_dict(path, mmap=mmap)
+    sd = {(k[len("model."):] if k.startswith("model.") else k): v
+          for k, v in sd.items()}
+
+    def t(name):
+        return np.asarray(sd[name].to(torch.float32).numpy())
+
+    dim = params["tok_embeddings"]["embedding"].shape[1]
+    embed = t("embed_tokens.weight")
+    want = tuple(params["tok_embeddings"]["embedding"].shape)
+    if embed.shape != want:
+        raise ValueError(
+            f"checkpoint embed_tokens is {embed.shape} but the model config "
+            f"expects {want} — config (vocab_size/dim) doesn't match the "
+            "checkpoint"
+        )
+    yield "tok_embeddings", [("tok_embeddings/embedding", embed)]
+    n_layers = sum(1 for k in params if k.startswith("layer_"))
+    for i in range(n_layers):
+        hf = f"layers.{i}"
+        attn = params[f"layer_{i}"]["attention"]
+        n_heads = attn["q_proj"]["kernel"].shape[1]
+        n_kv = attn["k_proj"]["kernel"].shape[1]
+        head_dim = attn["q_proj"]["kernel"].shape[2]
+        pre = f"layer_{i}"
+        yield pre, [
+            (f"{pre}/attention/q_proj/kernel",
+             t(f"{hf}.self_attn.q_proj.weight").T.reshape(
+                 dim, n_heads, head_dim)),
+            (f"{pre}/attention/k_proj/kernel",
+             t(f"{hf}.self_attn.k_proj.weight").T.reshape(
+                 dim, n_kv, head_dim)),
+            (f"{pre}/attention/v_proj/kernel",
+             t(f"{hf}.self_attn.v_proj.weight").T.reshape(
+                 dim, n_kv, head_dim)),
+            (f"{pre}/attention/o_proj/kernel",
+             t(f"{hf}.self_attn.o_proj.weight").T.reshape(
+                 n_heads, head_dim, dim)),
+            (f"{pre}/attention_norm/scale", t(f"{hf}.input_layernorm.weight")),
+            (f"{pre}/ffn_norm/scale",
+             t(f"{hf}.post_attention_layernorm.weight")),
+            (f"{pre}/feed_forward/gate_proj/kernel",
+             t(f"{hf}.mlp.gate_proj.weight").T),
+            (f"{pre}/feed_forward/up_proj/kernel",
+             t(f"{hf}.mlp.up_proj.weight").T),
+            (f"{pre}/feed_forward/down_proj/kernel",
+             t(f"{hf}.mlp.down_proj.weight").T),
+        ]
+    yield "norm", [("norm/scale", t("norm.weight"))]
+    if "lm_head.weight" in sd:
+        lm = t("lm_head.weight").T
+    else:  # tied embeddings (Llama-3.2 style)
+        lm = t("embed_tokens.weight").T
+    yield "lm_head", [("lm_head/kernel", lm)]
+
+
+def _wq_group_size() -> int:
+    """One group-size definition for the Llama family, so the cache key,
+    the loader and the random-init quantizer agree."""
+    return WQ_DEFAULT_GROUP
 
 
 _HF_RENAMES = (
@@ -364,6 +495,7 @@ class LlamaZeroShotClassifier(ClassifierBackend):
         continuous_slots: Optional[int] = None,
         device: DeviceLike = "cuda",
         state_dict: Optional[Mapping[str, np.ndarray]] = None,
+        wq_cache_dir: Optional[str] = None,
     ) -> None:
         if decode_mode not in ("score", "generate"):
             raise ValueError(
@@ -407,13 +539,39 @@ class LlamaZeroShotClassifier(ClassifierBackend):
                           stacklevel=2)
         with torch.device("meta"):
             model = LlamaModel(self.config)
-        model = model.to_empty(device=self.device)
         self.pretrained = False
+        wq = self.config.weight_quant
+        if checkpoint_path and wq != "none" and state_dict is None:
+            # Streaming quantize-on-load: checkpoint tensors go through
+            # quantize → H2D one layer at a time, and a warm quantized-cache
+            # entry skips torch.load entirely.
+            from music_analyst_tpu_torch.engines import wq_cache
+            from music_analyst_tpu_torch.engines.checkpoint import (
+                load_quantized_params,
+            )
+
+            shapes = param_shapes(self.config)
+            cache_dir = wq_cache.resolve_cache_dir(wq_cache_dir)
+            cache_key = (
+                wq_cache.wq_key(checkpoint_path, "llama", wq,
+                                _wq_group_size())
+                if cache_dir else None
+            )
+            state_dict = params_from_jax(load_quantized_params(
+                shapes,
+                lambda: iter_hf_param_units(shapes, checkpoint_path,
+                                            mmap=True),
+                wq, group_size=_wq_group_size(), device=self.device,
+                cache_dir=cache_dir, cache_key=cache_key,
+            ))
+            self.pretrained = True
+        if state_dict is not None:
+            use_float_slots_(model, state_dict)
+        model = model.to_empty(device=self.device)
         if state_dict is not None:
             with torch.no_grad():
                 model.load_state_dict(
-                    {k: torch.tensor(np.asarray(v))
-                     for k, v in state_dict.items()})
+                    {k: as_tensor(v) for k, v in state_dict.items()})
         elif checkpoint_path:
             load_hf_torch_checkpoint(model, checkpoint_path)
             self.pretrained = True
@@ -441,25 +599,26 @@ class LlamaZeroShotClassifier(ClassifierBackend):
 
     @classmethod
     def from_pretrained_or_random(cls, model: str, **kwargs):
-        """Resolve ``--model llama3[-8b|-tiny]`` / ``llama-tiny``.  The
+        """Resolve ``--model llama3[-8b|-tiny][-int8]`` / ``llama-tiny``
+        (``-int8``: dynamic int8 projections; ``weight_quant``: stored
+        int8 / int4 kernels).  The
         checkpoint comes from ``checkpoint_path`` or ``$MUSICAAL_LLAMA_CKPT``;
         the 8B presets refuse to run without one (random 8B weights are
         for ``chip_smoke.py``, which builds the classifier directly)."""
+        quant = "none"
         if model.endswith("-int8"):
-            raise NotImplementedError(
-                "the -int8 Llama path is not yet ported to "
-                "music_analyst_tpu_torch"
-            )
+            model, quant = model[: -len("-int8")], "int8"
         preset = PRESETS.get(model)
         if preset is None:
             raise ValueError(
                 f"unknown llama preset {model!r}; options: {sorted(PRESETS)}"
             )
         config = kwargs.pop("config", None) or preset()
-        if (kwargs.pop("weight_quant", "none") or "none") != "none":
-            raise NotImplementedError(
-                "weight_quant is not yet ported to music_analyst_tpu_torch"
-            )
+        if quant != "none":
+            config = dataclasses.replace(config, quant=quant)
+        weight_quant = kwargs.pop("weight_quant", "none") or "none"
+        if weight_quant != "none":
+            config = dataclasses.replace(config, weight_quant=weight_quant)
         ckpt = kwargs.pop("checkpoint_path", None) or os.environ.get(
             "MUSICAAL_LLAMA_CKPT"
         )

@@ -20,6 +20,8 @@ from __future__ import annotations
 import os
 import queue
 import threading
+from collections import deque
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from typing import Any, Callable, Iterable, Iterator, List, Sequence
 
@@ -46,10 +48,13 @@ class _Failure:
 
 @dataclass
 class Stage:
-    """One pipeline hop: ``fn(item) -> item`` under a stable ``name``."""
+    """One pipeline hop: ``fn(item) -> item`` under a stable ``name``.
+    ``workers > 1`` runs ``fn`` on a pool of that many threads with up to
+    ``2 * workers`` items in flight; results still leave in order."""
 
     name: str
     fn: Callable[[Any], Any]
+    workers: int = 1
 
 
 def resolve_prefetch_depth(
@@ -88,6 +93,11 @@ class PrefetchPipeline:
         if depth < 0:
             raise ValueError(f"depth must be >= 0, got {depth}")
         self.stages = list(stages)
+        for stage in self.stages:
+            if stage.workers < 1:
+                raise ValueError(
+                    f"stage {stage.name!r}: workers must be >= 1, got "
+                    f"{stage.workers}")
         self.depth = depth
         self.name = name
         self._cancel = threading.Event()
@@ -138,16 +148,39 @@ class PrefetchPipeline:
     def _stage_loop(
         self, stage: Stage, q_in: queue.Queue, q_out: queue.Queue
     ) -> None:
-        while True:
-            item = self._get(q_in)
-            if item is _CANCELLED:
-                return
-            if item is _DONE or isinstance(item, _Failure):
-                self._put(q_out, item)
-                return
-            result = self._call(stage, item)
-            if not self._put(q_out, result) or isinstance(result, _Failure):
-                return
+        pool = (ThreadPoolExecutor(max_workers=stage.workers,
+                                   thread_name_prefix=f"{self.name}-{stage.name}")
+                if stage.workers > 1 else None)
+        window: deque = deque()
+
+        def emit(result) -> bool:
+            """Forward one result; False ends the loop (cancelled, or a
+            failure that poisons the chain)."""
+            return self._put(q_out, result) and not isinstance(result,
+                                                               _Failure)
+
+        try:
+            while True:
+                item = self._get(q_in)
+                if item is _CANCELLED:
+                    return
+                if item is _DONE or isinstance(item, _Failure):
+                    while window:
+                        if not emit(window.popleft().result()):
+                            return
+                    self._put(q_out, item)
+                    return
+                if pool is None:
+                    if not emit(self._call(stage, item)):
+                        return
+                    continue
+                window.append(pool.submit(self._call, stage, item))
+                if len(window) >= 2 * stage.workers:
+                    if not emit(window.popleft().result()):
+                        return
+        finally:
+            if pool is not None:
+                pool.shutdown(wait=False, cancel_futures=True)
 
     def _shutdown(self) -> None:
         """Cancel, drain, join.  Idempotent; never raises."""

@@ -452,3 +452,162 @@ def test_histogram_device_ids_holds_no_int64_copy(dev):
     np.testing.assert_array_equal(got, _bincount(ids, vocab))
     limit = 4 * n + 8 * histogram._SLICE + 8 * (vocab + 1) + (8 << 20)
     assert peak <= limit < 12 * n, (peak, limit)
+
+
+# ----------------------------------------------------- quantized products
+#
+# The int8 products are library calls (torch._int_mm); the plain versions
+# compute the same integer sums exactly in float64 on the CPU, so the card
+# must agree within 1e-6 of the output's scale (f32 epilogues, group sums
+# in another order).
+
+
+def _quant_case(M, K, N, seed):
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randn(M, K, generator=gen)
+    w = torch.randn(K, N, generator=gen) * K ** -0.5
+    return x, w
+
+
+@pytest.mark.parametrize("M", [8, 512])
+@pytest.mark.parametrize("scheme", ["dynamic", "int8", "int4"])
+def test_quantized_products_match_plain(dev, M, scheme):
+    from music_analyst_tpu_torch.ops import quant
+
+    x, w = _quant_case(M, 1024, 768, seed=M)
+    if scheme == "dynamic":
+        run = lambda xx, ww: quant.quant_matmul(xx, ww)  # noqa: E731
+        args = (w,)
+    else:
+        qp = quant.quantize_array(w, scheme)
+        run = lambda xx, qq: quant.wq_matmul(xx, qq)  # noqa: E731
+        args = (qp,)
+    want = run(x, *args)
+    card_args = (args[0].to(dev),) if scheme == "dynamic" else (
+        quant.kernel_major(args[0].to(dev)),)
+    before = quant.quant_calls()["int_mm"]
+    got = run(x.to(dev), *card_args)
+    again = run(x.to(dev), *card_args)
+    torch.cuda.synchronize()
+    assert quant.quant_calls()["int_mm"] > before
+    scale = float(want.abs().max())
+    assert float((got.cpu() - want).abs().max()) <= 1e-6 * scale
+    assert torch.equal(got, again)            # repeat launches bitwise equal
+
+
+def test_quantized_product_pads_short_rows(dev):
+    from music_analyst_tpu_torch.ops import quant
+
+    gen = torch.Generator().manual_seed(3)
+    qx = torch.randint(-127, 128, (8, 256), generator=gen, dtype=torch.int8)
+    w = torch.randint(-127, 128, (96, 256), generator=gen, dtype=torch.int8)
+    got = quant.int8_matmul(qx.to(dev), w.to(dev).t())
+    assert torch.equal(got.cpu(), quant.int8_matmul_plain(qx, w.t()))
+    with pytest.raises(ValueError, match="multiples of 8"):
+        quant.int8_matmul(qx[:, :60].to(dev), w[:, :60].to(dev).t()[:, :90])
+
+
+@pytest.mark.parametrize("scheme", ["int8", "int4"])
+def test_wq_linear_on_the_card_equals_the_cpu(dev, scheme):
+    from music_analyst_tpu_torch.models.layers import WqLinear
+
+    gen = torch.Generator().manual_seed(4)
+    cpu = WqLinear(256, 256, scheme, dtype=torch.float32,
+                   kernel_shape=(4, 64, 256), n_contract=2)
+    cpu.quantize_from_(torch.randn(256, 256, generator=gen) / 16)
+    with torch.no_grad():
+        cpu.bias.copy_(torch.randn(256, generator=gen))
+    card = WqLinear(256, 256, scheme, dtype=torch.float32,
+                    kernel_shape=(4, 64, 256), n_contract=2, device=dev)
+    card.load_state_dict(cpu.state_dict())
+    x = torch.randn(3, 5, 256, generator=gen)
+    with torch.no_grad():
+        want = cpu(x)
+        got = card(x.to(dev))
+    assert float((got.cpu() - want).abs().max()) <= 1e-6 * float(
+        want.abs().max())
+
+
+@pytest.mark.parametrize("scheme", ["int8", "int4"])
+def test_quantized_paged_decode_step_matches_dense(dev, scheme):
+    """One decode step of a weight-quantized Llama (head_dim 128) through
+    the paged kernel against dense attention over the gathered view:
+    within 5e-2 of the logit scale, as the bf16 model's check."""
+    from music_analyst_tpu_torch.models.layers import KVCache, WqLinear
+    from music_analyst_tpu_torch.models.llama import (
+        LlamaConfig,
+        LlamaZeroShotClassifier,
+    )
+    from music_analyst_tpu_torch.ops.paged_attention import (
+        PagedAttnView,
+        _gather,
+    )
+    from music_analyst_tpu_torch.serving.decode_loop import (
+        ContinuousScheduler,
+    )
+
+    cfg = LlamaConfig.tiny(dim=256, n_heads=2, n_kv_heads=1, hidden_dim=512,
+                           weight_quant=scheme)
+    clf = LlamaZeroShotClassifier(config=cfg, max_prompt_len=128, device=dev)
+    assert isinstance(clf.model.lm_head, WqLinear)
+    sched = ContinuousScheduler(clf, n_slots=4, prefill_chunk=64,
+                                prompt_region=128, max_new_tokens=8)
+    for i in range(4):
+        sched.submit(i, f"prompt {i}: " + "la " * (5 + 9 * i))
+    sched._admit()
+    while any(s is not None and s.next_chunk >= 0 for s in sched._slots):
+        sched._prefill_tick()
+    plan = sched.plan
+    R, total = plan.prompt_region, plan.max_total
+    slots = sched._slots
+    arr = lambda xs, dt: torch.as_tensor(xs, dtype=dt, device=dev)  # noqa: E731
+    table = arr(sched._table, torch.int32)
+    tokens = arr([s.carry for s in slots], torch.long)
+    plens = arr([s.plen for s in slots], torch.long)
+    steps = arr([s.steps for s in slots], torch.long)
+    kv_pos = torch.arange(total, device=dev)[None, None, None, :]
+    mask = (kv_pos < plens[:, None, None, None]) | (
+        (kv_pos >= R) & (kv_pos - R <= steps[:, None, None, None]))
+    pos = (plens + steps)[:, None]
+
+    def step(dense):
+        views = []
+        for c in sched.caches:
+            if dense:
+                views.append(KVCache(
+                    _gather(c.keys, None, table, total, torch.bfloat16),
+                    _gather(c.values, None, table, total, torch.bfloat16),
+                    R + steps))
+            else:
+                views.append(PagedAttnView(c.keys, c.values, None, None, table,
+                                           R + steps, plan.page_size, total))
+        with torch.no_grad():
+            logits, _ = clf.model(tokens[:, None], pos, mask, views)
+        return logits[:, 0]
+
+    before = kernels.launches()["paged_attention"]
+    paged = step(dense=False)
+    torch.cuda.synchronize()
+    assert kernels.launches()["paged_attention"] == before + cfg.n_layers
+    dense = step(dense=True)
+    scale = float(dense.abs().max())
+    assert torch.isfinite(paged).all()
+    assert float((paged - dense).abs().max()) <= 5e-2 * scale
+
+
+@pytest.mark.parametrize("scheme", ["int8", "int4"])
+def test_quantize_array_on_the_card_equals_the_cpu(dev, scheme):
+    """Codes and scales drawn on the card are the CPU's (and so JAX's):
+    the scale divisions are true divisions on both."""
+    from music_analyst_tpu_torch.ops import quant
+
+    gen = torch.Generator().manual_seed(5)
+    w = (torch.randn(1024, 4, 96, generator=gen) / 32).to(torch.bfloat16)
+    want = quant.quantize_array(w, scheme)
+    got = quant.quantize_array(w.to(dev), scheme)
+    assert torch.equal(got.q.cpu(), want.q)
+    assert torch.equal(got.scale.cpu(), want.scale)
+    x = torch.randn(64, 1024, generator=gen).to(torch.bfloat16)
+    q_cpu, s_cpu = quant._quantize_rows(x.float())
+    q_card, s_card = quant._quantize_rows(x.to(dev).float())
+    assert torch.equal(q_card.cpu(), q_cpu) and torch.equal(s_card.cpu(), s_cpu)

@@ -140,14 +140,15 @@ def test_model_name_suffixes():
     )
     assert clf.packed and clf.config.dim == 64
     assert clf.config.attn_impl == "flash"
-    for bad, err in (("distilbert-int8", NotImplementedError),
-                     ("distilbertx", ValueError)):
-        with pytest.raises(err):
-            td.DistilBertClassifier.from_pretrained_or_random(bad, device="cpu")
-    with pytest.raises(NotImplementedError):
-        td.DistilBertClassifier.from_pretrained_or_random(
-            "distilbert-tiny", device="cpu", weight_quant="int8"
-        )
+    with pytest.raises(ValueError):
+        td.DistilBertClassifier.from_pretrained_or_random("distilbertx",
+                                                          device="cpu")
+    # -int8 and weight_quant are ported (tests/test_torch_quant_models.py).
+    assert td.DistilBertClassifier.from_pretrained_or_random(
+        "distilbert-tiny-int8", device="cpu").config.quant == "int8"
+    assert td.DistilBertClassifier.from_pretrained_or_random(
+        "distilbert-tiny", device="cpu", weight_quant="int8"
+    ).config.weight_quant == "int8"
 
 
 def test_hf_checkpoint_round_trip(pair, tmp_path):

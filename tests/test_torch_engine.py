@@ -124,10 +124,11 @@ def test_backend_guards(monkeypatch):
     # run on random weights (no checkpoint configured).
     with pytest.raises(RuntimeError, match="needs a checkpoint"):
         get_backend("llama3", device="cpu")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        get_backend("ollama:llama3", device="cpu")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        get_backend("distilbert-tiny", weight_quant="int8", device="cpu")
+    # Ollama and weight_quant are ported: they resolve as in JAX.
+    ollama = get_backend("ollama:phi3", device="cpu")
+    assert ollama.name == "ollama" and ollama.model == "phi3"
+    wq = get_backend("distilbert-tiny", weight_quant="int8", device="cpu")
+    assert wq.config.weight_quant == "int8"
     with pytest.raises(ValueError, match="unknown model"):
         get_backend("gpt", device="cpu")
     with pytest.raises(ValueError, match="explicit backend"):
@@ -189,7 +190,6 @@ _NO_OP_FLAGS = [
     ["--watchdog-timeout", "0"], ["--watchdog-timeout", "0.0"],
 ]
 _UNPORTED_FLAGS = [
-    (["--weight-quant", "int8", "--model", "distilbert-tiny"], "not yet ported"),
     (["--weight-quant", "int8"], "on-device model family"),
     (["--devices", "2"], "not yet ported"),
     (["--trace-dir", "t"], "not yet ported"),

@@ -221,13 +221,13 @@ def test_unported_and_refused_configurations(monkeypatch):
     with pytest.raises(RuntimeError, match="needs a checkpoint"):
         tl.LlamaZeroShotClassifier.from_pretrained_or_random(
             "llama3-8b", device="cpu")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tl.LlamaZeroShotClassifier.from_pretrained_or_random(
-            "llama3-tiny-int8", device="cpu")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tl.LlamaZeroShotClassifier.from_pretrained_or_random(
-            "llama3-tiny", weight_quant="int8", device="cpu")
-    for cfg in (tl.LlamaConfig.tiny(n_experts=4), tl.LlamaConfig.tiny(quant="int8"),
+    # -int8 and weight_quant are ported (tests/test_torch_quant_models.py).
+    assert tl.LlamaZeroShotClassifier.from_pretrained_or_random(
+        "llama3-tiny-int8", device="cpu").config.quant == "int8"
+    assert tl.LlamaZeroShotClassifier.from_pretrained_or_random(
+        "llama3-tiny", weight_quant="int8", device="cpu"
+    ).config.weight_quant == "int8"
+    for cfg in (tl.LlamaConfig.tiny(n_experts=4),
                 tl.LlamaConfig.tiny(attn_impl="flash")):
         with pytest.raises(NotImplementedError, match="not yet ported"):
             tl.LlamaModel(cfg)

@@ -129,3 +129,36 @@ def test_scan_covers_the_wordcount_slice():
                 "metrics/perf.py", "parallel/mesh.py", "ops/histogram.py",
                 "engines/wordcount.py", "engines/joint.py"):
         assert f"music_analyst_tpu_torch/{rel}" in scanned
+
+
+def test_scan_covers_the_quantized_slice():
+    scanned = {str(p.relative_to(ROOT)) for p in _port_files()}
+    for rel in ("ops/quant.py", "models/layers.py", "models/tree.py",
+                "models/ollama.py", "engines/wq_cache.py",
+                "engines/checkpoint.py", "engines/persong.py",
+                "resilience/policy.py", "runtime/prefetch.py"):
+        assert f"music_analyst_tpu_torch/{rel}" in scanned
+
+
+def test_quantized_entry_points_raise_without_cuda(monkeypatch, fixture_csv,
+                                                   tmp_path):
+    from music_analyst_tpu_torch.cli.main import main
+    from music_analyst_tpu_torch.engines.sentiment import get_backend
+
+    _no_cuda(monkeypatch)
+    calls = [
+        lambda: get_backend("distilbert-tiny", weight_quant="int8"),
+        lambda: get_backend("distilbert-tiny-int8"),
+        lambda: get_backend("llama3-tiny", weight_quant="int4"),
+        lambda: main(["sentiment", str(fixture_csv), "--model",
+                      "distilbert-tiny", "--weight-quant", "int4",
+                      "--output-dir", str(tmp_path)]),
+        lambda: main(["wordcount-per-song", str(fixture_csv),
+                      "--output-dir", str(tmp_path)]),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA was requested"):
+            call()
+    assert main(["sentiment", str(fixture_csv), "--model", "distilbert-tiny",
+                 "--weight-quant", "int8", "--device", "cpu",
+                 "--output-dir", str(tmp_path)]) == 0
