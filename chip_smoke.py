@@ -47,7 +47,7 @@
 5. Drives the Llama slice at full width: ``LlamaConfig.llama3_8b()``
    (32 layers, seeded random bf16 weights drawn on the card) through
    ``run_sentiment`` in generate mode on the continuous paged scheduler
-   (64 songs, 8 slots, one run after a warm-up on 16 prompts; ``paged_attention``
+   (32 songs, 8 slots, one run after a warm-up on 16 prompts; ``paged_attention``
    must launch exactly once per layer per decode step), in score mode (16
    songs) and with int8 pages (16 prompts).  Checks: every song labelled,
    totals complete, one decode step's logits through the kernel against
@@ -91,13 +91,40 @@
    counts sum to the per-song counts, ranked by count, one row group per
    song with tokens).  After step 5 (whose bf16 generate phase runs once
    now), Llama-3-8B with weights drawn on the card and quantized kernel by
-   kernel: ``weight_quant`` int8 in generate mode (64 songs, 8 continuous
+   kernel: ``weight_quant`` int8 in generate mode (24 songs, 8 continuous
    slots) and score mode (16), int4 in generate mode (16), dynamic int8 in
    score mode (16), paged attention once per layer per decode step; a
    decoder layer rebuilt in f32 on the card and on the CPU from the same
    codes must agree; stored bytes, init and run peak memory (the init
    must peak below the bf16 weights' bytes), and a profiled decode
    dispatch per weight scheme.
+
+8. Drives ``serve`` (the resident NDJSON server).  After step 4's
+   ``--mock`` CLI, ``python -m music_analyst_tpu_torch serve --stdio
+   --mock`` as a process: 2,048 classify requests from a generated
+   corpus, word-count requests and a malformed line, then ``stats`` and
+   ``shutdown``; labels equal the reference heuristic, word counts the
+   tokenizer contract, the process exits 0 after its drain, and the
+   scan's launches are the ones the process counted in that session.
+   Inside step 4, the flat DistilBERT model serves 4,096 classify
+   requests at max_batch 256 through ``SentimentServer.handle_stream``
+   under ``torch.profiler`` (``flash_wgmma_kernel`` must launch), with the
+   neutral threshold at the median confidence so the labels split: the
+   logits served for each request id must hold the plain reference's
+   (``forward_logits`` on its text), each reply's label must follow its
+   own logits, and a label may differ from the batch engine's only at a
+   near-tie.  At the end of step 5, on the same Llama-3-8B, 16
+   ``generate`` requests (8 slots, 16 new tokens) through the threaded
+   continuous scheduler behind the server: paged (the baseline),
+   speculative (k = 4; text byte-identical to the baseline), a
+   priority-2 burst preempting priority-1 decodes under a 1 ms TTFT
+   target (at least one preemption resumed from its checkpoint; text
+   byte-identical), the monolithic slot cache and int8 pages (agreement
+   reported); TTFT and TPOT quantiles, host ms per decode dispatch, and
+   the device time of the served run's dispatch with the most active
+   slots among those profiled in the run (the first, then each with more
+   active slots, up to four), for each but the preempt run.  No serve
+   thread may outlive its drain.
 
 Prints the card's name and power limit, a ``{"quant_gemm": [...]}`` line,
 a ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
@@ -108,6 +135,7 @@ report goes to ``chiprun_out/chip_smoke.json``.
 
 from __future__ import annotations
 
+import gc
 import json
 import os
 import re
@@ -176,6 +204,16 @@ def time_ms(torch, fn, iters: int, warmup: int = 1) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def python_ms() -> float:
+    """Wall of a fixed pure-Python loop: the host's speed, torch aside
+    (the host's speed differs between calls and within one)."""
+    t0 = time.perf_counter()
+    acc = 0
+    for i in range(2_000_000):
+        acc += i * i
+    return (time.perf_counter() - t0) * 1e3
 
 
 def host_us(torch, fn, iters: int) -> float:
@@ -690,6 +728,8 @@ def main_path(torch, dev, dataset, card) -> dict:
                      f"({bad} <= {LOGIT_REL_TOL} x {scale})")
             del dense, dense_logits, unmasked
             report["breakdown_flat_batch"] = breakdown(torch, clf, texts[:BATCH])
+            report["serve"] = serve_distilbert_path(torch, dev, clf, dataset,
+                                                    texts, card)
         else:
             # The whole packed path (plan, wire, device-side segment and
             # position expansion, CLS gather) against flat rows, per song.
@@ -1124,7 +1164,7 @@ PAGED_PLAIN_REL = 2.0 ** -5
 #    5e-2 of the logit scale (max |logit|).  A step that ignores the slot
 #    lengths (attends to every row of its pages) must break it.
 LLAMA_LOGIT_REL_TOL = 5e-2
-LLAMA_SONGS = 64          # generate mode
+LLAMA_SONGS = 32          # generate mode (was 64; cut to fit the serve phases)
 LLAMA_REPEATS = 1         # bf16 generate runs
 LLAMA_SCORE_SONGS = 16    # score mode, one batch
 LLAMA_INT8_PROMPTS = 16
@@ -1507,7 +1547,7 @@ def decode_breakdown(torch, sched) -> dict:
     return out
 
 
-def llama_path(torch, dev, card) -> dict:
+def llama_path(torch, dev, card, serve=None) -> dict:
     """Full-width Llama-3-8B (random bf16 weights drawn on the card) through
     run_sentiment: generate mode on the continuous paged scheduler (8
     slots, page 16, chunk 64, 16 new tokens, span 4, prefix cache on) and
@@ -1646,7 +1686,16 @@ def llama_path(torch, dev, card) -> dict:
     report["decode_breakdown"] = decode_breakdown(torch, sched)
     report["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
     log(f"llama peak device memory {report['peak_memory_bytes'] / 1e9:.2f} GB")
-    del sched, clf
+    del sched
+    torch.cuda.empty_cache()
+    if serve is not None:
+        # The serve phase reuses this model (no second 17 GB build).
+        clf.decode_mode = "generate"
+        report["serve"] = serve(clf, prompts)
+    del clf
+    # The schedulers' ledgers hold bound methods of their schedulers, a
+    # cycle that keeps the model alive until the collector runs.
+    gc.collect()
     torch.cuda.empty_cache()
     return report
 
@@ -1686,8 +1735,10 @@ QUANT_LOGIT_SPREAD = 0.1
 # model with every o_proj zeroed (DistilBERT; the correlation alone does
 # not catch it, since a random model's logits vary little from song to
 # song), each layer projection with one scale or weight row dropped.
-LLAMA_WQ_SONGS = 64        # weight_quant int8, generate mode
-LLAMA_WQ_INT4_SONGS = 16   # weight_quant int4, generate mode
+# The int8 generate run was 64 songs; cut to 24 (three waves of 8 slots)
+# to fit the serve phases in the script's time.
+LLAMA_WQ_SONGS = 24        # weight_quant int8, generate mode (three waves)
+LLAMA_WQ_INT4_SONGS = 16   # weight_quant int4, generate mode (two waves)
 LLAMA_Q_SCORE_SONGS = 16   # weight_quant int8 and dynamic int8, score mode
 
 
@@ -2028,7 +2079,7 @@ def llama_layer_check(torch, dev, clf) -> dict:
 
 def llama_quant_path(torch, dev, card) -> dict:
     """Full-width Llama-3-8B with random weights drawn on the card and
-    quantized kernel by kernel: weight_quant int8 (generate, 64 songs on
+    quantized kernel by kernel: weight_quant int8 (generate, 24 songs on
     8 continuous slots; score, 16), weight_quant int4 (generate, 16) and
     dynamic int8 (score, 16), each through ``run_sentiment`` once."""
     import dataclasses
@@ -2059,6 +2110,7 @@ def llama_quant_path(torch, dev, card) -> dict:
     report = dict(bf16_weight_bytes=bf16_bytes)
 
     def build(**field):
+        gc.collect()              # a scheduler and its model form a cycle
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
@@ -2198,6 +2250,511 @@ def persong_path(dataset, card) -> dict:
     return out
 
 
+# ----------------------------------------------------- serve (slice 8)
+
+SERVE_MOCK_REQUESTS = 2048
+SERVE_DISTILBERT_REQUESTS = 4096
+SERVE_MAX_BATCH = 256
+SERVE_PROMPTS = 16        # generate requests per Llama serve variant
+SERVE_K = 4               # draft tokens per slot in the speculative variant
+#  - DistilBERT through the server vs the batch engine, same weights: the
+#    server pads its pow2 batches to another width and mixes other songs
+#    into each batch, so bf16 logits move by rounding; a label may differ
+#    only where the batch engine's top-two logit gap is within 1e-2 of the
+#    logit scale (max |logit|) of a decision boundary: 0 (the argmax) or
+#    the gap at which the confidence meets the neutral threshold.
+SERVE_FLIP_REL = 1e-2
+
+
+def _quantiles(hist: dict) -> dict:
+    return {f"{q}_ms": (None if hist.get(f"{q}_s") is None
+                        else hist[f"{q}_s"] * 1e3) for q in ("p50", "p99")}
+
+
+def _lines(texts, op="sentiment", prefix=""):
+    return [json.dumps({"id": f"{prefix}{i}", "op": op, "text": t})
+            for i, t in enumerate(texts)]
+
+
+def _stream(server, lines):
+    """One in-process NDJSON session through ``handle_stream``; ``lines``
+    may be any iterable (a generator can hold lines back)."""
+    import io
+
+    out = io.StringIO()
+    server.handle_stream((line + "\n" for line in lines), out,
+                         drain_on_eof=True)
+    return [json.loads(line) for line in out.getvalue().splitlines()]
+
+
+def _no_serve_threads(tag: str) -> None:
+    """A drained server leaves no worker thread behind: one that polls on
+    would take the interpreter from every later phase's host work."""
+    names = ("-batcher", "decode-loop", "serve-reader", "serve-conn-")
+    alive = [t.name for t in threading.enumerate()
+             if any(n in t.name for n in names)]
+    if alive:
+        fail(f"{tag}: serve threads still running after the drain: {alive}")
+
+
+def _wordcount_contract(text: str) -> dict:
+    import collections
+
+    from music_analyst_tpu_torch.data.tokenizer import tokenize_latin1
+
+    counts = collections.Counter(tokenize_latin1(text))
+    return {"counts": dict(sorted(counts.items(),
+                                  key=lambda kv: (-kv[1], kv[0]))),
+            "total_words": int(sum(counts.values()))}
+
+
+def serve_mock_path(torch, dev, card) -> dict:
+    """(a) ``serve --stdio --mock`` as a process: 2,048 classify requests,
+    wordcount requests and a malformed line, then ``stats`` once every
+    reply is in, then ``shutdown``; labels must equal the reference
+    heuristic, word counts the tokenizer contract, and the process must
+    exit 0 after its drain.  The process prints the kernel launches of the
+    session on stderr as it exits; the keyword scan must have launched."""
+    from music_analyst_tpu_torch.data.csv_io import iter_songs
+    from music_analyst_tpu_torch.data.synthetic import generate_dataset
+
+    dataset = os.path.join(WORK, f"serve_{SERVE_MOCK_REQUESTS}.csv")
+    generate_dataset(dataset, num_songs=SERVE_MOCK_REQUESTS, seed=19)
+    texts = [t for _, _, t in iter_songs(dataset)]
+    words = texts[:8]
+    lines = (_lines(texts) + _lines(words, "wordcount", "w")
+             + ["{not json"])
+    n = len(lines)
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "music_analyst_tpu_torch", "serve", "--stdio",
+         "--mock", "--no-response-cache", "--max-queue", str(n + 16)],
+        cwd=ROOT, stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    stderr = []
+    reader = threading.Thread(target=lambda: stderr.extend(proc.stderr),
+                              daemon=True)
+    reader.start()
+    try:
+        # Wait for the ready line so the rate excludes start-up and warmup.
+        t_wait = time.perf_counter() + 300
+        while not any("ready" in s for s in stderr):
+            if proc.poll() is not None or time.perf_counter() > t_wait:
+                fail(f"serve --mock did not start: {''.join(stderr)[-2000:]}")
+            time.sleep(0.05)
+        t0 = time.perf_counter()
+        writer = threading.Thread(
+            target=lambda: (proc.stdin.write("".join(l + "\n" for l in lines)),
+                            proc.stdin.flush()), daemon=True)
+        writer.start()
+        replies = [json.loads(proc.stdout.readline()) for _ in range(n)]
+        wall = time.perf_counter() - t0
+        writer.join()
+        proc.stdin.write(json.dumps({"id": "s", "op": "stats"}) + "\n")
+        proc.stdin.flush()
+        stats = json.loads(proc.stdout.readline())
+        proc.stdin.write(json.dumps({"id": "z", "op": "shutdown"}) + "\n")
+        proc.stdin.flush()
+        bye = json.loads(proc.stdout.readline())
+        proc.stdin.close()
+        rc = proc.wait(timeout=120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    reader.join(timeout=30)
+    if rc != 0 or not bye.get("draining"):
+        fail(f"serve --mock exited {rc} after shutdown {bye}: "
+             f"{''.join(stderr)[-2000:]}")
+    want = [reference_mock_label(t) for t in texts]
+    got = [r.get("label") for r in replies[:len(texts)]]
+    if got != want or not all(r["ok"] for r in replies[:len(texts)]):
+        bad = sum(a != b for a, b in zip(got, want))
+        fail(f"serve --mock: {bad} labels differ from the reference heuristic")
+    for r, text in zip(replies[len(texts):len(texts) + len(words)], words):
+        if {k: r.get(k) for k in ("counts", "total_words")} != \
+                _wordcount_contract(text):
+            fail(f"serve --mock: wordcount reply {r['id']} breaks the contract")
+    if replies[-1].get("error", {}).get("kind") != "bad_request":
+        fail(f"serve --mock: malformed line answered {replies[-1]}")
+    req = stats["stats"]["requests"]
+    if req["completed"] != len(texts) + len(words):
+        fail(f"serve --mock: stats count {req['completed']} completions")
+    out = dict(requests=n, requests_per_s=len(texts) / wall, wall_s=wall,
+               latency=_quantiles(req["latency"]), batches=req["batches"],
+               occupancy=req["occupancy"], exit_code=rc)
+
+    # The process's own count of the session's launches (warmup excluded).
+    prefix = "serve: kernel launches since ready "
+    line = [s for s in stderr if s.startswith(prefix)]
+    if not line:
+        fail(f"serve --mock: no launch count on stderr: "
+             f"{''.join(stderr)[-2000:]}")
+    out["launches"] = json.loads(line[-1][len(prefix):])
+    if out["launches"]["keyword_scan"] == 0:
+        fail(f"serve --mock: the keyword scan never launched {out['launches']}")
+    log(f"serve --mock (process) on {card}: {json.dumps(out)}")
+    return out
+
+
+def serve_distilbert_path(torch, dev, clf, dataset, texts, card) -> dict:
+    """(b) Full DistilBERT through ``SentimentServer.handle_stream``: 4,096
+    classify requests at max_batch 256 under ``torch.profiler``; the flash
+    kernel must launch.
+
+    Random weights give every song one label, so the neutral threshold is
+    set to the median confidence of the plain reference (``forward_logits``
+    on the same texts, one flat batch) and the labels split between two
+    classes.  A forward hook on the model records the logits of every row
+    it ran, in the batch engine (``run_sentiment`` at the same threshold)
+    and in the server.  Each request id's row must be among each path's,
+    and hold the reference's logits within LOGIT_REL_TOL of the scale (the
+    server's rows shifted by one request must break that limit).  Each
+    path's labels must follow the label rule from its own logits, and the
+    server's labels may differ from the batch engine's only where the
+    batch engine's top-two logit gap lies within SERVE_FLIP_REL of the
+    scale of a decision boundary (0 for the argmax, the threshold's gap
+    for Neutral)."""
+    import math
+
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from music_analyst_tpu_torch import kernels
+    from music_analyst_tpu_torch.engines.sentiment import run_sentiment
+    from music_analyst_tpu_torch.runtime.wire import to_device
+    from music_analyst_tpu_torch.serving.batcher import DynamicBatcher
+    from music_analyst_tpu_torch.serving.residency import ModelResidency
+    from music_analyst_tpu_torch.serving.server import (
+        SentimentServer,
+        build_resident_ops,
+    )
+
+    n = SERVE_DISTILBERT_REQUESTS
+    texts = texts[:n]
+    ids, lens = clf.tokenizer.encode_batch(texts, clf.max_len)
+    ids, lens = np.asarray(ids, np.int64), np.asarray(lens)
+    keys = [ids[i, :lens[i]].tobytes() for i in range(n)]
+    ref = clf.forward_logits(*to_device([ids, lens], dev)).float().cpu()
+    if ref.shape[1] != 2:
+        fail(f"serve distilbert: the label rule below is for two classes, "
+             f"the head has {ref.shape[1]}")
+    scale = max(1.0, float(ref.abs().max()))
+    threshold = float(torch.softmax(ref, dim=-1).amax(dim=-1).median())
+    # Two classes: confidence < threshold  <=>  top-two gap < boundary.
+    boundary = math.log(threshold / (1.0 - threshold))
+    empty = [not t.strip() for t in texts]
+
+    def gaps(logits):
+        top2 = logits.topk(2, dim=-1).values
+        return top2[:, 0] - top2[:, 1]
+
+    def rule(logits) -> list:
+        return ["Neutral" if e or float(g) < boundary
+                else clf._CLASS_LABELS[int(k)]
+                for e, g, k in zip(empty, gaps(logits),
+                                   logits.argmax(dim=-1))]
+
+    def recorded_by_id(store, what):
+        rows = {}
+        for row_ids, row_lens, logits in store:
+            row_ids, row_lens = row_ids.cpu().numpy(), row_lens.cpu().numpy()
+            logits = logits.cpu()
+            for r in range(row_ids.shape[0]):
+                rows[row_ids[r, :row_lens[r]].astype(np.int64).tobytes()] = \
+                    logits[r]
+        missing = [i for i in range(n) if keys[i] not in rows]
+        if missing:
+            fail(f"serve distilbert: {len(missing)} requests ran through no "
+                 f"forward of the {what} (first id {missing[0]})")
+        return torch.stack([rows[k] for k in keys])
+
+    def record(store):
+        return clf.model.register_forward_hook(
+            lambda module, inputs, output: store.append(
+                (inputs[0].clone(), inputs[1].clone(), output.float().clone())))
+
+    default_threshold = clf.neutral_threshold
+    clf.neutral_threshold = threshold
+    batch_store, serve_store = [], []
+    try:
+        hook = record(batch_store)
+        try:
+            batch = run_sentiment(dataset, backend=clf, limit=n, batch_size=n,
+                                  quiet=True,
+                                  output_dir=os.path.join(WORK, "serve_batch"))
+        finally:
+            hook.remove()
+        batch_labels = [r.label for r in batch.rows]
+        residency = ModelResidency(model="distilbert", backend=clf, device=dev)
+        warm = residency.warmup(SERVE_MAX_BATCH)
+        batcher = DynamicBatcher(
+            build_resident_ops(residency), max_batch=SERVE_MAX_BATCH,
+            max_queue=n + 1, device=dev,
+            failover=lambda exc: residency.reload() is not None).start()
+        server = SentimentServer(batcher, residency, mode="stdio")
+        hook = record(serve_store)
+        try:
+            kernels.reset_launches()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                replies = _stream(server, _lines(texts))
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            launches = kernels.launches()
+        finally:
+            hook.remove()
+    finally:
+        clf.neutral_threshold = default_threshold
+    _no_serve_threads("serve distilbert")
+    flash_events = sum(e.count for e in prof.key_averages()
+                       if "flash_wgmma_kernel" in e.key)
+    if launches["flash_attention"] == 0 or flash_events == 0:
+        fail(f"serve distilbert: flash launches {launches}, "
+             f"profiled flash_wgmma_kernel launches {flash_events}")
+    if ([r.get("id") for r in replies] != [str(i) for i in range(n)]
+            or not all(r["ok"] for r in replies)):
+        fail("serve distilbert: a request failed or replies are out of order")
+    if len(batch_labels) != n or len(set(batch_labels)) < 2:
+        fail(f"serve distilbert: the batch engine gave {len(batch_labels)} "
+             f"labels of {sorted(set(batch_labels))} at threshold "
+             f"{threshold:.6g}: a swapped reply could not show")
+
+    batch_logits = recorded_by_id(batch_store, "batch engine")
+    served = recorded_by_id(serve_store, "server")
+    diff = float((served - ref).abs().max())
+    batch_diff = float((batch_logits - ref).abs().max())
+    shifted = float((served.roll(1, dims=0) - ref).abs().max())
+    if (not torch.isfinite(served).all()
+            or max(diff, batch_diff) > LOGIT_REL_TOL * scale):
+        fail(f"serve distilbert: logits differ from the reference by {diff} "
+             f"(server) and {batch_diff} (batch engine); the limit is "
+             f"{LOGIT_REL_TOL} x {scale}")
+    if shifted <= LOGIT_REL_TOL * scale:
+        fail(f"serve distilbert: logits of neighbouring requests pass the "
+             f"limit ({shifted} <= {LOGIT_REL_TOL} x {scale})")
+    labels = [r["label"] for r in replies]
+    # Softmax on the card and the gap here round differently right at the
+    # boundary: rows within 1e-4 of it may go either way.
+    for what, got, logits in (("server", labels, served),
+                              ("batch engine", batch_labels, batch_logits)):
+        g = gaps(logits)
+        off = [i for i, (a, b) in enumerate(zip(got, rule(logits)))
+               if a != b and abs(float(g[i]) - boundary) > 1e-4]
+        if off:
+            fail(f"serve distilbert: {len(off)} {what} labels are not the "
+                 f"label of their own logits (first id {off[0]})")
+    g = gaps(batch_logits)
+    near = torch.minimum(g, (g - boundary).abs()) < SERVE_FLIP_REL * scale
+    differ = [i for i, (a, b) in enumerate(zip(labels, batch_labels))
+              if a != b]
+    far = [i for i in differ if not bool(near[i])]
+    if far:
+        fail(f"serve distilbert: {len(far)} labels differ from the batch "
+             f"engine away from a near-tie (first id {far[0]})")
+    stats = batcher.stats()
+    counts = {label: labels.count(label) for label in sorted(set(labels))}
+    out = dict(requests=n, requests_per_s=n / wall, wall_s=wall,
+               latency=_quantiles(stats["latency"]),
+               batches=stats["batches"], occupancy=stats["occupancy"],
+               launches=launches, flash_wgmma_kernel_events=flash_events,
+               threshold=threshold, label_counts=counts,
+               logits_vs_reference=dict(
+                   server_max_abs_diff=diff, batch_max_abs_diff=batch_diff,
+                   scale=scale, server_shifted_by_one=shifted),
+               labels_differing=dict(differ=len(differ),
+                                     near_ties=int(near.sum())),
+               warmup=warm)
+    log(f"serve distilbert on {card}: {json.dumps(out)}")
+    return out
+
+
+def _profile_dispatches(torch, sched, count: int = 4) -> list:
+    """Wrap the scheduler's decode dispatch (its verify dispatch when it
+    speculates) so that up to ``count`` of the served run's dispatches,
+    each with its upload, readback and settling, run under
+    ``torch.profiler``: the first, then each one with more active slots
+    than any profiled before.  Returns the list the wrapper fills:
+    ``(profile, wall_s, active slots)``, or the repr of a profiler
+    failure.  The profiled dispatches stay in the run's own stats."""
+    from torch.profiler import ProfilerActivity, profile
+
+    taken = []
+    name = "_verify_tick" if sched.speculate_k else "_plain_decode_tick"
+    inner = getattr(sched, name)
+
+    def profiled(occupied, *rest):
+        most = max((t[2] for t in taken if isinstance(t, tuple)), default=0)
+        if len(taken) >= count or len(occupied) <= most:
+            return inner(occupied, *rest)
+        # The profiler runs on the decode thread: a failure of its own is
+        # recorded (and fails the phase once the run is over) rather than
+        # ending the thread, which would leave the stream waiting.
+        try:
+            torch.cuda.synchronize()
+            prof = profile(activities=[ProfilerActivity.CPU,
+                                       ProfilerActivity.CUDA])
+            prof.__enter__()
+        except Exception as exc:  # noqa: BLE001
+            taken.append(f"profiler: {exc!r}"[:300])
+            return inner(occupied, *rest)
+        try:
+            t0 = time.perf_counter()
+            did = inner(occupied, *rest)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            try:
+                prof.__exit__(None, None, None)
+            except Exception as exc:  # noqa: BLE001
+                taken.append(f"profiler: {exc!r}"[:300])
+        taken.append((prof, wall, len(occupied)))
+        return did
+
+    setattr(sched, name, profiled)
+    return taken
+
+
+def _dispatch_profile(sched, taken, what: str) -> dict:
+    """The profiled dispatch with the most active slots: device busy and
+    traced wall ms.  Fails when no dispatch was profiled."""
+    profiled = [t for t in taken if isinstance(t, tuple)]
+    if not profiled or len(profiled) != len(taken):
+        fail(f"{what}: the served run's dispatches were not profiled "
+             f"({[t for t in taken if not isinstance(t, tuple)]})")
+    prof, wall, active = max(profiled, key=lambda t: t[2])
+    return dict(device_busy_ms=sum(device_kernel_ms(prof).values()),
+                traced_wall_ms=wall * 1e3, active_slots=active,
+                profiled_dispatches=len(profiled),
+                kind="verify" if sched.speculate_k else "decode",
+                steps=(sched.speculate_k + 1 if sched.speculate_k
+                       else sched.plan.decode_span))
+
+
+def serve_llama_path(torch, dev, clf, prompts, card) -> dict:
+    """(c) ``generate`` through the threaded continuous scheduler behind
+    ``SentimentServer`` on the full-width Llama the Llama phase built: 16
+    prompts, 8 slots, 16 new tokens; paged plain (the baseline), paged
+    with speculation (text byte-identical to the baseline), a priority-2
+    burst preempting priority-1 decodes under a TTFT target (at least one
+    preemption, text byte-identical), the monolithic slot cache and int8
+    pages (text agreement reported)."""
+    from music_analyst_tpu_torch import kernels
+    from music_analyst_tpu_torch.serving.batcher import DynamicBatcher
+    from music_analyst_tpu_torch.serving.decode_loop import (
+        ContinuousScheduler,
+    )
+    from music_analyst_tpu_torch.serving.server import (
+        SentimentServer,
+        build_ops,
+    )
+
+    prompts = prompts[:SERVE_PROMPTS]
+    deadline = 600_000.0  # explicit: a TTFT target must not shed these
+
+    def gen_lines(idx, priority=1):
+        return [json.dumps({"id": f"g{i}", "op": "generate", "text": prompts[i],
+                            "max_new_tokens": PAGED_NEW, "priority": priority,
+                            "deadline_ms": deadline}) for i in idx]
+
+    def run(name, staged=False, **kw):
+        sched = ContinuousScheduler(
+            clf, n_slots=PAGED_SLOTS, prefill_chunk=64,
+            max_new_tokens=PAGED_NEW, max_queue=64, **kw)
+        warm = sched.warmup()
+        batcher = DynamicBatcher(build_ops(clf), max_batch=PAGED_SLOTS,
+                                 device=dev).start()
+        # The preempt variant's dispatches are the paged variant's.
+        profiled = None if staged else _profile_dispatches(torch, sched)
+        sched.start()
+        server = SentimentServer(batcher, mode="stdio", decode=sched)
+        half = SERVE_PROMPTS // 2
+
+        def lines():
+            yield from gen_lines(range(half))
+            if staged:
+                # The burst arrives once the first wave is decoding.
+                t_end = time.perf_counter() + 120
+                while not any(s is not None and s.active and s.steps > 0
+                              for s in sched._slots):
+                    if time.perf_counter() > t_end:
+                        break
+                    time.sleep(0.002)
+                yield from gen_lines(range(half, SERVE_PROMPTS), priority=2)
+            else:
+                yield from gen_lines(range(half, SERVE_PROMPTS))
+
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        replies = _stream(server, lines())
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = kernels.launches()
+        _no_serve_threads(f"serve llama {name}")
+        if len(replies) != SERVE_PROMPTS or not all(r["ok"] for r in replies):
+            fail(f"serve llama {name}: replies {replies[:2]}")
+        stats = sched.stats()
+        texts = [r["text"] for r in replies]
+        out = dict(
+            wall_s=wall, launches=launches, warmup_s=warm["seconds"],
+            ttft=_quantiles(stats["ttft"]), tpot=_quantiles(stats["tpot"]),
+            host_ms_per_decode_dispatch=(
+                stats["decode_seconds"] / stats["decode_dispatches"] * 1e3),
+            decode_dispatches=stats["decode_dispatches"],
+            prefill_dispatches=stats["prefill_dispatches"],
+            tokens_generated=stats["tokens_generated"],
+            preemptions=stats["preemptions"], resumed_o1=stats["resumed_o1"])
+        spec = stats["speculation"]
+        if spec["enabled"]:
+            out.update(acceptance_rate=spec["acceptance_rate"],
+                       tokens_per_verify_dispatch=spec[
+                           "accepted_tokens_per_dispatch"],
+                       verify_dispatches=spec["dispatches"],
+                       plain_ticks=spec["plain_ticks"])
+        if profiled is not None:
+            out["dispatch_profile"] = _dispatch_profile(
+                sched, profiled, f"serve llama {name}")
+        del sched, batcher, server
+        gc.collect()
+        torch.cuda.empty_cache()
+        return out, texts
+
+    report = {}
+    report["paged"], base = run("paged")
+    if report["paged"]["launches"]["paged_attention"] == 0:
+        fail("serve llama: the paged kernel never launched")
+    report["speculative"], texts = run("speculative", speculate_k=SERVE_K)
+    if texts != base:
+        fail(f"serve llama speculative: {sum(a != b for a, b in zip(texts, base))}"
+             f" texts differ from plain paged decode")
+    if report["speculative"]["launches"]["paged_attention"] == 0:
+        fail("serve llama speculative: the paged kernel never launched")
+    # Twice the default pool, so the victims' checkpoints (pinned page
+    # rows) survive the burst's admissions and resume with no prefill.
+    pool = 2 * PAGED_SLOTS * (PAGED_REGION // PAGED_P + -(-PAGED_NEW // PAGED_P))
+    report["preempt"], texts = run("preempt", staged=True, ttft_slo_ms=1.0,
+                                   kv_pages=pool)
+    if report["preempt"]["preemptions"] < 1 or \
+            report["preempt"]["resumed_o1"] < 1:
+        fail(f"serve llama preempt: the priority-2 burst preempted "
+             f"{report['preempt']['preemptions']} and resumed "
+             f"{report['preempt']['resumed_o1']} from a checkpoint")
+    if texts != base:
+        fail(f"serve llama preempt: {sum(a != b for a, b in zip(texts, base))}"
+             f" texts differ from the undisturbed run")
+    report["slots"], texts = run("slots", page_size=0)
+    report["slots"]["same_text_as_paged"] = sum(
+        a == b for a, b in zip(texts, base))
+    report["int8"], texts = run("int8", kv_quant="int8")
+    report["int8"]["same_text_as_paged"] = sum(
+        a == b for a, b in zip(texts, base))
+    if report["int8"]["launches"]["paged_attention"] == 0:
+        fail("serve llama int8: the paged kernel never launched")
+    for name, r in report.items():
+        log(f"serve llama {name} on {card}: {json.dumps(r)}")
+    return report
+
+
 def main() -> int:
     try:
         import torch
@@ -2221,6 +2778,7 @@ def main() -> int:
     t_start = time.perf_counter()
     report = {"card": card, "torch": torch.__version__}
 
+    report["host_python_ms"] = {"start": python_ms()}
     report["build"] = build_all()
     report["flash_max_abs_err"] = check_flash(torch, dev)
     t0 = time.perf_counter()
@@ -2244,7 +2802,11 @@ def main() -> int:
     report["quant_gemm"] = quant_gemm_probe(torch, dev)
     slice7_s = time.perf_counter() - t0
     report["main_path"] = main_path(torch, dev, dataset, card)
+    slice8_s = report["main_path"]["serve"]["wall_s"]
     torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    report["serve_mock"] = serve_mock_path(torch, dev, card)
+    slice8_s += time.perf_counter() - t1
     t0 = time.perf_counter()
     report["distilbert_quant"] = distilbert_quant_path(torch, dev, dataset,
                                                        card)
@@ -2260,12 +2822,27 @@ def main() -> int:
     slice7_s += time.perf_counter() - t0
     report["paged"] = check_paged(torch, dev)
     torch.cuda.empty_cache()
-    report["llama"] = llama_path(torch, dev, card)
+    serve_s = []
+
+    def serve(clf, prompts):
+        t1 = time.perf_counter()
+        out = serve_llama_path(torch, dev, clf, prompts, card)
+        serve_s.append(time.perf_counter() - t1)
+        return out
+
+    report["host_python_ms"]["before_llama"] = python_ms()
+    report["llama"] = llama_path(torch, dev, card, serve=serve)
+    slice8_s += serve_s[0]
+    report["slice8_s"] = slice8_s
+    log(f"serve phases: {slice8_s:.1f} s")
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     report["llama_quant"] = llama_quant_path(torch, dev, card)
     report["slice7_s"] = slice7_s + time.perf_counter() - t0
     log(f"quantized and per-song phases: {report['slice7_s']:.1f} s")
+    report["host_python_ms"]["end"] = python_ms()
+    log(f"host probe (ms of a fixed Python loop): "
+        f"{json.dumps(report['host_python_ms'])}")
     report["seconds"] = time.perf_counter() - t_start
 
     timing = report["timing"]
@@ -2279,6 +2856,7 @@ def main() -> int:
              launches=mp["distilbert_flat"]["launches"]["flash_attention"],
              joint_launches=report["joint"]["distilbert"]["launches"][
                  "flash_attention"],
+             serve_launches=mp["serve"]["launches"]["flash_attention"],
              **{f"{name}_launches": report["distilbert_quant"][name][
                  "launches"]["flash_attention"]
                 for name in ("int8_dynamic", "wq_int8", "wq_int4")},
@@ -2290,6 +2868,7 @@ def main() -> int:
              replaces="music_analyst_tpu/ops/pallas_keyword.py:63",
              launches=mp["mock_cli"]["launches"]["keyword_scan"],
              joint_launches=report["joint"]["mock"]["launches"]["keyword_scan"],
+             serve_launches=report["serve_mock"]["launches"]["keyword_scan"],
              max_abs_err=0.0,
              **{key: timing["keyword_scan"][key] for key in
                 ("shape", "ms", "ms_l2_flushed", "event_ms", "plain_ms",
@@ -2302,6 +2881,9 @@ def main() -> int:
                  "launches"]["paged_attention"],
              wq_int4_launches=report["llama_quant"]["wq_int4"]["generate"][
                  "launches"]["paged_attention"],
+             **{f"serve_{name}_launches": report["llama"]["serve"][name][
+                 "launches"]["paged_attention"]
+                for name in ("paged", "speculative", "preempt", "int8")},
              max_abs_err=max(v["max_abs_err"] for v in report["paged"].values()),
              **{key: report["paged"]["bf16"][key] for key in
                 ("ms", "ms_l2_flushed", "event_ms", "host_us", "plain_ms",
@@ -2317,6 +2899,8 @@ def main() -> int:
         f"{report['analyze']['layouts']['auto_streaming']['songs_per_s']:.1f}, "
         f"joint mock {report['joint']['mock']['songs_per_s']:.1f}, joint "
         f"distilbert {report['joint']['distilbert']['songs_per_s']:.1f}; "
+        f"serve --mock {report['serve_mock']['requests_per_s']:.1f} req/s, "
+        f"serve distilbert {mp['serve']['requests_per_s']:.1f} req/s; "
         f"total {report['seconds']:.1f} s")
     print(json.dumps({"quant_gemm": report["quant_gemm"]}))
     print(json.dumps(kernels_line))

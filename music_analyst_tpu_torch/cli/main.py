@@ -3,11 +3,14 @@
 Counterpart of ``music_analyst_tpu/cli/main.py`` for the subcommands
 ported so far — ``analyze`` (with ``--with-sentiment``, the joint
 pipeline), ``sentiment`` (``--weight-quant``, ``--model ollama[:tag]``),
-``wordcount-per-song`` and ``split`` — with the JAX flags and defaults,
-plus ``--device {cuda,cpu}`` on ``analyze`` and ``sentiment`` (the
-counterpart of ``JAX_PLATFORMS``; default ``cuda``, which fails rather
-than falling back when no card is present).  ``wordcount-per-song`` takes
-``--device`` too, though it is host-only like ``split``.
+``wordcount-per-song``, ``split`` and ``serve`` (one replica, ``--tp 1``)
+— with the JAX flags and defaults, plus ``--device {cuda,cpu}`` on
+``analyze``, ``sentiment`` and ``serve`` (the counterpart of
+``JAX_PLATFORMS``; default ``cuda``, which fails rather than falling back
+when no card is present).  ``wordcount-per-song`` takes ``--device`` too,
+though it is host-only like ``split``.  ``serve`` also runs
+``--inject-faults`` and a non-zero ``--watchdog-timeout``; ``--replicas``
+and ``--tp`` above 1 are usage errors.
 
 Every JAX flag parses.  A flag whose feature is not ported yet passes at
 its default or no-op value (``--no-telemetry``, ``--devices 1``,
@@ -87,11 +90,16 @@ def _add_run_flags(p: argparse.ArgumentParser, devices: bool = True) -> None:
 
 def _check_run_flags(parser: argparse.ArgumentParser,
                      args: argparse.Namespace) -> None:
-    for flag in ("telemetry_dir", "profile_dir", "inject_faults",
-                 "trace_dir"):
+    # ``serve`` has its fault seams and watchdog scopes; the other
+    # subcommands do not yet.
+    serve = args.command == "serve"
+    unported = ("telemetry_dir", "profile_dir", "trace_dir")
+    if not serve:
+        unported += ("inject_faults",)
+    for flag in unported:
         if getattr(args, flag, None) is not None:
             parser.error(f"--{flag.replace('_', '-')} {_NOT_PORTED}")
-    if args.watchdog_timeout is not None:
+    if args.watchdog_timeout is not None and not serve:
         try:
             seconds = float(args.watchdog_timeout)
         except ValueError:
@@ -223,6 +231,148 @@ def _add_split(sub: argparse._SubParsersAction) -> None:
     _add_run_flags(p, devices=False)
 
 
+def _add_serve(sub: argparse._SubParsersAction) -> None:
+    p = sub.add_parser(
+        "serve",
+        help="resident inference server: newline-delimited JSON over a "
+             "unix socket (or --stdio), dynamic batching + warm model "
+             "residency (serving/); one replica on one device",
+    )
+    p.add_argument("--model", default="mock",
+                   help="Model family: mock, distilbert[-*], llama[3*]")
+    p.add_argument("--mock", action="store_true",
+                   help="Keyword-kernel backend (no model weights needed)")
+    p.add_argument("--weight-quant", choices=("none", "int8", "int4"),
+                   default="none",
+                   help="Serve the weight-quantized model (loads through "
+                        "the persistent $MUSICAAL_WQ_CACHE)")
+    p.add_argument("--socket", default=None, metavar="PATH",
+                   help="Unix socket path to listen on (loopback-only by "
+                        "construction)")
+    p.add_argument("--stdio", action="store_true",
+                   help="Serve one NDJSON stream on stdin/stdout instead "
+                        "of a socket (tests, pipelines)")
+    p.add_argument("--max-batch", type=int, default=None,
+                   help="Flush a batch at this many requests (default "
+                        f"$MUSICAAL_SERVE_MAX_BATCH or 32)")
+    p.add_argument("--max-wait-ms", type=float, default=None,
+                   help="Flush a partial batch once its oldest request "
+                        "has waited this long (default "
+                        "$MUSICAAL_SERVE_MAX_WAIT_MS or 5.0)")
+    p.add_argument("--max-queue", type=int, default=None,
+                   help="Admission queue bound; beyond it requests shed "
+                        "with a structured queue_full error (default "
+                        "$MUSICAAL_SERVE_MAX_QUEUE or 1024)")
+    p.add_argument("--slots", type=int, default=None,
+                   help="KV slots for the continuous-batching generate op "
+                        "(power of two; 0 disables; default "
+                        "$MUSICAAL_SERVE_SLOTS or 8; requires a "
+                        "generative backend)")
+    p.add_argument("--prefill-chunk", type=int, default=None,
+                   help="Prompt tokens written per chunked-prefill "
+                        "dispatch for the generate op (default "
+                        "$MUSICAAL_SERVE_PREFILL_CHUNK or 64)")
+    p.add_argument("--max-new-tokens", type=int, default=16,
+                   help="Largest per-request generation budget the decode "
+                        "runtime is compiled for (generate op)")
+    p.add_argument("--page-size", type=int, default=None,
+                   help="Tokens per KV page for the paged prefix-shared "
+                        "cache (power of two; 0 pins the monolithic "
+                        "per-slot cache; default $MUSICAAL_SERVE_PAGE_SIZE "
+                        "or 16)")
+    p.add_argument("--kv-pages", type=int, default=None,
+                   help="Physical KV pages in the device pool (>= slots; "
+                        "0 sizes it to slots*pages_per_slot; default "
+                        "$MUSICAAL_SERVE_KV_PAGES or 0)")
+    p.add_argument("--kv-quant", choices=("none", "int8"), default=None,
+                   help="KV-page quantization for the paged cache: int8 "
+                        "stores pages as per-row symmetric int8 codes + "
+                        "f32 scales (~1.9x less KV HBM per sequence), "
+                        "dequantized inside the paged-attention kernel; "
+                        "requires --page-size > 0 (default "
+                        "$MUSICAAL_SERVE_KV_QUANT or none)")
+    p.add_argument("--speculate-k", type=int, default=None,
+                   help="Draft tokens per slot per speculative decode "
+                        "dispatch (prompt-lookup self-drafting; the "
+                        "verify program commits the longest accepted "
+                        "prefix + 1 correction token, byte-identical to "
+                        "plain decode; 0 disables; default "
+                        "$MUSICAAL_SERVE_SPECULATE_K or 0)")
+    p.add_argument("--replicas", type=int, default=None,
+                   help="Worker server processes behind the replica "
+                        "router (join-shortest-queue dispatch, "
+                        "health-aware failover; 1 serves in-process; "
+                        "default $MUSICAAL_SERVE_REPLICAS or 1; only 1 is "
+                        "ported)")
+    p.add_argument("--tp", type=int, default=None,
+                   help="Tensor-parallel width per worker: attention "
+                        "heads + KV cache shard over a tp mesh axis "
+                        "(must divide kv heads; default "
+                        "$MUSICAAL_SERVE_TP or 1; only 1 is ported)")
+    p.add_argument("--ttft-slo-ms", type=float, default=None,
+                   help="Time-to-first-token target in ms: arms SLO-aware "
+                        "preemption (a waiting higher-priority admit may "
+                        "slot-steal) and deadline-aware shedding "
+                        "(slo_unattainable); 0 disables (default "
+                        "$MUSICAAL_SERVE_SLO_TTFT_MS or 0)")
+    p.add_argument("--tpot-slo-ms", type=float, default=None,
+                   help="Time-per-output-token target in ms: the decode "
+                        "loop defers low-priority admits while the "
+                        "per-token EWMA is over target; 0 disables "
+                        "(default $MUSICAAL_SERVE_SLO_TPOT_MS or 0)")
+    p.add_argument("--tenant-budget", type=float, default=None,
+                   help="Per-tenant admission budget in requests/second "
+                        "(token bucket, burst 2x); an over-budget tenant "
+                        "sheds at its own bucket while others keep "
+                        "admitting; 0 disables (default "
+                        "$MUSICAAL_SERVE_TENANT_BUDGET or 0)")
+    p.add_argument("--priority", type=int, default=None,
+                   help="Default priority class for requests that don't "
+                        "carry one on the wire (higher serves first; "
+                        "default $MUSICAAL_SERVE_PRIORITY or 1)")
+    p.add_argument("--journal-dir", default=None,
+                   help="Durable request journal directory: admitted/"
+                        "replied records are fsync'd there, unanswered "
+                        "requests replay on restart, and re-sent ids "
+                        "return the journaled reply instead of "
+                        "recomputing (default $MUSICAAL_SERVE_JOURNAL; "
+                        "unset = journaling off)")
+    p.add_argument("--no-warmup", action="store_true",
+                   help="Skip the startup warmup batches (first request "
+                        "pays compile cost)")
+    p.add_argument("--quiet", action="store_true",
+                   help="Suppress stderr status lines")
+    p.add_argument("--trace-sample", default=None, metavar="P",
+                   help="Per-request distributed tracing head-sample "
+                        "probability in [0, 1]; sampled (plus every shed/"
+                        "preempted/requeued/SLO-missed) request flushes "
+                        "its span waterfall to request_traces.jsonl under "
+                        "--profile-dir (default $MUSICAAL_TRACE_SAMPLE "
+                        "or 0; requires --profile-dir or "
+                        "$MUSICAAL_TRACE_DIR)")
+    p.add_argument("--metrics-interval-ms", default=None, metavar="MS",
+                   help="Metrics plane sampling interval in ms: every "
+                        "serving counter/gauge/histogram/rate snapshots "
+                        "into a ring-buffer time series, flushes to "
+                        "metrics.jsonl + a Prometheus exposition file "
+                        "under --profile-dir, and feeds multi-window SLO "
+                        "burn-rate alerts (default "
+                        "$MUSICAAL_METRICS_INTERVAL_MS or 0 = off)")
+    p.add_argument("--response-cache-dir", default=None,
+                   help="Persistent response-cache directory: settled "
+                        "replies are content-addressed (normalized text + "
+                        "op + budget + backend fingerprint) and repeat "
+                        "requests answer from cache before shedding or "
+                        "tenant metering, byte-identical and without a "
+                        "device dispatch (default $MUSICAAL_RESPONSE_CACHE "
+                        "or ~/.cache/musicaal_responses)")
+    p.add_argument("--no-response-cache", action="store_true",
+                   help="Disable the response cache (every request "
+                        "computes)")
+    _add_device_flag(p)
+    _add_run_flags(p, devices=False)
+
+
 def _run_analyze(args: argparse.Namespace) -> int:
     common = dict(
         output_dir=args.output_dir,
@@ -306,6 +456,93 @@ def _run_wordcount_per_song(args: argparse.Namespace) -> int:
     return 0
 
 
+def _run_serve(parser: argparse.ArgumentParser,
+               args: argparse.Namespace) -> int:
+    from music_analyst_tpu_torch.device import resolve_device
+    from music_analyst_tpu_torch.observability.flight import (
+        install_flight_recorder,
+    )
+    from music_analyst_tpu_torch.observability.watchdog import (
+        resolve_watchdog_timeout,
+        start_watchdog,
+    )
+    from music_analyst_tpu_torch.resilience.faults import (
+        configure_faults,
+        resolve_fault_spec,
+    )
+    from music_analyst_tpu_torch.serving.batcher import (
+        resolve_replicas,
+        resolve_tp,
+    )
+    from music_analyst_tpu_torch.serving.server import run_server
+    from music_analyst_tpu_torch.telemetry import configure
+
+    if not args.stdio and not args.socket:
+        parser.error("serve requires --socket PATH or --stdio")
+    if args.weight_quant != "none" and (
+        args.mock or not (args.model.startswith("distilbert")
+                          or args.model.startswith("llama"))
+    ):
+        parser.error(
+            "--weight-quant requires an on-device model family "
+            "(distilbert[-*] or llama[3*])"
+        )
+    try:
+        replicas, tp = resolve_replicas(args.replicas), resolve_tp(args.tp)
+    except ValueError as exc:
+        parser.error(str(exc))
+    if replicas > 1:
+        parser.error(f"--replicas {replicas} (the replica router) "
+                     f"{_NOT_PORTED}")
+    if tp > 1:
+        parser.error(f"--tp {tp} {_NOT_PORTED}")
+    resolve_device(args.device)
+    configure(enabled=not args.no_telemetry)
+    # A crash or SIGTERM leaves flight_record.json behind; the watchdog
+    # is opt-in (--watchdog-timeout / $MUSICAAL_WATCHDOG_S).
+    install_flight_recorder()
+    try:
+        start_watchdog(resolve_watchdog_timeout(args.watchdog_timeout))
+        configure_faults(resolve_fault_spec(args.inject_faults))
+    except ValueError as exc:
+        parser.error(str(exc))
+    try:
+        return run_server(
+            model=args.model,
+            mock=args.mock,
+            weight_quant=(None if args.weight_quant == "none"
+                          else args.weight_quant),
+            stdio=args.stdio,
+            socket_path=args.socket,
+            max_batch=args.max_batch,
+            max_wait_ms=args.max_wait_ms,
+            max_queue=args.max_queue,
+            warmup=not args.no_warmup,
+            quiet=args.quiet,
+            slots=args.slots,
+            prefill_chunk=args.prefill_chunk,
+            max_new_tokens=args.max_new_tokens,
+            page_size=args.page_size,
+            kv_pages=args.kv_pages,
+            kv_quant=args.kv_quant,
+            speculate_k=args.speculate_k,
+            tp=args.tp,
+            ttft_slo_ms=args.ttft_slo_ms,
+            tpot_slo_ms=args.tpot_slo_ms,
+            tenant_budget=args.tenant_budget,
+            priority=args.priority,
+            journal_dir=args.journal_dir,
+            trace_sample=args.trace_sample,
+            metrics_interval_ms=args.metrics_interval_ms,
+            response_cache_dir=args.response_cache_dir,
+            use_response_cache=not args.no_response_cache,
+            device=args.device,
+        )
+    except ValueError as exc:
+        parser.error(str(exc))
+    return 2
+
+
 def _run_split(args: argparse.Namespace) -> int:
     from music_analyst_tpu_torch.data.splitter import split_csv_columns
 
@@ -334,6 +571,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     _add_sentiment(sub)
     _add_wordcount_per_song(sub)
     _add_split(sub)
+    _add_serve(sub)
     args = parser.parse_args(argv)
     _check_run_flags(parser, args)
 
@@ -345,5 +583,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         return _run_wordcount_per_song(args)
     if args.command == "split":
         return _run_split(args)
+    if args.command == "serve":
+        return _run_serve(parser, args)
     parser.error(f"unknown command {args.command!r}")
     return 2

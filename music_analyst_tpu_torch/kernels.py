@@ -9,6 +9,8 @@ so an edited source never loads a stale build.  Nothing is downloaded.
 Every kernel wrapper calls :func:`count_launch` right where it launches,
 so a run can show that its path went through the kernels:
 :func:`reset_launches` before the run, :func:`launches` after.
+:func:`build_stats` counts the libraries this process built or loaded
+(the port's counterpart of an XLA compile count).
 """
 
 from __future__ import annotations
@@ -19,7 +21,8 @@ import os
 import shutil
 import subprocess
 import threading
-from typing import Callable, Dict, List
+import time
+from typing import Any, Callable, Dict, List
 
 PACKAGE_DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(PACKAGE_DIR, "csrc")
@@ -60,6 +63,7 @@ _KERNELS = {
 _lock = threading.Lock()
 _loaded: Dict[str, Callable] = {}
 _launches: Dict[str, int] = {name: 0 for name in _KERNELS}
+_builds = {"count": 0, "seconds": 0.0}
 
 
 def count_launch(name: str) -> None:
@@ -77,6 +81,13 @@ def reset_launches() -> None:
 def launches() -> Dict[str, int]:
     with _lock:
         return dict(_launches)
+
+
+def build_stats() -> Dict[str, Any]:
+    """Kernel libraries built (nvcc) or loaded by this process, and the
+    seconds that took; a warm process adds nothing."""
+    with _lock:
+        return dict(_builds)
 
 
 def _nvcc() -> str:
@@ -158,12 +169,15 @@ def kernel(name: str) -> Callable:
     with _lock:
         fn = _loaded.get(name)
         if fn is None:
+            t0 = time.perf_counter()
             path = build([name])[0]
             _, symbol, argtypes = _KERNELS[name]
             fn = getattr(ctypes.CDLL(path), symbol)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
             _loaded[name] = fn
+            _builds["count"] += 1
+            _builds["seconds"] += time.perf_counter() - t0
     return fn
 
 

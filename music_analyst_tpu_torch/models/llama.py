@@ -810,6 +810,35 @@ class LlamaZeroShotClassifier(ClassifierBackend):
 
     # --------------------------------------------------------- continuous
 
+    def slot_runtime(
+        self,
+        n_slots: int = 8,
+        prefill_chunk: int = 64,
+        max_new_tokens: int = 16,
+        prompt_region: Optional[int] = None,
+        decode_span: int = 4,
+    ):
+        """The monolithic slot runtime for this model (``ops/kv_slots.py``,
+        ``page_size=0``).  Its presence is the capability probe the
+        server uses (``hasattr(backend, "slot_runtime")``) to decide
+        whether it can host the ``generate`` op."""
+        from music_analyst_tpu_torch.ops.kv_slots import (
+            SlotDecodeRuntime,
+            SlotPlan,
+        )
+
+        chunk = max(1, min(int(prefill_chunk), self.max_prompt_len))
+        if prompt_region is None:
+            prompt_region = self.max_prompt_len
+        region = min(int(prompt_region), self.max_prompt_len)
+        region = max(chunk, chunk * ((region + chunk - 1) // chunk))
+        plan = SlotPlan(
+            n_slots=int(n_slots), prefill_chunk=chunk, prompt_region=region,
+            max_new=int(max_new_tokens), decode_span=int(decode_span),
+        )
+        eos_id = getattr(self.tokenizer, "eos_id", ByteTokenizer.EOS)
+        return SlotDecodeRuntime(self.model, self.config, plan, eos_id)
+
     def paged_runtime(
         self,
         n_slots: int = 8,
@@ -863,21 +892,19 @@ class LlamaZeroShotClassifier(ClassifierBackend):
         prefix_cache: bool = True,
         speculate_k: Optional[int] = None,
     ) -> List[str]:
-        """Greedy generation through the continuous paged scheduler,
-        synchronously: admit → chunked prefill (prefix-shared pages) →
-        decode slots.  The prompt region is the static path's padded
-        width, so the KV geometry (and on the CPU every greedy token)
-        matches :meth:`generate_batch`.  One scheduler per geometry is
-        kept for reuse."""
+        """Greedy generation through the continuous scheduler,
+        synchronously: admit → chunked prefill → decode slots.  The KV
+        cache is paged with prefix sharing by default; ``page_size=0``
+        selects the monolithic slot cache (``ops/kv_slots.py``), and
+        ``speculate_k > 0`` draft-and-verify speculative decoding.  The
+        prompt region is the static path's padded width, so the KV
+        geometry (and on the CPU every greedy token) matches
+        :meth:`generate_batch` on every route.  One scheduler per
+        geometry is kept for reuse."""
         from music_analyst_tpu_torch.serving.decode_loop import (
             ContinuousScheduler,
         )
 
-        if speculate_k:
-            raise NotImplementedError(
-                "speculative decoding is not yet ported to "
-                "music_analyst_tpu_torch"
-            )
         if not prompts:
             return []
         n_slots = int(n_slots or self.continuous_slots or 8)
@@ -891,7 +918,7 @@ class LlamaZeroShotClassifier(ClassifierBackend):
         chunk = min(int(prefill_chunk), region)
         cap = max(1, max(budgets))
         key = (n_slots, chunk, region, cap, int(decode_span), page_size,
-               kv_pages, kv_quant, bool(prefix_cache))
+               kv_pages, kv_quant, bool(prefix_cache), speculate_k)
         sched = self._slot_schedulers.get(key)
         if sched is None:
             sched = ContinuousScheduler(
@@ -900,7 +927,7 @@ class LlamaZeroShotClassifier(ClassifierBackend):
                 decode_span=int(decode_span),
                 max_queue=max(len(prompts), 64), page_size=page_size,
                 kv_pages=kv_pages, kv_quant=kv_quant,
-                prefix_cache=prefix_cache,
+                prefix_cache=prefix_cache, speculate_k=speculate_k,
             )
             self._slot_schedulers[key] = sched
         reqs = [sched.submit(i, prompt, max_new_tokens=budget)

@@ -17,6 +17,8 @@ Device half (:class:`PagedDecodeRuntime`), eager PyTorch:
   caches through the model: each step writes its K/V row into its
   physical page and attends through the paged kernel, so no view is
   gathered;
+* ``verify_block`` scores a drafted block for speculative decoding as
+  teacher-forced runs of the same 1-wide step;
 * ``free_pages`` zeroes pages (the failure path), ``copy_page`` copies one
   page (copy-on-write of a prefix hit's boundary page).
 
@@ -192,9 +194,23 @@ class PagedDecodeRuntime:
         itemsize = torch.empty((), dtype=self.compute_dtype).element_size()
         return 2 * cfg.n_layers * row * itemsize
 
+    def kv_token_bytes_unquantized(self) -> int:
+        """What the same token costs without KV quantization."""
+        cfg = self.config
+        itemsize = torch.empty((), dtype=self.compute_dtype).element_size()
+        return 2 * cfg.n_layers * cfg.n_kv_heads * (cfg.dim // cfg.n_heads) * itemsize
+
+    def page_bytes(self) -> int:
+        return self.plan.page_size * self.kv_token_bytes()
+
     def pool_bytes(self) -> int:
         """The whole pool across layers, the trash page included."""
-        return (self.plan.n_pages + 1) * self.plan.page_size * self.kv_token_bytes()
+        return (self.plan.n_pages + 1) * self.page_bytes()
+
+    def compiled_variants(self) -> int:
+        """Programs compiled for this runtime: none, eager PyTorch traces
+        nothing (the JAX runtime counts its jitted programs here)."""
+        return 0
 
     def prompt_chunks(self, n_tokens: int) -> Sequence[int]:
         """Chunk start offsets covering a prompt of ``n_tokens`` tokens."""
@@ -268,6 +284,30 @@ class PagedDecodeRuntime:
 
     # ------------------------------------------------------------- decode
 
+    def _views(self, caches, page_table):
+        plan = self.plan
+        return [PagedAttnView(
+            keys=c.keys, values=c.values,
+            key_scale=c.key_scale if self.quantized else None,
+            value_scale=c.value_scale if self.quantized else None,
+            table=page_table, length=c.length, page_size=plan.page_size,
+            total=plan.max_total) for c in caches]
+
+    def _step(self, views, tokens, prompt_lens, steps, kv_pos):
+        """One 1-wide step over every slot through the paged kernel: write
+        row ``R + step`` (clamped to the last row) into its physical page,
+        attend under ``prompt_part | decode_part``.  Returns the greedy
+        next tokens and the advanced views."""
+        R, total = self.plan.prompt_region, self.plan.max_total
+        offsets = torch.clamp(R + steps, max=total - 1)
+        views = [dataclasses.replace(v, length=offsets) for v in views]
+        prompt_part = kv_pos < prompt_lens[:, None, None, None]
+        decode_part = (kv_pos >= R) & (kv_pos - R <= steps[:, None, None, None])
+        logits, views = self.model(
+            tokens[:, None], (prompt_lens + steps)[:, None],
+            prompt_part | decode_part, views)
+        return logits[:, -1].argmax(dim=-1).to(tokens.dtype), views
+
     @torch.no_grad()
     def decode_step(self, caches, page_table, tokens, prompt_lens, steps,
                     budgets, done, active):
@@ -280,28 +320,14 @@ class PagedDecodeRuntime:
         ``prompt_len + t``.  Free slots' rows point at the trash page.
         Returns ``(caches, tokens, steps, done, emitted [span, n_slots])``.
         """
-        plan = self.plan
-        R, total = plan.prompt_region, plan.max_total
         eos = self.eos_id
-        views = [PagedAttnView(
-            keys=c.keys, values=c.values,
-            key_scale=c.key_scale if self.quantized else None,
-            value_scale=c.value_scale if self.quantized else None,
-            table=page_table, length=c.length, page_size=plan.page_size,
-            total=total) for c in caches]
-        kv_pos = torch.arange(total, device=tokens.device)[None, None, None, :]
-        prompt_part = kv_pos < prompt_lens[:, None, None, None]
+        views = self._views(caches, page_table)
+        kv_pos = torch.arange(self.plan.max_total,
+                              device=tokens.device)[None, None, None, :]
         emitted = []
-        for _ in range(plan.decode_span):
+        for _ in range(self.plan.decode_span):
             adv = active & (steps < budgets)
-            offsets = torch.clamp(R + steps, max=total - 1)
-            views = [dataclasses.replace(v, length=offsets) for v in views]
-            decode_part = (kv_pos >= R) & (
-                kv_pos - R <= steps[:, None, None, None])
-            logits, views = self.model(
-                tokens[:, None], (prompt_lens + steps)[:, None],
-                prompt_part | decode_part, views)
-            nxt = logits[:, -1].argmax(dim=-1).to(tokens.dtype)
+            nxt, views = self._step(views, tokens, prompt_lens, steps, kv_pos)
             new_done = done | (tokens == eos)
             nxt = torch.where(new_done, torch.full_like(nxt, eos), nxt)
             emitted.append(tokens)
@@ -309,6 +335,32 @@ class PagedDecodeRuntime:
             steps = torch.where(adv, steps + 1, steps)
             done = torch.where(adv, new_done, done)
         return caches, tokens, steps, done, torch.stack(emitted)
+
+    @torch.no_grad()
+    def verify_block(self, caches, page_table, tokens_blk, prompt_lens,
+                     steps):
+        """Score a ``[n_slots, K]`` drafted block (column 0 the carry,
+        columns ``1..K-1`` drafts); returns ``(caches, preds [n_slots,
+        K])``, the greedy token after consuming each prefix.
+
+        K teacher-forced runs of :meth:`_step`, the same 1-wide
+        kernel-backed step as :meth:`decode_step` at the same shapes: a
+        K-wide scoring pass would reduce in another order and flip argmax
+        near-ties, and speculative text must equal plain decode byte for
+        byte.  Rejected drafts' rows stay in the decode pages unread (the
+        masks follow the host-committed ``steps``); shared prompt pages are
+        never written (write offsets ``>= R``).
+        """
+        views = self._views(caches, page_table)
+        kv_pos = torch.arange(self.plan.max_total,
+                              device=tokens_blk.device)[None, None, None, :]
+        preds = []
+        for j in range(tokens_blk.shape[1]):
+            nxt, views = self._step(views, tokens_blk[:, j], prompt_lens,
+                                    steps, kv_pos)
+            preds.append(nxt)
+            steps = steps + 1
+        return caches, torch.stack(preds, dim=1)
 
     # ------------------------------------------------------ free and copy
 
@@ -375,6 +427,18 @@ class PagePool:
             raise ValueError(f"unpin of unpinned page {phys}")
         self.slot_refs[phys] = refs
         self._maybe_free(phys)
+
+    def pin_row(self, pages: Sequence[int]) -> None:
+        """Pin every page of one table row: a checkpoint's own reference,
+        so the row survives the slot's release (and the zeroing failure
+        path, which only touches unreferenced pages)."""
+        for phys in pages:
+            self.pin(phys)
+
+    def unpin_row(self, pages: Sequence[int]) -> None:
+        """Release one reference from every page of a table row."""
+        for phys in pages:
+            self.unpin(phys)
 
     def tree_add(self, phys: int) -> None:
         if self.in_tree[phys]:
@@ -561,5 +625,20 @@ class RadixIndex:
         while stack:
             node = stack.pop()
             n += 1
+            stack.extend(node.children.values())
+        return n
+
+    def node_count(self) -> int:
+        """Nodes of the tree (the engine ledger's occupancy); one per
+        page."""
+        return self.page_count()
+
+    def token_count(self) -> int:
+        """Valid tokens the tree keeps resident for future prefix hits."""
+        n = 0
+        stack = list(self.root.children.values())
+        while stack:
+            node = stack.pop()
+            n += node.n_valid
             stack.extend(node.children.values())
         return n

@@ -1,33 +1,127 @@
-"""Serving knobs and the request object of the continuous scheduler.
+"""Deadline-aware dynamic batcher with bounded admission control.
 
-Counterpart of the parts of ``music_analyst_tpu/serving/batcher.py`` that
-``serving/decode_loop.py`` reads: ``ServeRequest`` and the resolvers of
-the slot count, prefill chunk, page size, pool size, KV quantization and
-queue bound.  The environment variables and defaults are the JAX
-package's; an explicit value wins and raises when malformed, a malformed
-environment value falls back to the default.  The dynamic batcher, SLO
-knobs and the threaded server are not ported yet.
+Counterpart of ``music_analyst_tpu/serving/batcher.py``, copied with its imports
+renamed; the port keeps its own copy.
+
+The serving analogue of the engines' batch loop: requests arrive one at
+a time (one NDJSON line each, ``serving/server.py``), but the device
+wants big, shape-stable batches.  This module coalesces queued requests
+into padded power-of-two bucket batches (``utils/shapes.round_pow2`` —
+the same rounding rule the engines compile under, so a warm server never
+meets a new shape), flushing a batch when it reaches ``max_batch`` OR
+when its oldest request has waited ``max_wait_ms`` — the classic
+latency/throughput dial (cf. TensorFlow Serving's dynamic batcher).
+
+Admission is *bounded*: a full queue sheds the request with a structured
+``queue_full`` error instead of blocking the reader — under overload the
+server stays responsive and the client learns to back off (the
+reference's one-HTTP-call-per-song loop simply falls behind forever).
+
+Fault isolation: a batch that raises is retried one request at a time,
+so a poison request fails alone (structured ``request_failed`` carrying
+its id) and its batchmates still get answers; the server never dies with
+the batch.
+
+Overload is a *scheduled* state, not an error path (``serving/slo.py``):
+requests carry a tenant, a priority class, and an optional deadline; each
+op queue is a :class:`~music_analyst_tpu_torch.serving.slo.FairQueue` (strict
+priority classes, per-tenant weighted fair queueing inside a class), a
+per-tenant :class:`~music_analyst_tpu_torch.serving.slo.TokenBucket` meters
+admission when ``--tenant-budget`` is set, a full queue evicts
+lower-priority / over-represented work before shedding a newcomer, and a
+request whose deadline the EWMA drain estimate already blows sheds with
+``slo_unattainable`` instead of joining a queue it cannot survive.  Every
+shed carries the ``retry_after_ms`` hint.
+
+Everything is mirrored into telemetry (``serving.*`` counters, queue
+depth / occupancy gauges, latency histograms with p50/p95/p99) and into
+a local stats dict the run manifest's ``serving`` section snapshots.
 """
 
 from __future__ import annotations
 
 import math
 import os
-from typing import Any, Dict, Optional
+import threading
+import time
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
+import torch
+
+from music_analyst_tpu_torch.observability import watchdog
+from music_analyst_tpu_torch.resilience.failover import should_failover
+from music_analyst_tpu_torch.resilience.faults import fault_point
+from music_analyst_tpu_torch.resilience.policy import RetryPolicy
+from music_analyst_tpu_torch.serving.response_cache import (
+    normalize_text,
+    populate_from_settle,
+    try_answer,
+)
+from music_analyst_tpu_torch.serving.slo import FairQueue, RateMeter, TokenBucket
+from music_analyst_tpu_torch.telemetry import get_telemetry
+from music_analyst_tpu_torch.telemetry.core import Histogram
+from music_analyst_tpu_torch.telemetry.reqtrace import get_reqtrace
 from music_analyst_tpu_torch.utils.shapes import round_pow2
 
+# Flag defaults; $MUSICAAL_SERVE_* overrides, explicit flags win
+# (the watchdog-timeout resolution pattern).
+DEFAULT_MAX_BATCH = 32
+DEFAULT_MAX_WAIT_MS = 5.0
 DEFAULT_MAX_QUEUE = 1024
+# Continuous decode runtime (serving/decode_loop.py): slot count is
+# rounded up to a power of two (fixed compiled shapes, like max_batch's
+# pow2 padding); prefill chunk is the fixed token width one prefill
+# dispatch writes.
 DEFAULT_SLOTS = 8
 DEFAULT_PREFILL_CHUNK = 64
+# Paged KV cache (ops/kv_pages.py): tokens per physical page (pow2; 0
+# selects the monolithic per-slot cache) and pool size in pages (0 =
+# auto: n_slots * pages_per_slot, i.e. no oversubscription).
 DEFAULT_PAGE_SIZE = 16
 DEFAULT_KV_PAGES = 0
+# KV-page quantization (ops/kv_pages.py): "none" stores pages at the
+# compute dtype; "int8" stores per-(page, row) symmetric int8 codes plus
+# f32 scales, dequantized inside the paged-attention kernel's KV-load
+# epilogue.  Requires the paged backend (page_size > 0).
 DEFAULT_KV_QUANT = "none"
 KV_QUANT_CHOICES = ("none", "int8")
+# Speculative decoding (serving/decode_loop.py): max draft tokens the
+# host self-drafter proposes per slot per verify dispatch (0 = off,
+# plain one-token-per-step decode).
+DEFAULT_SPECULATE_K = 0
+# Scale-out serving (serving/router.py): replica worker count behind the
+# router, and tensor-parallel width within each worker's decode runtime.
+DEFAULT_REPLICAS = 1
+DEFAULT_TP = 1
+# SLO/overload layer (serving/slo.py): TTFT/TPOT targets the scheduler
+# acts on (0 disables — no preemption, no deadline shedding), per-tenant
+# sustained admission budget in requests/second (0 = unmetered), and the
+# priority class assigned to wire requests that don't carry one.
+DEFAULT_TTFT_SLO_MS = 0.0
+DEFAULT_TPOT_SLO_MS = 0.0
+DEFAULT_TENANT_BUDGET = 0.0
+DEFAULT_PRIORITY = 1
+DEFAULT_TENANT = "default"
+# Bounds on the ``retry_after_ms`` hint a queue_full shed carries: never
+# tell a client to come back sooner than one flush deadline, never park
+# it for more than half a minute on a stale rate estimate.
+_RETRY_AFTER_CAP_MS = 30_000.0
+
+# Occupancy lives in (0, 1]; the latency-shaped default buckets would
+# put every observation in one bin.
+_OCCUPANCY_BUCKETS = (0.125, 0.25, 0.375, 0.5, 0.625, 0.75, 0.875, 1.0)
+
+# Request-latency buckets: sub-ms host ops up to multi-second cold paths.
+_LATENCY_BUCKETS = (
+    0.0005, 0.001, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 5.0, 30.0,
+)
 
 
 def _resolve(value: Any, env: str, default: float, *, integer: bool,
              minimum: float) -> float:
+    """Explicit value wins and raises on malformed input (usage error);
+    a malformed env var falls back to the default — serving config must
+    never crash the server before it can answer a request."""
     if value is None:
         raw = os.environ.get(env, "").strip()
         if not raw:
@@ -50,14 +144,24 @@ def _resolve(value: Any, env: str, default: float, *, integer: bool,
     return int(parsed) if integer else parsed
 
 
+def resolve_max_batch(value: Any = None) -> int:
+    return int(_resolve(value, "MUSICAAL_SERVE_MAX_BATCH",
+                        DEFAULT_MAX_BATCH, integer=True, minimum=1))
+
+
+def resolve_max_wait_ms(value: Any = None) -> float:
+    return _resolve(value, "MUSICAAL_SERVE_MAX_WAIT_MS",
+                    DEFAULT_MAX_WAIT_MS, integer=False, minimum=0.0)
+
+
 def resolve_max_queue(value: Any = None) -> int:
     return int(_resolve(value, "MUSICAAL_SERVE_MAX_QUEUE",
                         DEFAULT_MAX_QUEUE, integer=True, minimum=1))
 
 
 def resolve_slots(value: Any = None) -> int:
-    """Decode slot count (``$MUSICAAL_SERVE_SLOTS``), rounded up to a
-    power of two."""
+    """Decode slot count (``--slots`` / ``$MUSICAAL_SERVE_SLOTS``),
+    rounded up to a power of two — the slot cache is a compiled shape."""
     return round_pow2(
         int(_resolve(value, "MUSICAAL_SERVE_SLOTS",
                      DEFAULT_SLOTS, integer=True, minimum=1)),
@@ -66,14 +170,21 @@ def resolve_slots(value: Any = None) -> int:
 
 
 def resolve_prefill_chunk(value: Any = None) -> int:
-    """Prefill chunk width (``$MUSICAAL_SERVE_PREFILL_CHUNK``)."""
+    """Prefill chunk width (``--prefill-chunk`` /
+    ``$MUSICAAL_SERVE_PREFILL_CHUNK``)."""
     return int(_resolve(value, "MUSICAAL_SERVE_PREFILL_CHUNK",
                         DEFAULT_PREFILL_CHUNK, integer=True, minimum=1))
 
 
 def resolve_page_size(value: Any = None) -> int:
-    """KV page size in tokens (``$MUSICAAL_SERVE_PAGE_SIZE``): a power of
-    two, or 0 for the monolithic per-slot cache."""
+    """KV page size in tokens (``--page-size`` /
+    ``$MUSICAAL_SERVE_PAGE_SIZE``).
+
+    Must be a power of two (page-gather shapes are compiled); ``0``
+    selects the monolithic per-slot cache of ``ops/kv_slots.py``.  An
+    explicit non-pow2 value raises (usage error); a non-pow2 env value
+    falls back to the default, like every other malformed serve env var.
+    """
     page = int(_resolve(value, "MUSICAAL_SERVE_PAGE_SIZE",
                         DEFAULT_PAGE_SIZE, integer=True, minimum=0))
     if page and (page & (page - 1)):
@@ -87,7 +198,13 @@ def resolve_page_size(value: Any = None) -> int:
 
 
 def resolve_kv_quant(value: Any = None) -> str:
-    """KV-page quantization (``$MUSICAAL_SERVE_KV_QUANT``): none or int8."""
+    """KV-page quantization scheme (``--kv-quant`` /
+    ``$MUSICAAL_SERVE_KV_QUANT``): ``none`` or ``int8``.
+
+    An explicit unknown scheme raises (usage error); an unknown env
+    value falls back to the default, like every other malformed serve
+    env var.
+    """
     if value is None:
         raw = os.environ.get("MUSICAAL_SERVE_KV_QUANT", "").strip().lower()
         return raw if raw in KV_QUANT_CHOICES else DEFAULT_KV_QUANT
@@ -100,9 +217,75 @@ def resolve_kv_quant(value: Any = None) -> str:
     return scheme
 
 
+def resolve_speculate_k(value: Any = None) -> int:
+    """Max drafted tokens per slot per verify dispatch
+    (``--speculate-k`` / ``$MUSICAAL_SERVE_SPECULATE_K``).  ``0``
+    disables speculation (one greedy token per decode step).  An
+    explicit negative/malformed value raises (usage error); a malformed
+    env value falls back to the default."""
+    return int(_resolve(value, "MUSICAAL_SERVE_SPECULATE_K",
+                        DEFAULT_SPECULATE_K, integer=True, minimum=0))
+
+
+def resolve_replicas(value: Any = None) -> int:
+    """Replica worker count (``--replicas`` /
+    ``$MUSICAAL_SERVE_REPLICAS``).  1 serves in-process; > 1 puts the
+    replica router (``serving/router.py``) in front of that many worker
+    processes."""
+    return int(_resolve(value, "MUSICAAL_SERVE_REPLICAS",
+                        DEFAULT_REPLICAS, integer=True, minimum=1))
+
+
+def resolve_tp(value: Any = None) -> int:
+    """Tensor-parallel width for the decode runtime (``--tp`` /
+    ``$MUSICAAL_SERVE_TP``).  1 keeps the single-chip layout; > 1 shards
+    attention heads and the KV cache over a ``tp`` mesh axis
+    (``parallel/sharding.DECODE_KV_RULES``)."""
+    return int(_resolve(value, "MUSICAAL_SERVE_TP",
+                        DEFAULT_TP, integer=True, minimum=1))
+
+
+def resolve_ttft_slo_ms(value: Any = None) -> float:
+    """Time-to-first-token target (``--ttft-slo-ms`` /
+    ``$MUSICAAL_SERVE_SLO_TTFT_MS``).  0 disables SLO enforcement: no
+    preemption, no deadline-derived shedding."""
+    return _resolve(value, "MUSICAAL_SERVE_SLO_TTFT_MS",
+                    DEFAULT_TTFT_SLO_MS, integer=False, minimum=0.0)
+
+
+def resolve_tpot_slo_ms(value: Any = None) -> float:
+    """Per-output-token latency target (``--tpot-slo-ms`` /
+    ``$MUSICAAL_SERVE_SLO_TPOT_MS``).  0 disables the decode scheduler's
+    admission throttle."""
+    return _resolve(value, "MUSICAAL_SERVE_SLO_TPOT_MS",
+                    DEFAULT_TPOT_SLO_MS, integer=False, minimum=0.0)
+
+
+def resolve_tenant_budget(value: Any = None) -> float:
+    """Per-tenant sustained admission budget in requests/second
+    (``--tenant-budget`` / ``$MUSICAAL_SERVE_TENANT_BUDGET``).  0 leaves
+    tenants unmetered (fair queueing still applies)."""
+    return _resolve(value, "MUSICAAL_SERVE_TENANT_BUDGET",
+                    DEFAULT_TENANT_BUDGET, integer=False, minimum=0.0)
+
+
+def resolve_priority(value: Any = None) -> int:
+    """Default priority class for requests that don't carry one
+    (``--priority`` / ``$MUSICAAL_SERVE_PRIORITY``; higher serves
+    first)."""
+    return int(_resolve(value, "MUSICAAL_SERVE_PRIORITY",
+                        DEFAULT_PRIORITY, integer=True, minimum=0))
+
+
 def resolve_kv_pages(value: Any = None, n_slots: Optional[int] = None) -> int:
-    """KV pool size in pages (``$MUSICAAL_SERVE_KV_PAGES``); 0 sizes it to
-    one full sequence per slot.  It must cover one page per slot."""
+    """KV pool size in pages (``--kv-pages`` /
+    ``$MUSICAAL_SERVE_KV_PAGES``).
+
+    ``0`` means auto-size (one full sequence per slot, no
+    oversubscription).  The pool must hold at least one page per slot:
+    an explicit smaller value raises, a too-small env value falls back
+    to auto.
+    """
     pages = int(_resolve(value, "MUSICAAL_SERVE_KV_PAGES",
                          DEFAULT_KV_PAGES, integer=True, minimum=0))
     if pages and n_slots and pages < n_slots:
@@ -116,20 +299,55 @@ def resolve_kv_pages(value: Any = None, n_slots: Optional[int] = None) -> int:
 
 
 class ServeRequest:
-    """One admitted (or shed) request and its settled reply dict."""
+    """One admitted (or immediately shed) request and its settled reply.
 
-    __slots__ = ("id", "op", "text", "response", "meta")
+    The reply dict is the wire payload minus nothing — the server writes
+    ``response`` verbatim as one NDJSON line, so ordering/identity live
+    entirely in the ``id`` the client supplied.
+    """
+
+    __slots__ = ("id", "op", "text", "t_enqueue", "t_settle", "_done",
+                 "response", "meta", "tenant", "priority", "deadline_ms")
 
     def __init__(self, rid: Any, op: str, text: str,
-                 meta: Optional[Dict[str, Any]] = None) -> None:
+                 meta: Optional[Dict[str, Any]] = None,
+                 tenant: str = DEFAULT_TENANT,
+                 priority: int = DEFAULT_PRIORITY,
+                 deadline_ms: Optional[float] = None) -> None:
         self.id = rid
         self.op = op
         self.text = text
+        self.t_enqueue = time.monotonic()
+        self.t_settle: Optional[float] = None
+        self._done = threading.Event()
         self.response: Optional[Dict[str, Any]] = None
+        # Per-request knobs outside the batch contract (e.g. the decode
+        # loop's max_new_tokens budget); the dynamic batcher ignores it.
         self.meta: Dict[str, Any] = meta or {}
+        # SLO/isolation identity (serving/slo.py): fair-queue tenant,
+        # strict priority class (higher first), optional arrival-relative
+        # deadline the admission estimate is checked against.
+        self.tenant = tenant
+        self.priority = int(priority)
+        self.deadline_ms = deadline_ms
 
     def complete(self, payload: Dict[str, Any]) -> None:
+        # ONE settle choke point across every path (succeed, each shed
+        # kind, failures, router-relayed replies): the trace recorder
+        # stamps the reply with the request's trace id and tail-keeps
+        # failures here, so no settle path can dodge tracing.
+        rt = get_reqtrace()
+        if rt.enabled:
+            rt.on_complete(self, payload)
+        self.t_settle = time.monotonic()
         self.response = payload
+        # Response-cache populate rides the same choke point: every
+        # settle route (batch dispatch, decode slot, dedup fan-out,
+        # router read-loop) stores a fresh ok reply through ONE seam —
+        # before the waiter wakes, so a hit is visible the moment the
+        # reply is.  No-op unless an admission edge parked a miss key.
+        populate_from_settle(self)
+        self._done.set()
 
     def succeed(self, **fields: Any) -> None:
         out: Dict[str, Any] = {"id": self.id, "ok": True, "op": self.op}
@@ -139,9 +357,557 @@ class ServeRequest:
     def fail(self, kind: str, detail: str = "", **extra: Any) -> None:
         error: Dict[str, Any] = {"kind": kind, "detail": detail}
         error.update(extra)
-        self.complete({"id": self.id, "ok": False, "op": self.op,
-                       "error": error})
+        self.complete({
+            "id": self.id,
+            "ok": False,
+            "op": self.op,
+            "error": error,
+        })
 
     @property
     def done(self) -> bool:
-        return self.response is not None
+        return self._done.is_set()
+
+    def wait(self, timeout: Optional[float] = None) -> bool:
+        return self._done.wait(timeout)
+
+
+class DynamicBatcher:
+    """Coalesce queued requests into padded power-of-two batches.
+
+    ``ops`` maps an op name to a batch function: ``fn(texts) -> [payload
+    dict per row]`` (e.g. ``{"label": "Positive"}``).  Padding rows are
+    empty strings — safe for every backend (empty lyric → Neutral is a
+    golden contract) — and their results are discarded.
+    """
+
+    def __init__(
+        self,
+        ops: Dict[str, Callable[[List[str]], List[Dict[str, Any]]]],
+        max_batch: Optional[int] = None,
+        max_wait_ms: Optional[float] = None,
+        max_queue: Optional[int] = None,
+        name: str = "serve",
+        failover: Optional[Callable[[BaseException], bool]] = None,
+        ttft_slo_ms: Optional[float] = None,
+        tenant_budget: Optional[float] = None,
+        priority: Optional[int] = None,
+        response_cache=None,
+        device=None,
+    ) -> None:
+        self._ops = dict(ops)
+        # The worker thread sets this CUDA device current and runs under
+        # torch.inference_mode (both are per thread in PyTorch).
+        self.device = None if device is None else torch.device(device)
+        # Cross-request response cache (serving/response_cache.py),
+        # consulted in submit() BEFORE the shed ladder and tenant
+        # metering; None leaves every request on the compute path.
+        self.response_cache = response_cache
+        # Classified device loss during dispatch tries this hook ONCE per
+        # batch (e.g. ModelResidency.reload) before the one-by-one
+        # isolation fallback — the server survives a device death between
+        # batches instead of failing every queued request.
+        self._failover = failover
+        # Transiently-classified dispatch failures (and injected
+        # serving.dispatch faults) re-attempt in place before any
+        # failover/isolation machinery runs.
+        self._retry = RetryPolicy(base_s=0.05, cap_s=1.0)
+        self.max_batch = resolve_max_batch(max_batch)
+        self.max_wait_ms = resolve_max_wait_ms(max_wait_ms)
+        self.max_queue = resolve_max_queue(max_queue)
+        self.name = name
+        self.ttft_slo_ms = resolve_ttft_slo_ms(ttft_slo_ms)
+        self.tenant_budget = resolve_tenant_budget(tenant_budget)
+        self.default_priority = resolve_priority(priority)
+        self._queues: Dict[str, FairQueue] = {
+            op: FairQueue() for op in self._ops
+        }
+        self._buckets: Dict[str, TokenBucket] = {}
+        self._cond = threading.Condition()
+        self._draining = False
+        self._thread: Optional[threading.Thread] = None
+        self._latency = Histogram(_LATENCY_BUCKETS)
+        self._occupancy = Histogram(_OCCUPANCY_BUCKETS)
+        self._stats_lock = threading.Lock()
+        self._stats: Dict[str, Any] = {
+            "admitted": 0, "shed": 0, "completed": 0, "failed": 0,
+            "bad_request": 0, "batches": 0, "rows": 0, "padded_rows": 0,
+            "queue_depth_max": 0, "isolation_retries": 0,
+            "failover_reloads": 0, "dedup_folded": 0, "cache_hits": 0,
+            "retry_after_ms_last": None,
+            "shed_queue_full": 0, "shed_slo_unattainable": 0,
+            "shed_tenant_budget": 0, "shed_evicted": 0,
+        }
+        # Per-tenant admission ledger (manifest ``serving.slo`` section).
+        self._tenants: Dict[str, Dict[str, int]] = {}
+        # EWMA of observed flush throughput (rows/s) — feeds the
+        # ``retry_after_ms`` hint a queue_full shed carries.
+        self._flush_rate = 0.0
+        # Rolling-window rates (serving/slo.py RateMeter): what a live
+        # ``stats`` poller reads without differencing cumulative counters.
+        self._rates = {"req_s": RateMeter(), "shed_s": RateMeter()}
+
+    # ----------------------------------------------------------- lifecycle
+
+    def start(self) -> "DynamicBatcher":
+        if self._thread is None or not self._thread.is_alive():
+            self._thread = threading.Thread(
+                target=self._thread_main, name=f"{self.name}-batcher",
+                daemon=True,
+            )
+            self._thread.start()
+        return self
+
+    def drain(self, timeout: Optional[float] = 30.0) -> None:
+        """Stop admitting, flush every queued request, stop the worker.
+
+        Queued requests are *answered* (processed, or failed with a
+        structured error if the backend breaks) — never dropped silently;
+        the graceful-SIGTERM contract rides on this.
+        """
+        with self._cond:
+            self._draining = True
+            self._cond.notify_all()
+        thread = self._thread
+        if thread is not None and thread.is_alive():
+            thread.join(timeout=timeout)
+        self._thread = None
+
+    @property
+    def draining(self) -> bool:
+        return self._draining
+
+    # ----------------------------------------------------------- admission
+
+    def submit(self, rid: Any, op: str, text: str,
+               tenant: Optional[str] = None,
+               priority: Optional[int] = None,
+               deadline_ms: Optional[float] = None) -> ServeRequest:
+        """Admit (or shed) one request; always returns a ServeRequest —
+        a shed one is already completed with its structured error.
+
+        ``tenant``/``priority`` place the request in its fair queue;
+        ``deadline_ms`` (arrival-relative; defaults to the configured
+        TTFT SLO when one is set) arms deadline-aware shedding: a
+        request whose drain estimate already blows its deadline sheds
+        ``slo_unattainable`` instead of queueing to miss.
+        """
+        tel = get_telemetry()
+        if deadline_ms is None and self.ttft_slo_ms > 0.0:
+            deadline_ms = self.ttft_slo_ms
+        req = ServeRequest(
+            rid, op, text,
+            tenant=tenant or DEFAULT_TENANT,
+            priority=self.default_priority if priority is None else priority,
+            deadline_ms=deadline_ms,
+        )
+        # Trace context BEFORE the shed ladder: sheds carry trace ids too
+        # (and tail sampling keeps every shed's trace).
+        get_reqtrace().begin_request(req)
+        if op not in self._ops:
+            req.fail(
+                "bad_request",
+                f"unknown op {op!r}; have: {sorted(self._ops)}",
+            )
+            self._bump(bad_request=1)
+            return req
+        # Response cache BEFORE the shed ladder and the tenant meter: a
+        # repeat of a settled request is answered for ~a hash + lookup —
+        # never queued, never charged to its tenant's token bucket, and
+        # a repeat that would shed queue_full/slo_unattainable is
+        # answered instead (a free answer beats a structured rejection).
+        if try_answer(self.response_cache, req):
+            self._bump(cache_hits=1)
+            self._rates["req_s"].mark()
+            tel.count("serving.cache_hits")
+            return req
+        with self._cond:
+            if self._draining:
+                req.fail("draining", "server is draining; not admitting")
+                self._shed(req, "draining", None)
+                return req
+            # Per-tenant token bucket: the saturating tenant sheds at its
+            # OWN budget while everyone else keeps admitting.
+            if self.tenant_budget > 0.0:
+                bucket = self._buckets.get(req.tenant)
+                if bucket is None:
+                    bucket = self._buckets[req.tenant] = TokenBucket(
+                        self.tenant_budget
+                    )
+                if not bucket.take():
+                    hint_ms = max(
+                        bucket.retry_after_ms(), self.retry_after_ms(1)
+                    )
+                    req.fail(
+                        "queue_full",
+                        f"tenant {req.tenant!r} over its admission budget "
+                        f"({self.tenant_budget:g} req/s); retry after "
+                        f"{hint_ms:.0f} ms",
+                        retry_after_ms=hint_ms,
+                    )
+                    self._shed(req, "shed_tenant_budget", hint_ms)
+                    return req
+            queue = self._queues[op]
+            # Deadline check BEFORE capacity: a request the drain
+            # estimate already dooms must not evict anyone.
+            if req.deadline_ms is not None and req.deadline_ms > 0.0:
+                est_ms = self._drain_estimate_ms(queue, req.priority)
+                if est_ms is not None and est_ms > req.deadline_ms:
+                    hint_ms = self.retry_after_ms()
+                    req.fail(
+                        "slo_unattainable",
+                        f"drain estimate {est_ms:.0f} ms already exceeds "
+                        f"the {req.deadline_ms:.0f} ms deadline; retry "
+                        f"after {hint_ms:.0f} ms",
+                        retry_after_ms=hint_ms,
+                        estimate_ms=round(est_ms, 3),
+                    )
+                    self._shed(req, "shed_slo_unattainable", hint_ms)
+                    return req
+            depth = sum(len(q) for q in self._queues.values())
+            if depth >= self.max_queue:
+                # Priority-aware eviction: shed queued lower-priority /
+                # over-represented work before the newcomer.
+                victim = queue.shed_candidate(req.tenant, req.priority)
+                hint_ms = self.retry_after_ms(depth)
+                if victim is None:
+                    req.fail(
+                        "queue_full",
+                        f"admission queue full ({depth}/{self.max_queue}); "
+                        f"retry after {hint_ms:.0f} ms",
+                        retry_after_ms=hint_ms,
+                    )
+                    self._shed(req, "shed_queue_full", hint_ms)
+                    return req
+                victim.fail(
+                    "queue_full",
+                    f"evicted for a priority-{req.priority} admit with the "
+                    f"queue full ({depth}/{self.max_queue}); retry after "
+                    f"{hint_ms:.0f} ms",
+                    retry_after_ms=hint_ms,
+                )
+                self._shed(victim, "shed_evicted", hint_ms)
+            queue.append(req)
+            depth = sum(len(q) for q in self._queues.values())
+            self._cond.notify_all()
+        with self._stats_lock:
+            self._stats["admitted"] += 1
+            self._tenant_ledger(req.tenant)["admitted"] += 1
+            if depth > self._stats["queue_depth_max"]:
+                self._stats["queue_depth_max"] = depth
+        self._rates["req_s"].mark()
+        tel.count("serving.admitted")
+        tel.gauge("serving.queue_depth", depth)
+        return req
+
+    def _tenant_ledger(self, tenant: str) -> Dict[str, int]:
+        """Caller holds ``_stats_lock``."""
+        ledger = self._tenants.get(tenant)
+        if ledger is None:
+            ledger = self._tenants[tenant] = {
+                "admitted": 0, "completed": 0, "shed": 0,
+            }
+        return ledger
+
+    def _shed(self, req: ServeRequest, kind_stat: Optional[str],
+              hint_ms: Optional[float]) -> None:
+        with self._stats_lock:
+            self._stats["shed"] += 1
+            if kind_stat in self._stats:
+                self._stats[kind_stat] += 1
+            if hint_ms is not None:
+                self._stats["retry_after_ms_last"] = hint_ms
+            self._tenant_ledger(req.tenant)["shed"] += 1
+        self._rates["shed_s"].mark()
+        get_telemetry().count("serving.shed")
+
+    def _drain_estimate_ms(self, queue: FairQueue,
+                           priority: int) -> Optional[float]:
+        """EWMA time estimate until a newcomer at ``priority`` would
+        dispatch (caller holds cond).  None before the first flush — no
+        rate observation means no grounds to shed on."""
+        rate = self._flush_rate
+        if rate <= 0.0:
+            return None
+        ahead = queue.depth_ahead(priority)
+        return ahead / rate * 1000.0 + max(self.max_wait_ms, 1.0)
+
+    def _bump(self, **deltas: int) -> None:
+        with self._stats_lock:
+            for key, n in deltas.items():
+                self._stats[key] += n
+
+    def retry_after_ms(self, depth: Optional[int] = None) -> float:
+        """Backoff hint for a shed client: the estimated time to drain the
+        current queue at the observed flush rate (EWMA of rows/s over
+        completed batches), floored at one flush deadline and capped so a
+        stale estimate can't park clients for minutes.  Before the first
+        flush there is no rate yet — fall back to the number of full
+        batches queued times the flush deadline."""
+        if depth is None:
+            with self._cond:
+                depth = sum(len(q) for q in self._queues.values())
+        floor_ms = max(self.max_wait_ms, 1.0)
+        rate = self._flush_rate
+        if rate > 0.0:
+            hint = depth / rate * 1000.0
+        else:
+            hint = (depth / self.max_batch) * floor_ms
+        return round(min(max(hint, floor_ms), _RETRY_AFTER_CAP_MS), 3)
+
+    # -------------------------------------------------------------- worker
+
+    def _oldest_op(self) -> Optional[str]:
+        """Op whose oldest queued request has waited longest (caller
+        holds cond).  The flush deadline honors the oldest request even
+        when the fair queue would dispatch a different one first."""
+        best: Optional[Tuple[float, str]] = None
+        for op, q in self._queues.items():
+            oldest = q.head_wait_t()
+            if oldest is not None and (best is None or oldest < best[0]):
+                best = (oldest, op)
+        return best[1] if best else None
+
+    def _next_batch(self) -> Tuple[Optional[str], List[ServeRequest]]:
+        """Block until a batch is due (full, deadline hit, or draining);
+        ``(None, [])`` means drained-and-empty: the worker exits."""
+        with self._cond:
+            while True:
+                op = self._oldest_op()
+                if op is None:
+                    if self._draining:
+                        return None, []
+                    self._cond.wait(0.05)
+                    continue
+                q = self._queues[op]
+                waited_ms = (
+                    time.monotonic() - q.head_wait_t()
+                ) * 1000.0
+                if (len(q) >= self.max_batch or self._draining
+                        or waited_ms >= self.max_wait_ms):
+                    batch = []
+                    for _ in range(min(len(q), self.max_batch)):
+                        picked = q.popleft()
+                        if picked is not None:
+                            batch.append(picked)
+                    return op, batch
+                remaining_s = (self.max_wait_ms - waited_ms) / 1000.0
+                self._cond.wait(min(max(remaining_s, 0.001), 0.05))
+
+    def _thread_main(self) -> None:
+        if self.device is not None and self.device.type == "cuda":
+            torch.cuda.set_device(self.device)
+        with torch.inference_mode():
+            self._loop()
+
+    def _loop(self) -> None:
+        tel = get_telemetry()
+        while True:
+            op, batch = self._next_batch()
+            if op is None:
+                return
+            self._dispatch(op, batch)
+            tel.gauge(
+                "serving.queue_depth",
+                sum(len(q) for q in self._queues.values()),
+            )
+            watchdog.beat("serve.dispatch")
+
+    def _run_op(self, op: str, texts: List[str]) -> List[Dict[str, Any]]:
+        fault_point("serving.dispatch", op=op, rows=len(texts))
+        return self._ops[op](texts)
+
+    def _maybe_failover(self, exc: BaseException) -> bool:
+        """Try the failover hook on classified device loss; True = retry."""
+        if self._failover is None or not should_failover(exc):
+            return False
+        tel = get_telemetry()
+        try:
+            reloaded = bool(self._failover(exc))
+        except Exception as reload_exc:  # noqa: BLE001 — must not kill loop
+            tel.event(
+                "serving_failover_failed", error=str(reload_exc)[:200]
+            )
+            return False
+        if reloaded:
+            self._bump(failover_reloads=1)
+            tel.count("serving.failover_reloads")
+            tel.event("serving_failover", error=str(exc)[:200])
+        return reloaded
+
+    def _dispatch(
+        self, op: str, batch: List[ServeRequest], allow_failover: bool = True
+    ) -> None:
+        tel = get_telemetry()
+        n = len(batch)
+        # In-batch dedup: identical request texts occupy ONE device row;
+        # the row's result fans out to every requester.  Ops are pure
+        # batch functions over texts (same text → same payload), so this
+        # is invisible on the wire and free occupancy when a burst repeats
+        # itself (the same song submitted by many clients at once).
+        # Identity is normalize_text (shared with the decode-loop fold
+        # and the response-cache key) so every repeat-detection tier
+        # agrees on what "identical request" means; the first arrival's
+        # raw text is what actually dispatches.
+        row_of: Dict[str, int] = {}
+        rows: List[int] = []
+        uniques: List[str] = []
+        for req in batch:
+            row_key = normalize_text(req.text)
+            idx = row_of.get(row_key)
+            if idx is None:
+                idx = len(uniques)
+                row_of[row_key] = idx
+                uniques.append(req.text)
+            rows.append(idx)
+        n_unique = len(uniques)
+        padded = round_pow2(n_unique, 1)
+        texts = uniques + [""] * (padded - n_unique)
+        rt = get_reqtrace()
+        t0_w = time.time() if rt.enabled else None
+        t0 = time.perf_counter()
+        try:
+            # The dispatch edge is where a wedged device/tunnel would hang
+            # a resident server silently — the watchdog classifies that as
+            # serve_stall instead of a mute socket.
+            with watchdog.watch("serve.dispatch", kind="serve"):
+                with tel.span("serve.batch", op=op, rows=n_unique,
+                              padded=padded):
+                    results = self._retry.call(
+                        self._run_op, op, texts, site="serving.dispatch"
+                    )[:n_unique]
+            if len(results) != n_unique:
+                raise RuntimeError(
+                    f"op {op!r} returned {len(results)} results for "
+                    f"{n_unique} rows"
+                )
+        except Exception as exc:  # noqa: BLE001 — isolation boundary
+            # Classified backend loss: reload through the failover hook
+            # and retry the whole batch once before isolating.
+            if allow_failover and self._maybe_failover(exc):
+                self._dispatch(op, batch, allow_failover=False)
+                return
+            if n == 1:
+                batch[0].fail(
+                    "request_failed",
+                    f"{type(exc).__name__}: {exc}"[:300],
+                )
+                self._bump(failed=1)
+                tel.count("serving.request_failed")
+                return
+            # Retry one-by-one: the poison request fails alone, its
+            # batchmates still get answers.
+            self._bump(isolation_retries=1)
+            tel.count("serving.isolation_retries")
+            for req in batch:
+                self._dispatch(op, [req], allow_failover=False)
+            return
+        batch_s = time.perf_counter() - t0
+        tel.observe("serving.batch_seconds", batch_s)
+        occupancy = n_unique / padded
+        now = time.monotonic()
+        with self._stats_lock:
+            self._stats["batches"] += 1
+            self._stats["rows"] += n_unique
+            self._stats["padded_rows"] += padded
+            self._stats["completed"] += n
+            self._stats["dedup_folded"] += n - n_unique
+            self._occupancy.observe(occupancy)
+            for req in batch:
+                self._latency.observe(now - req.t_enqueue)
+                self._tenant_ledger(req.tenant)["completed"] += 1
+            # Flush-rate EWMA feeding retry_after_ms: requests retired per
+            # wall second, smoothed so one anomalous batch can't swing the
+            # backoff hint an order of magnitude.
+            inst = n / max(batch_s, 1e-6)
+            self._flush_rate = (
+                inst if self._flush_rate == 0.0
+                else 0.8 * self._flush_rate + 0.2 * inst
+            )
+        tel.observe(
+            "serving.batch_occupancy", occupancy,
+            buckets=_OCCUPANCY_BUCKETS,
+        )
+        if rt.enabled:
+            # Cursor partition: WFQ wait ends when the device dispatch
+            # starts; the batch phase covers dispatch → results.
+            now_w = time.time()
+            for req in batch:
+                tt = req.meta.get("trace_t")
+                if tt is None:
+                    continue
+                rt.phase(req, "queue", tt.get("cursor"), t0_w)
+                rt.phase(req, "batch", t0_w, now_w, op=op,
+                         rows=n_unique, padded=padded)
+                tt["cursor"] = now_w
+        for req, row in zip(batch, rows):
+            tel.observe(
+                "serving.request_seconds", now - req.t_enqueue,
+                buckets=_LATENCY_BUCKETS,
+            )
+            req.succeed(**results[row])
+        tel.count("serving.completed", n)
+
+    # ------------------------------------------------------------ readouts
+
+    def stats(self) -> Dict[str, Any]:
+        """JSON-able snapshot: admission counters, batch shape economics,
+        and request-latency quantiles (the manifest ``serving`` section
+        and the serving bench suite both read this)."""
+        with self._stats_lock:
+            out: Dict[str, Any] = dict(self._stats)
+            occupancy = (
+                out["rows"] / out["padded_rows"] if out["padded_rows"] else None
+            )
+            latency = self._latency.as_dict()
+            occ = self._occupancy.as_dict()
+            flush_rate = self._flush_rate
+        dedup_factor = (
+            (out["rows"] + out["dedup_folded"]) / out["rows"]
+            if out["rows"] else 1.0
+        )
+        out.update(
+            max_batch=self.max_batch,
+            max_wait_ms=self.max_wait_ms,
+            max_queue=self.max_queue,
+            occupancy=round(occupancy, 4) if occupancy is not None else None,
+            dedup_factor=round(dedup_factor, 4),
+            flush_rate_rows_s=round(flush_rate, 3),
+            latency=latency,
+            batch_occupancy_hist=occ,
+            rates={
+                "window_s": self._rates["req_s"].tau_s,
+                "req_s": self._rates["req_s"].rate(),
+                "shed_s": self._rates["shed_s"].rate(),
+            },
+        )
+        if self.response_cache is not None:
+            out["response_cache"] = self.response_cache.stats()
+        return out
+
+    def slo_snapshot(self) -> Dict[str, Any]:
+        """The manifest's ``serving.slo`` contribution: targets, shed
+        taxonomy, and the per-tenant ledger.  Empty when the SLO layer
+        was neither configured nor exercised (only-when-used, like the
+        corpus-cache section)."""
+        with self._stats_lock:
+            tenants = {t: dict(v) for t, v in self._tenants.items()}
+            sheds = {
+                key: self._stats[key]
+                for key in ("shed_queue_full", "shed_slo_unattainable",
+                            "shed_tenant_budget", "shed_evicted")
+            }
+        configured = self.ttft_slo_ms > 0.0 or self.tenant_budget > 0.0
+        exercised = (
+            any(sheds.values())
+            or any(t != DEFAULT_TENANT for t in tenants)
+        )
+        if not configured and not exercised:
+            return {}
+        return {
+            "ttft_slo_ms": self.ttft_slo_ms,
+            "tenant_budget_req_s": self.tenant_budget,
+            "default_priority": self.default_priority,
+            "sheds": sheds,
+            "tenants": tenants,
+        }

@@ -1,54 +1,215 @@
-"""Continuous-batching scheduler: admit → prefill → decode over KV pages.
+"""Continuous-batching scheduler: admit → prefill → decode over KV slots.
 
-Counterpart of ``music_analyst_tpu/serving/decode_loop.py``, synchronous
-use only (``submit`` then :meth:`ContinuousScheduler.run_until_idle`).
-``n_slots`` sequences decode side by side; an admitted request claims a
-free slot, its prompt is prefilled one chunk per tick between decode
-dispatches, and EOS or its token budget frees the slot at once.
+Counterpart of ``music_analyst_tpu/serving/decode_loop.py``, with the
+same admission ladder, speculation, preemption, checkpoints, telemetry
+and stats; the device calls go to the port's eager runtimes
+(``ops/kv_pages.py``, ``ops/kv_slots.py``).  Each prefill, decode and
+verify dispatch sends its host inputs with one host-to-device copy and
+reads its results back with ONE device-to-host copy.  The threaded loop
+(:meth:`ContinuousScheduler.start`) runs under ``torch.inference_mode``
+on the runtime's device; a failed dispatch fails its requests with a
+structured error and never moves them to another device.
 
-The KV cache is paged (``ops/kv_pages.py``).  At admission a radix tree
-keyed on the prompt's token ids finds the longest cached prefix: shared
-full pages are pinned and mapped, the partly filled boundary page is
-copied (copy-on-write), fully shared chunks are skipped, and the rest of
-the row is freshly allocated, evicting cold unpinned pages when the pool
-is full.  A completed prefill's pages are adopted into the tree;
-completion unpins.  A failed lookup falls back to a full prefill, and a
-request whose prefill raises fails alone.
+The dynamic batcher (``batcher.py``) coalesces *independent* requests
+into one-shot batches; generation is different — a request occupies the
+device for its whole output length, and a static batch holds every row
+hostage to the slowest one.  This scheduler runs the iteration-level
+loop instead (the continuous-batching idea of Orca/vLLM, shaped for
+fixed-shape dispatch): ``n_slots`` sequences decode side by side
+in the slot-indexed KV cache (``ops/kv_slots.py``), an admitted request
+claims a free slot *mid-flight*, its prompt is prefilled in fixed-size
+chunks between decode dispatches, and EOS or token-budget completion
+frees the slot immediately so the reply is emitted while neighbors keep
+decoding.  Every dispatch has the same shapes as requests come and go.
 
-Not ported yet: the threaded loop and server, SLO / tenants / fair
-queueing, preemption and checkpoints, speculation, in-batch dedup, the
-response cache, the journal, the watchdog, fault points, telemetry and
-the engine ledger.  ``page_size=0`` (the monolithic slot cache) raises.
+The KV cache behind the slots is paged by default (``ops/kv_pages.py``):
+a fixed device-resident pool of pow2-sized pages, mapped per slot through
+an int32 page table.  At admit the scheduler consults a host-side radix
+tree keyed on the prompt's token ids — a prefix hit pins the shared pages
+(refcounted), maps them into the slot's row, copy-on-writes the
+partially-filled boundary page, and prefills only the suffix chunks; a
+completed prefill's pages are adopted into the tree, completion unpins,
+and a refcount-aware LRU evicts cold pages when the pool fills.  A failed
+or corrupted radix lookup (fault site ``kv_pages.lookup``) falls back to
+a full prefill — a cache problem can cost time, never correctness.  Pass
+``page_size=0`` for the monolithic slot cache (kept for A/B).
+
+Reused ``DynamicBatcher`` machinery: the same bounded-admission contract
+(``queue_full`` shed under overload), the same structured-error poison
+isolation (a request whose prefill raises fails alone; co-resident
+slots keep decoding), the same ``RetryPolicy`` around the device edge
+(site ``decode.step``, the ``chaos`` suite's injection point), and the
+same watchdog instrumentation (kind ``decode`` → taxonomy
+``decode_stall``: a wedged dispatch trips the heartbeat monitor instead
+of hanging the server mutely).
+
+Telemetry: slot-occupancy gauge + histogram, tokens/s, and TTFT/TPOT
+reservoir quantiles (``serving.ttft_seconds`` / ``serving.tpot_seconds``
+land in the run manifest next to the batcher's latency quantiles, where
+``telemetry-report`` picks them up).
+
+Speculative decoding (``--speculate-k`` / ``$MUSICAAL_SERVE_SPECULATE_K``,
+0 = off): greedy decode is one device round-trip per ``decode_span``
+tokens, and the round-trip — not compute — is the measured bottleneck
+(PERF.md §5).  With ``k > 0`` the decode tick runs the fixed-shape
+*verify* dispatch instead (``verify_block`` of the runtime): a
+host-side self-drafter (prompt-lookup over each slot's prompt + emitted
+tokens — no second model) proposes up to ``k`` tokens per slot, the
+device scores the ``[n_slots, k+1]`` block (carry + drafts) in ONE
+dispatch, and the host commits the longest accepted prefix plus the
+first-mismatch correction token — between 1 and ``k+1`` tokens per slot
+per dispatch, never fewer than plain stepping.  Acceptance is exact:
+a draft commits only when it equals the device argmax under the same
+committed context, and the correction token is itself that argmax, so
+output tokens are byte-identical to non-speculative decode at every
+``k`` (the drafter can only change *when* tokens commit, never *which*).
+A per-slot acceptance-rate EWMA adapts the proposed depth inside the
+fixed ``k+1`` block shape; a draft-fault
+(``spec.draft``) tick degrades to one plain decode dispatch — counted
+in ``speculation.fallbacks``, identical bytes.
+
+In-batch dedup at the admission edge: N concurrently-live ``generate``
+requests with identical (tenant, prompt, budget) occupy ONE slot — the
+first is the primary, later arrivals ride as followers and the settled
+reply (success or failure) fans out to each under its own request id
+(``dedup_folded`` in stats; greedy decode is deterministic, so the
+shared reply is exactly what each would have computed).
+
+SLO enforcement (``serving/slo.py``): the admission queue is a
+:class:`FairQueue` (strict priority classes, per-tenant WFQ) with
+per-tenant token buckets and the batcher's full shed contract
+(``queue_full`` / ``slo_unattainable``, each carrying ``retry_after_ms``).
+When a TTFT target is configured (``--ttft-slo-ms``) and a waiting
+higher-priority admit would miss it, the scheduler **preempts**: it
+slot-steals from the longest-running strictly-lower-priority decode —
+the victim's fully-prefilled prompt pages are first adopted into the
+radix tree, its slot is released through the normal host-side free path
+(no device zeroing: nothing faulted, so the reuse invariants hold), and
+the original request is requeued at the head of its tenant queue.
+Resume is **O(1)**: preemption checkpoints the victim's decode state
+(paged — a pinned copy of its page-table row; monolithic — a device-side
+copy of its slot rows via ``slots.snapshot``), and re-admission restores
+it straight into decode with zero prefill chunks.  A periodic checkpoint
+tick (``MUSICAAL_SERVE_CKPT_INTERVAL`` decode dispatches) additionally
+bounds the work a failed dispatch loses: a resubmitted request id
+resumes from the last checkpoint instead of the prompt.  Greedy decode
+is deterministic, so resumed tokens are byte-identical to the
+undisturbed run.  An injected
+``scheduler.preempt`` fault aborts the steal BEFORE any state mutation —
+the degraded mode is "no steal this tick", never a half-zeroed slot.  A
+TPOT target (``--tpot-slo-ms``) throttles new admissions while the
+per-token EWMA is over target, shrinking the multiprogramming level
+instead of letting every resident stream miss together.
 """
 
 from __future__ import annotations
 
-import collections
+import json
+import threading
 import time
+from collections import OrderedDict
 from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
 
+from music_analyst_tpu_torch.observability import watchdog
+from music_analyst_tpu_torch.observability.engine_ledger import EngineLedger
 from music_analyst_tpu_torch.ops.kv_pages import PagePool, RadixIndex
+from music_analyst_tpu_torch.resilience.faults import fault_point, InjectedFault
+from music_analyst_tpu_torch.resilience.policy import RetryPolicy
 from music_analyst_tpu_torch.serving.batcher import (
+    _LATENCY_BUCKETS,
+    _OCCUPANCY_BUCKETS,
+    _RETRY_AFTER_CAP_MS,
+    _resolve,
+    DEFAULT_TENANT,
     ServeRequest,
     resolve_kv_pages,
     resolve_kv_quant,
     resolve_max_queue,
     resolve_page_size,
     resolve_prefill_chunk,
+    resolve_priority,
     resolve_slots,
+    resolve_speculate_k,
+    resolve_tenant_budget,
+    resolve_tpot_slo_ms,
+    resolve_ttft_slo_ms,
 )
+from music_analyst_tpu_torch.serving.response_cache import normalize_text, try_answer
+from music_analyst_tpu_torch.serving.slo import FairQueue, RateMeter, TokenBucket
+from music_analyst_tpu_torch.telemetry import get_telemetry
+from music_analyst_tpu_torch.telemetry.reqtrace import get_reqtrace
+from music_analyst_tpu_torch.telemetry.core import Histogram
 from music_analyst_tpu_torch.utils.labels import normalise_label
+
+# Per-token latency buckets: decode steps are ms-scale on-device, up to
+# second-scale on the CPU-emulated mesh.
+_TOKEN_BUCKETS = (
+    0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 5.0,
+)
+
+# Accepted tokens per verify dispatch lives in [1, k+1]; upper bins cover
+# the largest draft depths anyone sensibly runs.
+_ACCEPTED_BUCKETS = (1, 2, 3, 4, 5, 6, 8, 10, 12, 16, 24, 32)
+
+# N-gram widths the self-drafter tries, longest first: a longer match is
+# a stronger continuation signal; the unigram floor keeps short cycles
+# (a tiny model latching onto one token) draftable.
+_DRAFT_NGRAMS = (3, 2, 1)
+
+# Speculation pays only when drafts mostly land: a verify dispatch runs
+# k+1 sequential device steps, so at low acceptance it nets barely more
+# than the 1-step plain program at many times the cost.  Below this
+# acceptance-EWMA threshold a slot stops proposing drafts (the tick
+# degrades to plain decode) and instead probes with a single draft token
+# once every _PROBE_EVERY_TICKS ticks, which bounds the cost of
+# speculation on an unpredictable stream while keeping the EWMA able to
+# recover the moment the stream turns repetitive.
+_SPECULATE_EWMA_MIN = 0.6
+_PROBE_EVERY_TICKS = 6
+
+
+def _draft_from_history(hist: List[int], k: int) -> List[int]:
+    """Prompt-lookup self-drafting: propose up to ``k`` continuation
+    tokens for a token stream (prompt + emitted + carry).
+
+    Finds the most recent *earlier* occurrence of the stream's trailing
+    n-gram and proposes the tokens that followed it, then re-matches on
+    the extended stream so a short cycle drafts through the whole block.
+    Pure host-side heuristic: a wrong draft costs device compute (the
+    verify program rejects it), never a wrong token.
+    """
+    out: List[int] = []
+    work = list(hist)
+    while len(out) < k:
+        nxt: Optional[List[int]] = None
+        L = len(work)
+        for n in _DRAFT_NGRAMS:
+            if L <= n:
+                continue
+            gram = work[L - n:]
+            for j in range(L - 1, n - 1, -1):
+                if work[j - n:j] == gram:
+                    nxt = work[j:min(j + k - len(out), L)]
+                    break
+            if nxt:
+                break
+        if not nxt:
+            break
+        out.extend(nxt)
+        work.extend(nxt)
+    return out[:k]
 
 
 class _Slot:
-    """Host-side state of one occupied slot."""
+    """Host-side state of one occupied KV slot."""
 
     __slots__ = ("req", "ids", "plen", "next_chunk", "budget", "steps",
-                 "tokens", "carry", "done", "active", "pages",
-                 "kv_shared", "skipped")
+                 "tokens", "carry", "done", "active", "t_first",
+                 "pages", "kv_shared", "skipped", "hist", "accept_ewma",
+                 "probe")
 
     def __init__(self, req: ServeRequest, ids: np.ndarray, plen: int,
                  budget: int) -> None:
@@ -57,21 +218,72 @@ class _Slot:
         self.plen = int(plen)
         self.next_chunk = 0        # next prefill chunk offset; -1 = prefilled
         self.budget = int(budget)
-        self.steps = 0             # decode steps taken
-        self.tokens: List[int] = []
-        self.carry = 0             # input token of the next step
-        self.done = False          # emitted EOS
+        self.steps = 0             # decode steps taken so far
+        self.tokens: List[int] = []  # emitted token ids
+        self.carry = 0             # current input token for the next step
+        self.done = False          # emitted EOS (static-path done semantics)
         self.active = False        # in the decode phase
-        self.pages: Optional[List[int]] = None   # this slot's table row
-        self.kv_shared = 0         # tokens served from shared pages
-        self.skipped = 0           # prefill chunks skipped by the hit
+        self.t_first: Optional[float] = None  # first-token wall time (TTFT)
+        self.pages: Optional[List[int]] = None  # paged: this slot's table row
+        self.kv_shared = 0         # paged: tokens served from shared pages
+        self.skipped = 0           # paged: prefill chunks skipped by the hit
+        # Speculation: cached drafter stream (prompt + emitted + carry;
+        # None = rebuild) and this slot's acceptance-rate EWMA, which
+        # adapts the proposed draft depth inside the fixed program shape.
+        self.hist: Optional[List[int]] = None
+        self.accept_ewma = 1.0
+        self.probe = 0             # ticks since the EWMA drove depth to 0
+
+
+def _ckpt_key(rid: Any) -> str:
+    """Canonical checkpoint-registry key for an arbitrary JSON request id
+    (same canonicalization as the journal's dedup index)."""
+    try:
+        return json.dumps(rid, sort_keys=True, separators=(",", ":"))
+    except (TypeError, ValueError):
+        return repr(rid)
+
+
+class _Checkpoint:
+    """O(1)-resume snapshot of one in-flight generation.
+
+    Taken at preemption and on the periodic checkpoint tick; holds the
+    host progress fields (emitted tokens, step/carry/done) plus the KV
+    needed to re-enter decode without a single prefill chunk: the paged
+    backend pins the victim's page-table row (its own refcount, so the
+    row survives the slot's release *and* the zeroing failure path, which
+    only touches fully-unreferenced pages); the monolithic backend keeps
+    a device-side copy of the slot's rows (``slots.snapshot``).  The KV
+    lives on the device only — a SIGKILL still loses it, so cross-crash
+    journal replay recomputes from the prompt (byte-identical greedy
+    text); O(1) resume is the in-process guarantee.
+    """
+
+    __slots__ = ("key", "ids", "plen", "budget", "steps", "tokens",
+                 "carry", "done", "t_first", "pages", "kv")
+
+    def __init__(self, key: str, slot: "_Slot") -> None:
+        self.key = key
+        self.ids = slot.ids
+        self.plen = slot.plen
+        self.budget = slot.budget
+        self.steps = slot.steps
+        self.tokens = list(slot.tokens)
+        self.carry = slot.carry
+        self.done = slot.done
+        self.t_first = slot.t_first
+        self.pages: Optional[List[int]] = None  # paged: pinned row copy
+        self.kv: Optional[Any] = None  # monolithic: (keys, values, length)
 
 
 class ContinuousScheduler:
-    """Admit→prefill→decode loop over a backend's paged runtime.
+    """Admit→prefill→decode loop over a backend's slot runtime.
 
-    ``backend`` exposes ``paged_runtime(...)`` and ``tokenizer``
-    (``models/llama.py``'s zero-shot classifier).
+    ``backend`` must expose ``slot_runtime(...)`` (capability probe)
+    and ``tokenizer`` — ``models/llama.py``'s zero-shot
+    classifier is the canonical one.  Usable two ways: synchronously
+    (``submit(...)`` then :meth:`run_until_idle`, the batch-generation
+    path) or threaded (:meth:`start` / :meth:`drain`, the server path).
     """
 
     def __init__(
@@ -87,124 +299,852 @@ class ContinuousScheduler:
         kv_pages: Optional[int] = None,
         kv_quant: Optional[str] = None,
         prefix_cache: bool = True,
+        ttft_slo_ms: Optional[float] = None,
+        tpot_slo_ms: Optional[float] = None,
+        tenant_budget: Optional[float] = None,
+        priority: Optional[int] = None,
+        checkpoint_interval: Optional[int] = None,
+        speculate_k: Optional[int] = None,
+        ledger_interval_ms: Optional[Any] = None,
+        ledger_dir: Optional[str] = None,
+        response_cache=None,
     ) -> None:
         self.backend = backend
+        # Cross-request response cache (serving/response_cache.py),
+        # consulted in submit() BEFORE the shed ladder and tenant
+        # metering — a hit settles without a slot, a dispatch, or a
+        # chip-second; None leaves every request on the compute path.
+        self.response_cache = response_cache
         self.n_slots = resolve_slots(n_slots)
         self.prefill_chunk = resolve_prefill_chunk(prefill_chunk)
         self.max_queue = resolve_max_queue(max_queue)
+        self.ttft_slo_ms = resolve_ttft_slo_ms(ttft_slo_ms)
+        self.tpot_slo_ms = resolve_tpot_slo_ms(tpot_slo_ms)
+        self.tenant_budget = resolve_tenant_budget(tenant_budget)
+        self.default_priority = resolve_priority(priority)
+        # Decode dispatches between periodic checkpoint refreshes (0 =
+        # preemption-time checkpoints only).  At the default span a short
+        # generation completes before the first tick fires, so the tick
+        # costs nothing until requests are long enough to need it.
+        self.checkpoint_interval = int(_resolve(
+            checkpoint_interval, "MUSICAAL_SERVE_CKPT_INTERVAL", 32,
+            integer=True, minimum=0,
+        ))
         page = resolve_page_size(page_size)
-        if not page:
-            raise NotImplementedError(
-                "page_size=0 (the monolithic slot cache, ops/kv_slots.py) is "
-                "not yet ported to music_analyst_tpu_torch"
-            )
+        self.paged = bool(page) and hasattr(backend, "paged_runtime")
         self.kv_quant = resolve_kv_quant(kv_quant)
-        self.runtime = backend.paged_runtime(
-            n_slots=self.n_slots,
-            prefill_chunk=self.prefill_chunk,
-            max_new_tokens=max_new_tokens,
-            prompt_region=prompt_region,
-            decode_span=decode_span,
-            page_size=page,
-            kv_pages=resolve_kv_pages(kv_pages, self.n_slots),
-            kv_quant=self.kv_quant,
-        )
-        self.plan = plan = self.runtime.plan
+        self._kv_quant_degraded = False
+        if self.kv_quant != "none" and not self.paged:
+            raise ValueError(
+                "kv_quant requires the paged KV backend; it cannot combine "
+                "with --page-size 0 (the monolithic slot cache)"
+            )
+        if self.kv_quant != "none":
+            # Degrade seam: a fault here (site ``kv_quant.dequant``)
+            # means the quantized read path is unavailable — fall back to
+            # the unquantized pool *before* any page is written, so every
+            # reply is byte-identical to an unquantized scheduler's.
+            try:
+                fault_point("kv_quant.dequant", scheme=self.kv_quant)
+            except InjectedFault:
+                self.kv_quant = "none"
+                self._kv_quant_degraded = True
+        if self.paged:
+            self.runtime = backend.paged_runtime(
+                n_slots=self.n_slots,
+                prefill_chunk=self.prefill_chunk,
+                max_new_tokens=max_new_tokens,
+                prompt_region=prompt_region,
+                decode_span=decode_span,
+                page_size=page,
+                kv_pages=resolve_kv_pages(kv_pages, self.n_slots),
+                kv_quant=self.kv_quant,
+            )
+        else:
+            self.runtime = backend.slot_runtime(
+                n_slots=self.n_slots,
+                prefill_chunk=self.prefill_chunk,
+                max_new_tokens=max_new_tokens,
+                prompt_region=prompt_region,
+                decode_span=decode_span,
+            )
+        self.plan = self.runtime.plan
         self.device = self.runtime.device
+        # Draft depth: k drafts + the carry make a [n_slots, k+1] verify
+        # block whose KV write must fit the decode region from any
+        # participating step, so k is capped at max_new - 1 (ticks where
+        # a slot is within k steps of max_new fall back to plain
+        # stepping — see _decode_tick).
+        self.speculate_k = min(
+            resolve_speculate_k(speculate_k), max(0, self.plan.max_new - 1)
+        )
         self.caches = self.runtime.init_caches()
-        self._pool = PagePool(plan.n_pages)
-        self._radix: Optional[RadixIndex] = (
-            RadixIndex(plan.page_size) if prefix_cache else None)
-        # Free slots' rows point every entry at the trash page.
-        self._table = np.full((plan.n_slots, plan.pages_per_slot),
-                              plan.trash_page, np.int32)
-        self._prefix: Dict[str, int] = {
-            "lookups": 0, "hits": 0, "tokens_shared": 0, "pages_shared": 0,
-            "chunks_skipped": 0, "cow_copies": 0, "evictions": 0,
-            "adopted_pages": 0, "fallbacks": 0, "deferred": 0,
-            "fresh_pages": 0,
-        }
-        self._slots: List[Optional[_Slot]] = [None] * plan.n_slots
-        self._queue: "collections.deque[ServeRequest]" = collections.deque()
+        if self.paged:
+            plan = self.plan
+            self._pool: Optional[PagePool] = PagePool(plan.n_pages)
+            self._radix: Optional[RadixIndex] = (
+                RadixIndex(plan.page_size) if prefix_cache else None
+            )
+            # Free slots' rows point every entry at the trash page so the
+            # fixed-shape decode dispatch can't scribble on recycled pages.
+            self._table = np.full(
+                (plan.n_slots, plan.pages_per_slot), plan.trash_page,
+                np.int32,
+            )
+            self._prefix: Dict[str, Any] = {
+                "lookups": 0, "hits": 0, "tokens_shared": 0,
+                "pages_shared": 0, "chunks_skipped": 0, "cow_copies": 0,
+                "evictions": 0, "adopted_pages": 0, "fallbacks": 0,
+                "deferred": 0, "fresh_pages": 0,
+            }
+        else:
+            self._pool = None
+            self._radix = None
+            self._table = None
+            self._prefix = {}
+        self._slots: List[Optional[_Slot]] = [None] * self.plan.n_slots
+        self._queue = FairQueue()
+        self._buckets: Dict[str, TokenBucket] = {}
+        self._cond = threading.Condition()
+        self._draining = False
+        self._thread: Optional[threading.Thread] = None
+        self._retry = RetryPolicy(base_s=0.05, cap_s=1.0)
+        self._ttft = Histogram(_LATENCY_BUCKETS)
+        self._tpot = Histogram(_TOKEN_BUCKETS)
+        self._occupancy = Histogram(_OCCUPANCY_BUCKETS)
+        self._stats_lock = threading.Lock()
         self._stats: Dict[str, Any] = {
             "admitted": 0, "shed": 0, "completed": 0, "failed": 0,
             "tokens_generated": 0, "prefill_dispatches": 0,
-            "prefill_tokens": 0, "prefill_seconds": 0.0,
-            "decode_dispatches": 0, "decode_steps": 0,
-            "decode_seconds": 0.0, "queue_depth_max": 0,
+            "decode_dispatches": 0, "decode_seconds": 0.0,
+            "queue_depth_max": 0,
+            # The port's additions: prefill work and its seconds (the tick
+            # ends with a device sync, so they are the prefill's own), and
+            # the 1-wide model steps the decode and verify dispatches ran.
+            "prefill_tokens": 0, "prefill_seconds": 0.0, "decode_steps": 0,
+            "preemptions": 0, "preempt_faults": 0, "resumed": 0,
+            "checkpoints_taken": 0, "checkpoints_released": 0,
+            "resumed_o1": 0, "resume_chunks_skipped": 0,
+            "tpot_throttle_ticks": 0, "ttft_slo_misses": 0,
+            "tpot_slo_misses": 0, "retry_after_ms_last": None,
+            "shed_queue_full": 0, "shed_slo_unattainable": 0,
+            "shed_tenant_budget": 0, "shed_evicted": 0,
+            "dedup_folded": 0, "cache_hits": 0,
         }
+        # Speculation counters (stats()["speculation"] → manifest
+        # ``serving.decode.speculation``).
+        self._spec: Dict[str, Any] = {
+            "dispatches": 0,         # verify dispatches
+            "drafted": 0,            # draft tokens proposed
+            "accepted": 0,           # draft tokens accepted
+            "tokens_committed": 0,   # tokens emitted by verify dispatches
+            "fallbacks": 0,          # draft-fault → plain-decode ticks
+            "plain_ticks": 0,        # tail/fallback plain dispatches at k>0
+        }
+        self._accept_hist = Histogram(_OCCUPANCY_BUCKETS)
+        self._block_hist = Histogram(_ACCEPTED_BUCKETS)
+        # Rolling-window rates (serving/slo.py RateMeter) so a live
+        # ``stats`` poll reads req/s, tokens/s, shed/s directly.
+        self._rates = {
+            "req_s": RateMeter(), "tokens_s": RateMeter(),
+            "shed_s": RateMeter(),
+        }
+        # In-batch dedup: live generate primaries by (tenant, text,
+        # budget); guarded by _cond (submit side) — fan-out pops under
+        # the same lock.
+        self._dedup_live: Dict[Any, ServeRequest] = {}
+        # Live checkpoints keyed by canonical request id, oldest first.
+        # Bounded (LRU release) so abandoned checkpoints can't pin the
+        # page pool or hold monolithic KV copies forever.
+        self._ckpts: "OrderedDict[str, _Checkpoint]" = OrderedDict()
+        self._ckpt_limit = 2 * self.plan.n_slots
+        # Per-tenant admission ledger (manifest ``serving.slo`` section).
+        self._tenants: Dict[str, Dict[str, int]] = {}
+        # TTFT/TPOT EWMAs (seconds): the drain estimate behind
+        # ``slo_unattainable`` sheds and the TPOT admission throttle.
+        self._ttft_ewma_s = 0.0
+        self._tpot_ewma_s = 0.0
+        self._t_started = time.monotonic()
+        self._warmup_record: Optional[Dict[str, Any]] = None
+        # Engine goodput ledger (observability/engine_ledger.py): per-tick
+        # wall-time attribution + occupancy + per-tenant chip-seconds.
+        # Recording is always on (host-side float adds — no device work,
+        # no readbacks, no per-tick allocation); file flushing rides the
+        # metrics cadence and only arms when a profile dir is resolved.
+        self._ledger = EngineLedger(
+            self.plan.n_slots,
+            interval_ms=ledger_interval_ms,
+            directory=ledger_dir,
+        )
+        self._ledger.attach_occupancy(self._ledger_occupancy_sample)
+        # Per-tick attribution scratch — reset at tick start, consumed by
+        # record_tick; plain float/int adds on the hot path.
+        self._led_prefill_s = 0.0
+        self._led_chunks_cold = 0
+        self._led_chunks_shared = 0
+        self._led_decode_s = 0.0
+        self._led_useful_frac = 1.0
+        self._led_committed = 0
+        self._led_preempt_s = 0.0
+        # Tenant slot shares captured right after admission — settle frees
+        # slots mid-tick, so reading occupancy at record time would drop
+        # the attribution for requests that finish within their tick.
+        self._led_shares: Dict[str, int] = {}
+
+    # ----------------------------------------------------------- lifecycle
+
+    def start(self) -> "ContinuousScheduler":
+        if self._thread is None or not self._thread.is_alive():
+            self._thread = threading.Thread(
+                target=self._thread_main, name="decode-loop", daemon=True
+            )
+            self._thread.start()
+        return self
+
+    def drain(self, timeout: Optional[float] = 30.0) -> None:
+        """Stop admitting, run every queued/in-flight request to its reply
+        (or a structured error), stop the loop thread."""
+        with self._cond:
+            self._draining = True
+            self._cond.notify_all()
+        thread = self._thread
+        if thread is not None and thread.is_alive():
+            thread.join(timeout=timeout)
+        self._thread = None
+        if thread is None:
+            # Synchronous use: drain means "finish the backlog inline".
+            self.run_until_idle()
+        self._ledger.close()
+
+    @property
+    def draining(self) -> bool:
+        return self._draining
+
+    def warmup(self) -> Dict[str, Any]:
+        """Run every decode dispatch once before the first request.
+
+        Eager PyTorch compiles no programs: warming loads the kernels
+        (``compiles`` counts the kernel builds and library loads it
+        triggered, ``telemetry/core.py``) and lets the BLAS library set
+        up its handles and workspaces.  Monolithic: a dummy prefill chunk,
+        one decode dispatch (and one verify when speculating), a free,
+        and a snapshot/restore pair.  Paged: prefill through two shifted
+        page rows, a full-table decode dispatch (and verify), a page copy
+        and a pool-wide free, which zeroes the pool again, so warmup
+        leaves nothing behind.
+        """
+        tel = get_telemetry()
+        before = tel.compile_stats()
+        variants_before = self.runtime.compiled_variants()
+        t0 = time.perf_counter()
+        dev = self.device
+        chunk_ids = torch.zeros((self.plan.prefill_chunk,), dtype=torch.int32,
+                                device=dev)
+        n = self.plan.n_slots
+
+        def ints(value, size):
+            return torch.full((size,), value, dtype=torch.int32, device=dev)
+
+        def flags(value, size):
+            return torch.full((size,), value, dtype=torch.bool, device=dev)
+
+        if self.paged:
+            plan = self.plan
+            pps = plan.pages_per_slot
+            for shift in (0, 1):
+                row = (np.arange(pps, dtype=np.int32) + shift) % plan.n_pages
+                self.caches, _ = self.runtime.prefill_chunk(
+                    self.caches, row, 0, chunk_ids, 0, plan.prefill_chunk, 0)
+            table = torch.from_numpy(
+                np.arange(n * pps, dtype=np.int32).reshape(n, pps)
+                % plan.n_pages).to(dev)
+            self.caches, _, _, _, _ = self.runtime.decode_step(
+                self.caches, table, ints(0, n), ints(1, n), ints(0, n),
+                ints(1, n), flags(False, n), flags(False, n))
+            self.caches = self.runtime.copy_page(
+                self.caches, 0, min(1, plan.n_pages - 1))
+            if self.speculate_k > 0:
+                self.caches, _ = self.runtime.verify_block(
+                    self.caches, table,
+                    torch.zeros((n, self.speculate_k + 1), dtype=torch.int32,
+                                device=dev),
+                    ints(1, n), ints(0, n))
+            self.caches = self.runtime.free_pages(
+                self.caches, flags(True, plan.n_pages + 1), flags(True, n))
+        else:
+            self.caches, _ = self.runtime.prefill_chunk(
+                self.caches, 0, chunk_ids, 0, self.plan.prefill_chunk, 0)
+            self.caches, _, _, _, _ = self.runtime.decode_step(
+                self.caches, ints(0, n), ints(1, n), ints(0, n), ints(1, n),
+                flags(False, n), flags(False, n))
+            if self.speculate_k > 0:
+                self.caches, _ = self.runtime.verify_block(
+                    self.caches,
+                    torch.zeros((n, self.speculate_k + 1), dtype=torch.int32,
+                                device=dev),
+                    ints(1, n), ints(0, n))
+            self.caches = self.runtime.free_slots(self.caches, flags(True, n))
+            snap_k, snap_v, snap_len = self.runtime.snapshot_slot(
+                self.caches, 0)
+            self.caches = self.runtime.restore_slot(
+                self.caches, snap_k, snap_v, 0, snap_len)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        warm_s = time.perf_counter() - t0
+        after = tel.compile_stats()
+        record = {
+            "seconds": round(warm_s, 6),
+            "compiles": after["count"] - before["count"],
+            "programs": self.runtime.compiled_variants() - variants_before,
+            "n_slots": self.plan.n_slots,
+            "prefill_chunk": self.plan.prefill_chunk,
+            "kv_backend": "paged" if self.paged else "slots",
+            "speculate_k": self.speculate_k,
+        }
+        if self.paged:
+            record.update(
+                page_size=self.plan.page_size,
+                kv_pages=self.plan.n_pages,
+                pages_per_slot=self.plan.pages_per_slot,
+                kv_quant=self.kv_quant,
+            )
+        self._warmup_record = record
+        tel.annotate(decode_warmup=record)
+        return record
 
     # ----------------------------------------------------------- admission
 
     def submit(self, rid: Any, text: str, op: str = "generate",
-               max_new_tokens: Optional[int] = None) -> ServeRequest:
-        """Queue one generation request, or shed it (``queue_full``) when
-        the queue holds ``max_queue`` requests."""
+               max_new_tokens: Optional[int] = None,
+               tenant: Optional[str] = None,
+               priority: Optional[int] = None,
+               deadline_ms: Optional[float] = None) -> ServeRequest:
+        """Admit (or shed) one generation request; mirrors the batcher's
+        bounded-admission contract, including the full SLO shed ladder
+        (token bucket → ``slo_unattainable`` → priority-aware eviction →
+        ``queue_full``), every shed carrying ``retry_after_ms``."""
+        tel = get_telemetry()
         budget = int(max_new_tokens or self.plan.max_new)
         budget = max(1, min(budget, self.plan.max_new))
-        req = ServeRequest(rid, op, text, meta={"max_new_tokens": budget})
-        if len(self._queue) >= self.max_queue:
-            req.fail("queue_full",
-                     f"decode admission queue full "
-                     f"({len(self._queue)}/{self.max_queue})")
-            self._stats["shed"] += 1
+        if deadline_ms is None and self.ttft_slo_ms > 0.0:
+            deadline_ms = self.ttft_slo_ms
+        req = ServeRequest(
+            rid, op, text, meta={"max_new_tokens": budget},
+            tenant=tenant or DEFAULT_TENANT,
+            priority=(
+                self.default_priority if priority is None else int(priority)
+            ),
+            deadline_ms=deadline_ms,
+        )
+        # Trace attach BEFORE the shed ladder: sheds carry trace ids too.
+        get_reqtrace().begin_request(req)
+        # Response cache BEFORE the shed ladder and the tenant meter: a
+        # repeat of a settled generation is answered for ~a hash +
+        # lookup — no slot, no dispatch, no token-bucket charge, no
+        # ledger chip-seconds — and a repeat that would shed
+        # queue_full/slo_unattainable is answered instead.
+        if try_answer(self.response_cache, req, budget=budget):
+            with self._stats_lock:
+                self._stats["cache_hits"] += 1
+            self._rates["req_s"].mark()
+            tel.count("serving.decode_cache_hits")
             return req
-        self._queue.append(req)
-        self._stats["admitted"] += 1
-        self._stats["queue_depth_max"] = max(self._stats["queue_depth_max"],
-                                             len(self._queue))
+        with self._cond:
+            if self._draining:
+                req.fail("draining", "server is draining; not admitting")
+                self._shed(req, None, None)
+                return req
+            # Per-tenant token bucket: the saturating tenant sheds at its
+            # OWN budget while everyone else keeps admitting.
+            if self.tenant_budget > 0.0:
+                bucket = self._buckets.get(req.tenant)
+                if bucket is None:
+                    bucket = self._buckets[req.tenant] = TokenBucket(
+                        self.tenant_budget
+                    )
+                if not bucket.take():
+                    hint_ms = max(
+                        bucket.retry_after_ms(), self.retry_after_ms(1)
+                    )
+                    req.fail(
+                        "queue_full",
+                        f"tenant {req.tenant!r} over its admission budget "
+                        f"({self.tenant_budget:g} req/s); retry after "
+                        f"{hint_ms:.0f} ms",
+                        retry_after_ms=hint_ms,
+                    )
+                    self._shed(req, "shed_tenant_budget", hint_ms)
+                    return req
+            # In-batch dedup at the admission edge: an identical live
+            # generate (same tenant, prompt, and budget) is already
+            # queued or decoding — ride its slot as a follower instead
+            # of occupying another; the settled reply fans out at settle
+            # under each follower's own id.  Checked before capacity: a
+            # fold consumes no queue depth, so it never evicts anyone.
+            if op == "generate":
+                # Identity is normalize_text — the same definition the
+                # batcher's row fold and the response-cache key use, so
+                # every repeat-detection tier agrees.
+                dedup_key = (req.tenant, normalize_text(text), budget)
+                primary = self._dedup_live.get(dedup_key)
+                if primary is not None and not primary.done:
+                    primary.meta.setdefault(
+                        "dedup_followers", []
+                    ).append(req)
+                    with self._stats_lock:
+                        self._stats["admitted"] += 1
+                        self._stats["dedup_folded"] += 1
+                        self._tenant_ledger(req.tenant)["admitted"] += 1
+                    self._rates["req_s"].mark()
+                    tel.count("serving.decode_admitted")
+                    tel.count("serving.decode_dedup_folded")
+                    return req
+            else:
+                dedup_key = None
+            # Deadline check BEFORE capacity: a request the drain
+            # estimate already dooms must not evict anyone.
+            if req.deadline_ms is not None and req.deadline_ms > 0.0:
+                est_ms = self._ttft_estimate_ms(req.priority)
+                if est_ms is not None and est_ms > req.deadline_ms:
+                    hint_ms = self.retry_after_ms(len(self._queue))
+                    req.fail(
+                        "slo_unattainable",
+                        f"TTFT estimate {est_ms:.0f} ms already exceeds "
+                        f"the {req.deadline_ms:.0f} ms deadline; retry "
+                        f"after {hint_ms:.0f} ms",
+                        retry_after_ms=hint_ms,
+                        estimate_ms=round(est_ms, 3),
+                    )
+                    self._shed(req, "shed_slo_unattainable", hint_ms)
+                    return req
+            depth = len(self._queue)
+            if depth >= self.max_queue:
+                # Priority-aware eviction: shed queued lower-priority /
+                # over-represented work before the newcomer.
+                victim = self._queue.shed_candidate(req.tenant, req.priority)
+                hint_ms = self.retry_after_ms(depth)
+                if victim is None:
+                    req.fail(
+                        "queue_full",
+                        f"decode admission queue full "
+                        f"({depth}/{self.max_queue}); retry after "
+                        f"{hint_ms:.0f} ms",
+                        retry_after_ms=hint_ms,
+                    )
+                    self._shed(req, "shed_queue_full", hint_ms)
+                    return req
+                victim.fail(
+                    "queue_full",
+                    f"evicted for a priority-{req.priority} admit with the "
+                    f"queue full ({depth}/{self.max_queue}); retry after "
+                    f"{hint_ms:.0f} ms",
+                    retry_after_ms=hint_ms,
+                )
+                self._shed(victim, "shed_evicted", hint_ms)
+                self._fanout_locked(victim)
+            if dedup_key is not None:
+                # Past the shed ladder: this request is the live primary
+                # later identical arrivals fold onto.
+                req.meta["dedup_key"] = dedup_key
+                self._dedup_live[dedup_key] = req
+            self._queue.append(req)
+            depth = len(self._queue)
+            self._cond.notify_all()
+        with self._stats_lock:
+            self._stats["admitted"] += 1
+            self._tenant_ledger(req.tenant)["admitted"] += 1
+            if depth > self._stats["queue_depth_max"]:
+                self._stats["queue_depth_max"] = depth
+        self._rates["req_s"].mark()
+        tel.count("serving.decode_admitted")
         return req
 
+    def _tenant_ledger(self, tenant: str) -> Dict[str, int]:
+        """Caller holds ``_stats_lock``."""
+        ledger = self._tenants.get(tenant)
+        if ledger is None:
+            ledger = self._tenants[tenant] = {
+                "admitted": 0, "completed": 0, "shed": 0,
+                "tpot_ewma_ms": 0.0,
+            }
+        return ledger
+
+    def _shed(self, req: ServeRequest, kind_stat: Optional[str],
+              hint_ms: Optional[float]) -> None:
+        with self._stats_lock:
+            self._stats["shed"] += 1
+            if kind_stat in self._stats:
+                self._stats[kind_stat] += 1
+            if hint_ms is not None:
+                self._stats["retry_after_ms_last"] = hint_ms
+            self._tenant_ledger(req.tenant)["shed"] += 1
+        self._rates["shed_s"].mark()
+        get_telemetry().count("serving.shed")
+
+    def _fanout(self, req: ServeRequest) -> None:
+        """Fan a settled dedup primary's reply (success OR failure) out to
+        its followers under each follower's own request id, and retire
+        the registry entry.  No-op for requests that never registered."""
+        with self._cond:
+            self._fanout_locked(req)
+
+    def _fanout_locked(self, req: ServeRequest) -> None:
+        """Caller holds ``_cond``."""
+        key = req.meta.pop("dedup_key", None)
+        if key is not None and self._dedup_live.get(key) is req:
+            del self._dedup_live[key]
+        followers = req.meta.pop("dedup_followers", None)
+        if not followers or req.response is None:
+            return
+        ok = bool(req.response.get("ok"))
+        served = 0
+        for f in followers:
+            if f.done:
+                continue
+            payload = dict(req.response)
+            payload["id"] = f.id
+            f.complete(payload)
+            served += 1
+            with self._stats_lock:
+                if ok:
+                    self._stats["completed"] += 1
+                    self._tenant_ledger(f.tenant)["completed"] += 1
+                else:
+                    self._stats["failed"] += 1
+        if served:
+            get_telemetry().count(
+                "serving.decode_completed" if ok
+                else "serving.request_failed",
+                served,
+            )
+
+    def _settle_rate(self) -> float:
+        """Observed settle throughput (requests/s since construction) —
+        the denominator of the retry hint and the TTFT drain estimate."""
+        with self._stats_lock:
+            settled = self._stats["completed"] + self._stats["failed"]
+        elapsed = time.monotonic() - self._t_started
+        return settled / elapsed if elapsed > 0.0 and settled else 0.0
+
+    def retry_after_ms(self, depth: Optional[int] = None) -> float:
+        """Backoff hint for a shed client: estimated time to drain the
+        queue ahead at the observed settle rate, floored at 1 ms and
+        capped so a stale estimate can't park clients for minutes.
+        Before the first settle there is no rate — fall back to a
+        per-queued-request pessimistic constant."""
+        if depth is None:
+            with self._cond:
+                depth = len(self._queue)
+        rate = self._settle_rate()
+        if rate > 0.0:
+            hint = (depth + 1) / rate * 1000.0
+        else:
+            hint = 50.0 * max(depth, 1)
+        return round(min(max(hint, 1.0), _RETRY_AFTER_CAP_MS), 3)
+
+    def _ttft_estimate_ms(self, priority: int) -> Optional[float]:
+        """EWMA estimate of a newcomer's TTFT at ``priority`` (caller
+        holds cond): queue-drain time ahead of it plus the observed
+        prefill latency.  None before the first completion — no
+        observation means no grounds to shed on."""
+        rate = self._settle_rate()
+        with self._stats_lock:
+            ttft_ewma_s = self._ttft_ewma_s
+        if rate <= 0.0 or ttft_ewma_s <= 0.0:
+            return None
+        ahead = self._queue.depth_ahead(priority)
+        return ahead / rate * 1000.0 + ttft_ewma_s * 1000.0
+
+    def _bump(self, **deltas: Any) -> None:
+        with self._stats_lock:
+            for key, n in deltas.items():
+                self._stats[key] += n
+
+    # ------------------------------------------------------------ the loop
+
+    def _thread_main(self) -> None:
+        """The loop thread's body: grad mode and the current device are
+        per thread in PyTorch, so the thread sets both itself."""
+        if self.device.type == "cuda":
+            torch.cuda.set_device(self.device)
+        with torch.inference_mode():
+            self._loop()
+
+    def _loop(self) -> None:
+        while True:
+            did_work = self._tick()
+            if did_work:
+                watchdog.beat("decode.loop")
+                continue
+            with self._cond:
+                if self._draining and not self._queue and not self._occupied():
+                    return
+                t_wait = time.perf_counter()
+                self._cond.wait(0.005)
+                self._ledger.idle_wait(t_wait, time.perf_counter())
+
     def run_until_idle(self, max_ticks: int = 1_000_000) -> None:
-        """Tick until the queue and the slots are empty."""
+        """Synchronous use: tick until queue and slots are empty."""
         for _ in range(max_ticks):
-            if not self._tick() and not self._queue and not self._occupied():
-                return
+            if not self._tick():
+                with self._cond:
+                    if not self._queue and not self._occupied():
+                        return
         raise RuntimeError("run_until_idle exceeded its tick bound")
 
     def _occupied(self) -> int:
         return sum(1 for s in self._slots if s is not None)
 
     def _tick(self) -> bool:
-        """Admit into free slots, advance every mid-prefill slot by one
-        chunk, run one decode dispatch, settle completions."""
+        """One scheduler iteration: admit waiting requests into free slots,
+        advance one prefill chunk per mid-prefill slot, run one decode
+        dispatch over all slots, settle completions.  Returns whether any
+        work happened."""
+        t0 = time.perf_counter()
+        self._led_prefill_s = 0.0
+        self._led_chunks_cold = 0
+        self._led_chunks_shared = 0
+        self._led_decode_s = 0.0
+        self._led_useful_frac = 1.0
+        self._led_committed = 0
+        self._led_preempt_s = 0.0
         did = self._admit()
+        shares = self._led_shares
+        shares.clear()
+        for s in self._slots:
+            if s is not None:
+                tenant = s.req.tenant
+                shares[tenant] = shares.get(tenant, 0) + 1
         did = self._prefill_tick() or did
         did = self._decode_tick() or did
+        self._publish_gauges()
+        self._ledger.record_tick(
+            t0, time.perf_counter(),
+            prefill_s=self._led_prefill_s,
+            chunks_cold=self._led_chunks_cold,
+            chunks_shared=self._led_chunks_shared,
+            decode_s=self._led_decode_s,
+            useful_frac=self._led_useful_frac,
+            committed=self._led_committed,
+            preempt_s=self._led_preempt_s,
+            shares=shares,
+        )
+        self._ledger.maybe_flush()
         return did
+
+    # ------------------------------------------------------------ admit
 
     def _admit(self) -> bool:
         did = False
-        while self._queue:
-            free = next((i for i, s in enumerate(self._slots) if s is None),
-                        None)
-            if free is None:
+        while True:
+            with self._cond:
+                head = self._queue.peek()
+                if head is not None and head.done:
+                    # Settled while queued (shouldn't normally happen —
+                    # eviction removes its victim): discard and move on.
+                    self._queue.popleft()
+                    continue
+            if head is None:
                 return did
-            req = self._queue.popleft()
+            free = next(
+                (i for i, s in enumerate(self._slots) if s is None), None
+            )
+            if free is None:
+                free = self._maybe_preempt()
+                if free is None:
+                    return did
+            elif self._tpot_throttled(head):
+                return did
+            with self._cond:
+                req = self._queue.popleft()
+            if req is None:
+                return did
+            if req.done:  # already shed/settled
+                continue
+            rt = get_reqtrace()
+            if rt.enabled:
+                # Slot claim closes the wait phase: ``queue`` for a fresh
+                # admit, ``gap.preempt`` for a preemption victim coming
+                # back (the visible hole preemption punched).
+                tt = req.meta.get("trace_t")
+                if tt is not None:
+                    name = (
+                        "gap.preempt" if tt.pop("preempted_at", None)
+                        else "queue"
+                    )
+                    now_w = time.time()
+                    rt.phase(req, name, tt.get("cursor"), now_w, slot=free)
+                    tt["cursor"] = now_w
+            # A re-admitted request with a live checkpoint (preempted
+            # victim, or a failed/replayed id resubmitted) skips tokenize,
+            # page mapping, and every prefill chunk: O(1) resume.
+            if self._ckpts:
+                ck = self._ckpts.pop(_ckpt_key(req.id), None)
+                if ck is not None:
+                    self._resume(free, req, ck)
+                    did = True
+                    continue
             try:
                 ids, plen = self.backend.tokenizer.encode(
-                    req.text, self.plan.prompt_region)
-            except Exception as exc:  # noqa: BLE001 — fails alone
-                req.fail("request_failed", f"{type(exc).__name__}: {exc}"[:300])
-                self._stats["failed"] += 1
+                    req.text, self.plan.prompt_region
+                )
+            except Exception as exc:  # noqa: BLE001 — poison isolation
+                req.fail("request_failed",
+                         f"{type(exc).__name__}: {exc}"[:300])
+                self._bump(failed=1)
+                get_telemetry().count("serving.request_failed")
+                self._fanout(req)
                 continue
-            slot = _Slot(req, np.asarray(ids, np.int32), plen,
-                         req.meta.get("max_new_tokens", self.plan.max_new))
-            if not self._map_pages(free, slot):
-                # Not even eviction frees enough pages: wait for running
-                # sequences to release theirs.
-                self._queue.appendleft(req)
-                self._prefix["deferred"] += 1
-                return did
+            slot = _Slot(
+                req, np.asarray(ids, np.int32), plen,
+                req.meta.get("max_new_tokens", self.plan.max_new),
+            )
+            if self.paged:
+                mapped = self._map_pages(free, slot)
+                # Pressure valve: live checkpoints pin pages eviction
+                # can't touch — release the oldest until the admit fits
+                # (a released checkpoint degrades its owner to prefix-hit
+                # / full re-prefill resume: slower, still byte-identical).
+                while not mapped and self._ckpts:
+                    _, stale = self._ckpts.popitem(last=False)
+                    self._release_ckpt(stale)
+                    mapped = self._map_pages(free, slot)
+                if not mapped:
+                    # Not even eviction could free enough pages: put the
+                    # request back and stop admitting this tick — in-flight
+                    # sequences completing will release pages.
+                    with self._cond:
+                        self._queue.requeue(req)
+                    with self._stats_lock:
+                        self._prefix["deferred"] += 1
+                    return did
             self._slots[free] = slot
             did = True
         return did
 
+    def _maybe_preempt(self) -> Optional[int]:
+        """Slot-steal for a waiting higher-priority admit that would miss
+        its TTFT target; returns the freed slot index, or None ("no steal
+        this tick").
+
+        Victim = the longest-running decode in the lowest priority class
+        strictly below the queue head's.  The injected-fault gate
+        (``scheduler.preempt``) sits BEFORE any state mutation, so a
+        fault degrades to no steal at all — never a half-released slot.
+        The steal itself is the normal completion path run early: adopt
+        the fully-prefilled prompt pages into the radix tree, checkpoint
+        the victim's decode state, requeue the request at the head of
+        its tenant queue, release the slot host-side (no device zeroing
+        — nothing faulted, so the reuse invariants hold).  Resume
+        restores the checkpoint into the next free slot in O(1) — zero
+        prefill chunks; greedy decode is deterministic, so the resumed
+        tokens are byte-identical to an undisturbed run.
+        """
+        if self.ttft_slo_ms <= 0.0:
+            return None
+        with self._cond:
+            head = self._queue.peek()
+            if head is None or head.done:
+                return None
+            est_ms = self._ttft_estimate_ms(head.priority)
+        candidates = [
+            (s.req.priority, -s.steps, i)
+            for i, s in enumerate(self._slots)
+            if s is not None and s.active and s.req.priority < head.priority
+        ]
+        if not candidates:
+            return None
+        waited_ms = (time.monotonic() - head.t_enqueue) * 1000.0
+        # Unknown estimate projects to +inf: when we cannot show the head
+        # makes its target by waiting, strict priority wins.
+        projected_ms = waited_ms + (
+            est_ms if est_ms is not None else float("inf")
+        )
+        if projected_ms < self.ttft_slo_ms:
+            return None
+        _, _, idx = min(candidates)
+        victim = self._slots[idx]
+        try:
+            fault_point(
+                "scheduler.preempt", slot=idx, steps=victim.steps,
+                victim_priority=victim.req.priority,
+                admit_priority=head.priority,
+            )
+        except Exception:  # noqa: BLE001 — degraded mode: no steal
+            self._bump(preempt_faults=1)
+            get_telemetry().count("serving.preempt_faults")
+            return None
+        # Ledger: the whole steal window counts once as preempt_overhead
+        # (the embedded _checkpoint times itself — rebase on the snapshot
+        # so it isn't double-counted).
+        pre_t0 = time.perf_counter()
+        led_before = self._led_preempt_s
+        if self.paged and self._radix is not None:
+            self._adopt(victim)  # no-op when prefill already adopted them
+        # Checkpoint BEFORE the slot is released: the victim re-enters
+        # decode in O(1) (zero prefill chunks) when its turn comes back.
+        if victim.active:
+            self._checkpoint(idx, victim)
+        victim.req.meta["preempted"] = (
+            victim.req.meta.get("preempted", 0) + 1
+        )
+        rt = get_reqtrace()
+        if rt.enabled:
+            # Close the victim's running phase at the steal and mark the
+            # hole so re-admission names it ``gap.preempt``; preempted
+            # traces always flush (tail sampling).
+            now_w = rt.advance(
+                victim.req,
+                "prefill" if victim.t_first is None else "decode",
+                slot=idx, steps=victim.steps, preempted=True,
+            )
+            tt = victim.req.meta.get("trace_t")
+            if tt is not None and now_w is not None:
+                tt["preempted_at"] = now_w
+            rt.keep(victim.req, "preempted")
+        with self._cond:
+            self._queue.requeue(victim.req)
+        self._free([idx])
+        self._bump(preemptions=1)
+        get_telemetry().count("serving.preemptions")
+        self._led_preempt_s = led_before + (time.perf_counter() - pre_t0)
+        return idx
+
+    def _tpot_throttled(self, head: ServeRequest) -> bool:
+        """Defer admitting ``head`` this tick while the per-token EWMA is
+        over the TPOT target — shrinking the multiprogramming level
+        recovers the resident streams instead of letting every one miss.
+        An idle scheduler always admits (no deadlock), and an admit that
+        outranks every resident (the preemption class) still lands."""
+        if self.tpot_slo_ms <= 0.0:
+            return False
+        with self._stats_lock:
+            ewma_ms = self._tpot_ewma_s * 1000.0
+        if ewma_ms <= self.tpot_slo_ms:
+            return False
+        if self._occupied() == 0:
+            return False
+        max_resident = max(
+            (s.req.priority for s in self._slots if s is not None),
+            default=-1,
+        )
+        if head.priority > max_resident:
+            return False
+        self._bump(tpot_throttle_ticks=1)
+        return True
+
     def _map_pages(self, idx: int, slot: _Slot) -> bool:
-        """Build the slot's table row, sharing what the radix tree holds:
-        pin matched full pages, copy the partly filled boundary page,
-        allocate the rest (evicting cold pages).  Returns False when the
-        pool cannot cover the row."""
+        """Build the slot's page-table row, sharing what the radix tree
+        already holds.
+
+        A prefix hit pins the matched full pages in place and maps them;
+        the partially-filled boundary page is copy-on-write'd so shared
+        tokens are never overwritten; the remainder is freshly allocated,
+        evicting cold unpinned pages if the pool is full.  A failed or
+        corrupted lookup (fault site ``kv_pages.lookup``) degrades to a
+        full prefill with zero sharing — identical output bytes, just no
+        savings.  Returns False when the pool can't cover the row even
+        after eviction (the caller defers admission)."""
         plan = self.plan
         pool = self._pool
         shared: List[int] = []
@@ -212,6 +1152,7 @@ class ContinuousScheduler:
         kv_shared = 0
         if self._radix is not None:
             try:
+                fault_point("kv_pages.lookup", tokens=slot.plen)
                 match = self._radix.match(slot.ids[:slot.plen])
                 shared = list(match.pages)
                 kv_shared = match.tokens
@@ -219,32 +1160,46 @@ class ContinuousScheduler:
                     cow_src = match.partial_phys
             except Exception:  # noqa: BLE001 — cache-miss semantics
                 shared, cow_src, kv_shared = [], None, 0
-                self._prefix["fallbacks"] += 1
-        bp = len(shared)
+                with self._stats_lock:
+                    self._prefix["fallbacks"] += 1
+                get_telemetry().count("serving.prefix_lookup_fallback")
+        bp = len(shared)  # slot-local index of the first private page
         for phys in shared:
             pool.pin(phys)
         if cow_src is not None:
-            pool.pin(cow_src)
+            pool.pin(cow_src)  # protect the CoW source from eviction
         needed = plan.pages_per_slot - bp
         if pool.free_count < needed and self._radix is not None:
-            self._prefix["evictions"] += self._radix.evict(
-                pool, needed - pool.free_count)
+            evicted = self._radix.evict(pool, needed - pool.free_count)
+            if evicted:
+                with self._stats_lock:
+                    self._prefix["evictions"] += evicted
         fresh = pool.alloc(needed)
         if fresh is None and (shared or cow_src is not None):
-            # The match pins exactly what eviction would need: drop it and
-            # retry as a full prefill (same bytes, no savings).
+            # The match itself is starving the pool: its pinned shared/CoW
+            # pages are exactly what eviction would have to free, while
+            # the row still needs ``pages_per_slot - bp`` fresh pages — on
+            # a pool sized to one slot that demand can never be met, and
+            # the admit would defer forever.  Drop the match and retry as
+            # a full no-sharing prefill: identical bytes, just no savings.
             for phys in shared:
                 pool.unpin(phys)
             if cow_src is not None:
                 pool.unpin(cow_src)
-            shared, cow_src, kv_shared, bp = [], None, 0, 0
+            shared, cow_src, kv_shared = [], None, 0
+            bp = 0
             needed = plan.pages_per_slot
             if pool.free_count < needed and self._radix is not None:
-                self._prefix["evictions"] += self._radix.evict(
-                    pool, needed - pool.free_count)
+                evicted = self._radix.evict(
+                    pool, needed - pool.free_count
+                )
+                if evicted:
+                    with self._stats_lock:
+                        self._prefix["evictions"] += evicted
             fresh = pool.alloc(needed)
             if fresh is not None:
-                self._prefix["fallbacks"] += 1
+                with self._stats_lock:
+                    self._prefix["fallbacks"] += 1
         if fresh is None:
             for phys in shared:
                 pool.unpin(phys)
@@ -258,101 +1213,506 @@ class ContinuousScheduler:
         slot.pages = row
         slot.kv_shared = kv_shared
         if cow_src is not None:
-            self.caches = self.runtime.copy_page(self.caches, cow_src, row[bp])
+            self.caches = self.runtime.copy_page(
+                self.caches, cow_src, row[bp])
             pool.unpin(cow_src)
-        # Skip fully shared chunks; the boundary chunk and the last chunk
-        # always run, so the first token comes from the same computation
-        # as a cold prefill.
+        # Skip the fully-shared prefill chunks.  The boundary chunk reruns
+        # (rows below kv_shared recompute to identical bytes; rows at or
+        # above it land in the CoW/fresh pages), and the final chunk always
+        # runs, so the first-token logits come from the same program and
+        # inputs as a cold prefill — byte-identical greedy tokens.
         C = plan.prefill_chunk
         eff = min(kv_shared, max(slot.plen, 1) - 1)
         slot.next_chunk = (eff // C) * C
         slot.skipped = slot.next_chunk // C
-        p = self._prefix
-        p["lookups"] += 1
-        p["hits"] += int(kv_shared > 0)
-        p["tokens_shared"] += kv_shared
-        p["pages_shared"] += bp
-        p["chunks_skipped"] += slot.skipped
-        p["fresh_pages"] += len(fresh)
-        p["cow_copies"] += int(cow_src is not None)
+        with self._stats_lock:
+            self._prefix["lookups"] += 1
+            if kv_shared > 0:
+                self._prefix["hits"] += 1
+            self._prefix["tokens_shared"] += kv_shared
+            self._prefix["pages_shared"] += bp
+            self._prefix["chunks_skipped"] += slot.skipped
+            self._prefix["fresh_pages"] += len(fresh)
+            if cow_src is not None:
+                self._prefix["cow_copies"] += 1
         return True
 
     def _adopt(self, slot: _Slot) -> None:
-        """Offer a completed prefill's prompt pages to the radix tree."""
+        """Offer a completed prefill's prompt pages to the radix tree so
+        future prompts can share them; runs already cached aren't
+        re-adopted (the slot's duplicates free on completion)."""
         try:
             n = min(slot.plen, self.plan.prompt_region)
             adopted = self._radix.insert(slot.ids[:n], slot.pages, self._pool)
         except Exception:  # noqa: BLE001 — cache trouble must not fail a request
             return
-        self._prefix["adopted_pages"] += adopted
+        if adopted:
+            with self._stats_lock:
+                self._prefix["adopted_pages"] += adopted
+
+    # -------------------------------------------------------- checkpoints
+
+    def _checkpoint(self, idx: int, slot: _Slot) -> None:
+        """Snapshot one resident slot's decode state for O(1) resume.
+
+        Paged: pin the slot's page-table row once more — the checkpoint's
+        own refcount, so adoption/eviction/slot-release can't recycle the
+        pages under it.  Monolithic: copy the slot's KV rows into
+        stand-alone device buffers (``slots.snapshot``; no host readback).
+        Replacing an existing checkpoint for the same request releases the
+        stale one first; the registry is LRU-bounded so orphans (a client
+        that never resubmits a failed id) can't pin memory forever.
+        """
+        pre_t0 = time.perf_counter()
+        key = _ckpt_key(slot.req.id)
+        old = self._ckpts.pop(key, None)
+        if old is not None:
+            self._release_ckpt(old)
+        ck = _Checkpoint(key, slot)
+        if self.paged:
+            self._pool.pin_row(slot.pages)
+            ck.pages = list(slot.pages)
+        else:
+            ck.kv = self.runtime.snapshot_slot(self.caches, idx)
+        self._ckpts[key] = ck
+        while len(self._ckpts) > self._ckpt_limit:
+            _, evicted = self._ckpts.popitem(last=False)
+            self._release_ckpt(evicted)
+        self._bump(checkpoints_taken=1)
+        get_telemetry().count("serving.checkpoints_taken")
+        self._led_preempt_s += time.perf_counter() - pre_t0
+
+    def _release_ckpt(self, ck: _Checkpoint) -> None:
+        """Drop a checkpoint's KV hold (unpin the row / free the copy)."""
+        if ck.pages is not None and self._pool is not None:
+            self._pool.unpin_row(ck.pages)
+        ck.pages = None
+        ck.kv = None
+        self._bump(checkpoints_released=1)
+
+    def _drop_ckpt_for(self, req: ServeRequest) -> None:
+        """A settled request never resumes — release its checkpoint."""
+        if not self._ckpts:
+            return
+        ck = self._ckpts.pop(_ckpt_key(req.id), None)
+        if ck is not None:
+            self._release_ckpt(ck)
+
+    def _resume(self, idx: int, req: ServeRequest, ck: _Checkpoint) -> None:
+        """Re-enter decode from a checkpoint in O(1) — zero prefill chunks.
+
+        Paged: write the checkpointed row back into the table; the
+        checkpoint's page pins transfer to the slot (the release path
+        unpins exactly once either way).  Monolithic: ``slots.restore``
+        writes the KV copy into the granted slot — any slot, the layout
+        is slot-index independent.  Greedy decode then continues from the
+        checkpointed step/carry/done, so the remaining tokens are
+        byte-identical to an undisturbed run.
+        """
+        pre_t0 = time.perf_counter()
+        slot = _Slot(req, ck.ids, ck.plen, ck.budget)
+        slot.tokens = list(ck.tokens)
+        slot.steps = ck.steps
+        slot.carry = ck.carry
+        slot.done = ck.done
+        slot.t_first = ck.t_first
+        slot.next_chunk = -1  # fully prefilled: straight to decode
+        slot.active = True
+        chunks = len(self.runtime.prompt_chunks(ck.plen))
+        slot.skipped = chunks
+        if self.paged:
+            row = list(ck.pages)
+            ck.pages = None  # pins transfer to the slot — no unpin here
+            self._table[idx] = np.asarray(row, np.int32)
+            slot.pages = row
+            slot.kv_shared = ck.plen
+            with self._stats_lock:
+                self._prefix["chunks_skipped"] += chunks
+        else:
+            keys, values, length = ck.kv
+            ck.kv = None
+            self.caches = self.runtime.restore_slot(
+                self.caches, keys, values, idx, length)
+        self._slots[idx] = slot
+        self._bump(resumed_o1=1, resume_chunks_skipped=chunks)
+        get_telemetry().count("serving.resumed_o1")
+        self._led_preempt_s += time.perf_counter() - pre_t0
 
     # ------------------------------------------------------------ prefill
 
     def _device_prefill(self, idx: int, slot: _Slot):
-        """One prefill chunk of one slot; the first token stays on the
-        device until every slot of the tick has dispatched."""
+        """One prefill chunk for one slot (the retried/faulted edge).
+
+        Returns the first-token logits argmax as a *device* array —
+        forcing it here would serialize every slot's prefill behind a
+        host readback; the caller batches the readbacks after all
+        mid-prefill slots have dispatched.
+        """
+        fault_point("decode.step", phase="prefill", slot=idx)
         start = slot.next_chunk
         C = self.plan.prefill_chunk
         is_last = start + C >= min(max(slot.plen, 1), self.plan.prompt_region)
-        chunk = torch.as_tensor(slot.ids[start:start + C],
-                                dtype=torch.long).to(self.device)
+        chunk = torch.from_numpy(
+            np.ascontiguousarray(slot.ids[start:start + C])).to(self.device)
         length_after = min(start + C, self.plan.prompt_region)
         last_index = max(0, min(slot.plen - 1 - start, C - 1))
-        caches, first = self.runtime.prefill_chunk(
-            self.caches, self._table[idx], idx, chunk, start, length_after,
-            last_index)
+        if self.paged:
+            caches, first = self.runtime.prefill_chunk(
+                self.caches, self._table[idx], idx, chunk, start,
+                length_after, last_index)
+        else:
+            caches, first = self.runtime.prefill_chunk(
+                self.caches, idx, chunk, start, length_after, last_index)
         return caches, first, is_last
 
     def _prefill_tick(self) -> bool:
+        """Advance every mid-prefill slot by ONE chunk (bounding the
+        latency spike a long prompt injects between decode dispatches)."""
+        tel = get_telemetry()
+        rt = get_reqtrace()
         did = False
-        t0 = time.perf_counter()
-        finishing = []
+        tick_t0 = time.perf_counter()
+        finishing = []  # (idx, slot, first_token_device_array)
         for idx, slot in enumerate(self._slots):
             if slot is None or slot.next_chunk < 0:
                 continue
             did = True
+            rt_t0 = time.time() if rt.enabled else None
+            pf_t0 = time.perf_counter()
             try:
-                caches, first, is_last = self._device_prefill(idx, slot)
-            except Exception as exc:  # noqa: BLE001 — the prompt fails alone
+                with watchdog.watch("decode.dispatch", kind="decode"):
+                    caches, first, is_last = self._retry.call(
+                        self._device_prefill, idx, slot, site="decode.step"
+                    )
+            except Exception as exc:  # noqa: BLE001 — poison isolation
+                self._led_prefill_s += time.perf_counter() - pf_t0
+                # The poison prompt fails ALONE: its slot is freed (and
+                # zeroed) while co-resident slots keep decoding.
                 slot.req.fail("request_failed",
                               f"{type(exc).__name__}: {exc}"[:300])
-                self._stats["failed"] += 1
+                self._bump(failed=1)
+                tel.count("serving.request_failed")
+                self._fanout(slot.req)
                 self._free([idx], zero=True)
                 continue
+            self._led_prefill_s += time.perf_counter() - pf_t0
+            if slot.kv_shared or slot.skipped:
+                self._led_chunks_shared += 1
+            else:
+                self._led_chunks_cold += 1
             self.caches = caches
-            self._stats["prefill_dispatches"] += 1
-            self._stats["prefill_tokens"] += self.plan.prefill_chunk
+            self._bump(prefill_dispatches=1,
+                       prefill_tokens=self.plan.prefill_chunk)
+            if rt.enabled:
+                # Overlapping detail (never in the attribution sum): one
+                # span per prefill chunk dispatch.
+                rt.detail(
+                    slot.req, "prefill.chunk", rt_t0, time.time(),
+                    slot=idx,
+                    chunk=slot.next_chunk // self.plan.prefill_chunk,
+                )
             if is_last:
                 finishing.append((idx, slot, first))
             else:
                 slot.next_chunk += self.plan.prefill_chunk
         if finishing:
-            firsts = torch.stack([f for _, _, f in finishing]).cpu().tolist()
+            pf_t0 = time.perf_counter()
+            # One readback for every slot whose prompt finished this tick.
+            firsts = torch.stack(
+                [f for _, _, f in finishing]).cpu().tolist()
+            self._led_prefill_s += time.perf_counter() - pf_t0
             for (idx, slot, _), first in zip(finishing, firsts):
                 slot.next_chunk = -1
-                if self._radix is not None:
+                if self.paged and self._radix is not None:
                     self._adopt(slot)
+                slot.t_first = time.monotonic()
+                ttft = slot.t_first - slot.req.t_enqueue
+                ttft_miss = (
+                    self.ttft_slo_ms > 0.0
+                    and ttft * 1000.0 > self.ttft_slo_ms
+                )
+                self._ttft.observe(ttft)
+                with self._stats_lock:
+                    self._ttft_ewma_s = (
+                        ttft if self._ttft_ewma_s == 0.0
+                        else 0.8 * self._ttft_ewma_s + 0.2 * ttft
+                    )
+                    if ttft_miss:
+                        self._stats["ttft_slo_misses"] += 1
+                tel.observe("serving.ttft_seconds", ttft,
+                            buckets=_LATENCY_BUCKETS)
+                if rt.enabled:
+                    rt.advance(
+                        slot.req, "prefill", slot=idx,
+                        chunks=len(self.runtime.prompt_chunks(slot.plen))
+                        - slot.skipped,
+                        chunks_skipped=slot.skipped,
+                        kv_shared=slot.kv_shared,
+                        pages=len(slot.pages or ()),
+                    )
+                    if ttft_miss:
+                        rt.keep(slot.req, "ttft_slo_miss")
                 slot.carry = int(first)
                 if slot.carry == self.runtime.eos_id:
-                    self._settle(idx, slot)   # empty generation
+                    # The model's very first token is EOS: empty
+                    # generation, settled without a decode step.
+                    self._settle(idx, slot)
                 else:
                     slot.active = True
         if did:
             if self.device.type == "cuda":
                 # Chunks still queued on the card would be charged to the
-                # next decode dispatch; finish them so prefill_seconds is
-                # the prefill's own time.
+                # next decode dispatch, which waits for them anyway.
                 torch.cuda.synchronize(self.device)
-            self._stats["prefill_seconds"] += time.perf_counter() - t0
+            self._bump(prefill_seconds=time.perf_counter() - tick_t0)
         return did
 
     # ------------------------------------------------------------- decode
 
+    def _upload(self, *arrays: np.ndarray) -> List[torch.Tensor]:
+        """Host int32/bool arrays → device tensors in ONE host-to-device
+        copy (bools travel as int32 and come back as bool)."""
+        flat = np.concatenate([a.astype(np.int32, copy=False).ravel()
+                               for a in arrays])
+        dev = torch.from_numpy(flat).to(self.device)
+        out, at = [], 0
+        for a in arrays:
+            part = dev[at:at + a.size].view(a.shape)
+            out.append(part.bool() if a.dtype == np.bool_ else part)
+            at += a.size
+        return out
+
+    @staticmethod
+    def _download(*tensors: torch.Tensor) -> List[np.ndarray]:
+        """Device tensors → host arrays in ONE device-to-host copy (the
+        dispatch's only host sync)."""
+        flat = torch.cat([t.reshape(-1).to(torch.int32) for t in tensors])
+        host = flat.cpu().numpy()
+        out, at = [], 0
+        for t in tensors:
+            n = t.numel()
+            part = host[at:at + n].reshape(tuple(t.shape))
+            out.append(part.astype(bool) if t.dtype == torch.bool else part)
+            at += n
+        return out
+
+    def _device_decode(self, tokens, plens, steps, budgets, done, active):
+        fault_point("decode.step", phase="decode",
+                    active=int(active.sum()))
+        if self.paged:
+            table, *args = self._upload(self._table, tokens, plens, steps,
+                                        budgets, done, active)
+            return self.runtime.decode_step(self.caches, table, *args)
+        return self.runtime.decode_step(
+            self.caches,
+            *self._upload(tokens, plens, steps, budgets, done, active))
+
     def _decode_tick(self) -> bool:
-        occupied = [(i, s) for i, s in enumerate(self._slots)
-                    if s is not None and s.active]
+        occupied = [
+            (i, s) for i, s in enumerate(self._slots)
+            if s is not None and s.active
+        ]
         if not occupied:
             return False
+        if self.speculate_k > 0:
+            K = self.speculate_k + 1
+            # A verify dispatch writes K KV rows from every participating
+            # slot's step, so a slot within K rows of the decode region's
+            # end (the last k steps of a max_new-budget generation) can't
+            # take the block write without clobbering committed rows —
+            # those rare ticks run the plain program instead, byte-
+            # identical either way.
+            if all(s.steps + K <= self.plan.max_new for _, s in occupied):
+                try:
+                    fault_point("spec.draft", active=len(occupied),
+                                k=self.speculate_k)
+                    drafts = {i: self._draft(s) for i, s in occupied}
+                except Exception:  # noqa: BLE001 — degrade to plain decode
+                    # A broken drafter costs this tick's speedup, never a
+                    # token: the plain program commits the carry exactly
+                    # as non-speculative decode would.
+                    with self._stats_lock:
+                        self._spec["fallbacks"] += 1
+                    get_telemetry().count("serving.spec_fallbacks")
+                else:
+                    if any(drafts.values()):
+                        return self._verify_tick(occupied, drafts)
+                    # Every slot declined to draft (streams currently
+                    # unpredictable): the 1-step plain program commits
+                    # the same carries at a fraction of the k+1-step
+                    # verify cost.
+            with self._stats_lock:
+                self._spec["plain_ticks"] += 1
+        return self._plain_decode_tick(occupied)
+
+    def _draft(self, s: _Slot) -> List[int]:
+        """Propose draft tokens for one slot.
+
+        The per-slot draft cache is the memoized prompt+emitted+carry
+        stream (invalidated by plain-tick commits, extended in place by
+        verify commits); the slot's acceptance EWMA adapts the proposed
+        depth inside the fixed ``k+1`` block shape — fewer drafts for a
+        slot that keeps rejecting, back to full depth as acceptance
+        recovers, at one fixed block shape.
+        """
+        if s.hist is None:
+            s.hist = [int(t) for t in s.ids[:s.plen]]
+            s.hist.extend(s.tokens)
+            s.hist.append(s.carry)
+        if s.accept_ewma < _SPECULATE_EWMA_MIN:
+            # The stream is currently unpredictable: a k+1-step verify
+            # dispatch would net barely more than the 1-step plain
+            # program at k+1 times the device cost.  Proposing nothing
+            # lets the tick degrade to plain decode; a depth-1 probe
+            # every few ticks re-measures the stream so the EWMA can
+            # climb back once it turns repetitive.
+            s.probe += 1
+            if s.probe < _PROBE_EVERY_TICKS:
+                return []
+            s.probe = 0
+            depth = 1
+        else:
+            depth = max(1, min(
+                self.speculate_k,
+                int(round(self.speculate_k * s.accept_ewma)),
+            ))
+        # Tokens past the slot's budget can never commit — don't draft
+        # them (the commit-side clamp would discard them anyway).
+        depth = min(depth, s.budget - s.steps - 1)
+        if depth <= 0:
+            return []
+        return _draft_from_history(s.hist, depth)
+
+    def _device_verify(self, tokens_blk, plens, steps):
+        fault_point("decode.step", phase="verify", k=self.speculate_k)
+        if self.paged:
+            table, *args = self._upload(self._table, tokens_blk, plens, steps)
+            return self.runtime.verify_block(self.caches, table, *args)
+        return self.runtime.verify_block(
+            self.caches, *self._upload(tokens_blk, plens, steps))
+
+    def _verify_tick(self, occupied, drafts: Dict[int, List[int]]) -> bool:
+        """One speculative decode tick: score every slot's carry+drafts
+        block in a single verify dispatch, commit each slot's longest
+        accepted prefix plus the first-mismatch correction token.
+
+        Acceptance is exact equality against the device argmax under the
+        same committed context, and the correction token is that argmax
+        itself — so every committed token equals what plain stepping
+        would have produced, and every dispatch nets >= 1 token per
+        participating slot (the carry always commits).
+        """
+        tel = get_telemetry()
+        n = self.plan.n_slots
+        K = self.speculate_k + 1
+        tokens_blk = np.zeros((n, K), np.int32)
+        plens = np.zeros(n, np.int32)
+        steps = np.zeros(n, np.int32)
+        for i, s in occupied:
+            tokens_blk[i, 0] = s.carry
+            for j, t in enumerate(drafts.get(i) or ()):
+                tokens_blk[i, 1 + j] = t
+            plens[i] = s.plen
+            steps[i] = s.steps
+        t0 = time.perf_counter()
+        try:
+            with watchdog.watch("decode.dispatch", kind="decode"):
+                caches, preds = self._retry.call(
+                    self._device_verify, tokens_blk, plens, steps,
+                    site="decode.step",
+                )
+            (preds,) = self._download(preds)
+        except Exception as exc:  # noqa: BLE001 — the loop must survive
+            detail = f"{type(exc).__name__}: {exc}"[:300]
+            for i, s in occupied:
+                s.req.fail("request_failed", detail)
+                self._fanout(s.req)
+            self._bump(failed=len(occupied))
+            tel.count("serving.request_failed", len(occupied))
+            self._free([i for i, _ in occupied], zero=True)
+            return True
+        decode_s = time.perf_counter() - t0
+        self.caches = caches
+        occ = len(occupied) / n
+        eos = self.runtime.eos_id
+        committed = drafted_total = accepted_total = 0
+        rates: List[float] = []
+        freed: List[int] = []
+        for i, s in occupied:
+            d = drafts.get(i) or []
+            row = preds[i]
+            acc = 0
+            while acc < len(d) and d[acc] == int(row[acc]):
+                acc += 1
+            # Longest accepted prefix + budget freeze: never commit past
+            # the slot's budget, and the carry always commits (>= 1).
+            emit_n = min(acc + 1, s.budget - s.steps)
+            emitted = ([s.carry] + d)[:emit_n]
+            s.tokens.extend(emitted)
+            s.steps += emit_n
+            new_carry = int(row[emit_n - 1])
+            if s.hist is not None:
+                # The cache's tail was the old carry (= emitted[0]):
+                # extend with the rest of the block and the new carry.
+                s.hist.extend(emitted[1:])
+                s.hist.append(new_carry)
+            s.carry = new_carry
+            if d:
+                rate = acc / len(d)
+                s.accept_ewma = 0.8 * s.accept_ewma + 0.2 * rate
+                rates.append(rate)
+                drafted_total += len(d)
+                accepted_total += acc
+                tt = s.req.meta.get("trace_t")
+                if tt is not None:
+                    # Per-request speculation outcome (settle attaches it
+                    # to the decode phase's attributes).
+                    tt["spec_drafted"] = tt.get("spec_drafted", 0) + len(d)
+                    tt["spec_accepted"] = tt.get("spec_accepted", 0) + acc
+            committed += emit_n
+            saw_eos = eos in emitted
+            if saw_eos:
+                s.done = True
+            if saw_eos or s.steps >= s.budget:
+                freed.append(i)
+        with self._stats_lock:
+            self._stats["decode_dispatches"] += 1
+            self._stats["decode_seconds"] += decode_s
+            self._stats["decode_steps"] += tokens_blk.shape[1]
+            self._stats["tokens_generated"] += committed
+            self._occupancy.observe(occ)
+            self._spec["dispatches"] += 1
+            self._spec["drafted"] += drafted_total
+            self._spec["accepted"] += accepted_total
+            self._spec["tokens_committed"] += committed
+            for rate in rates:
+                self._accept_hist.observe(rate)
+            self._block_hist.observe(committed / len(occupied))
+        # Ledger attribution: the verify dispatch's useful slice is the
+        # committed-token fraction of the [n_occupied, k+1] block; the
+        # rest of the measured device time is drafted-but-rejected work.
+        self._led_decode_s += decode_s
+        self._led_committed += committed
+        self._led_useful_frac = committed / max(
+            1, len(occupied) * tokens_blk.shape[1]
+        )
+        self._rates["tokens_s"].mark(committed)
+        tel.observe("serving.slot_occupancy", occ,
+                    buckets=_OCCUPANCY_BUCKETS)
+        if self.checkpoint_interval > 0:
+            with self._stats_lock:
+                dispatches = self._stats["decode_dispatches"]
+            if dispatches % self.checkpoint_interval == 0:
+                settling = set(freed)
+                for i, s in occupied:
+                    if i not in settling:
+                        self._checkpoint(i, s)
+        for i in freed:
+            self._settle(i, self._slots[i])
+        return True
+
+    def _plain_decode_tick(self, occupied) -> bool:
+        tel = get_telemetry()
         n = self.plan.n_slots
         tokens = np.zeros(n, np.int32)
         plens = np.zeros(n, np.int32)
@@ -361,41 +1721,73 @@ class ContinuousScheduler:
         done = np.zeros(n, bool)
         active = np.zeros(n, bool)
         for i, s in occupied:
-            tokens[i], plens[i], steps[i] = s.carry, s.plen, s.steps
-            budgets[i], done[i], active[i] = s.budget, s.done, True
+            tokens[i] = s.carry
+            plens[i] = s.plen
+            steps[i] = s.steps
+            budgets[i] = s.budget
+            done[i] = s.done
+            active[i] = True
         t0 = time.perf_counter()
-        dev = self.device
         try:
-            caches, tok_out, steps_out, done_out, emitted = (
-                self.runtime.decode_step(
-                    self.caches, torch.from_numpy(self._table).to(dev),
-                    *(torch.from_numpy(a).to(dev)
-                      for a in (tokens, plens, steps, budgets, done, active))))
-            emitted, tok_out, steps_out, done_out = (
-                t.cpu().numpy() for t in (emitted, tok_out, steps_out, done_out))
-        except Exception as exc:  # noqa: BLE001 — every resident fails, the loop lives
+            with watchdog.watch("decode.dispatch", kind="decode"):
+                caches, tok_out, steps_out, done_out, emitted = (
+                    self._retry.call(
+                        self._device_decode, tokens, plens, steps, budgets,
+                        done, active, site="decode.step",
+                    )
+                )
+            # One batched D2H readback instead of four serialized ones.
+            emitted, tok_out, steps_out, done_out = self._download(
+                emitted, tok_out, steps_out, done_out)
+        except Exception as exc:  # noqa: BLE001 — the loop must survive
+            # Persistent decode failure: every in-flight request gets a
+            # structured error; the slots are freed; the server lives on.
             detail = f"{type(exc).__name__}: {exc}"[:300]
             for i, s in occupied:
                 s.req.fail("request_failed", detail)
-            self._stats["failed"] += len(occupied)
+                self._fanout(s.req)
+            self._bump(failed=len(occupied))
+            tel.count("serving.request_failed", len(occupied))
             self._free([i for i, _ in occupied], zero=True)
             return True
+        decode_s = time.perf_counter() - t0
         self.caches = caches
-        self._stats["decode_seconds"] += time.perf_counter() - t0
-        self._stats["decode_dispatches"] += 1
-        self._stats["decode_steps"] += self.plan.decode_span
+        occ = len(occupied) / n
+        with self._stats_lock:
+            self._stats["decode_dispatches"] += 1
+            self._stats["decode_seconds"] += decode_s
+            self._stats["decode_steps"] += self.plan.decode_span
+            self._occupancy.observe(occ)
+        tel.observe("serving.slot_occupancy", occ,
+                    buckets=_OCCUPANCY_BUCKETS)
         freed: List[int] = []
+        emitted_total = 0
         for i, s in occupied:
             emitted_n = int(steps_out[i]) - s.steps
             s.tokens.extend(int(t) for t in emitted[:emitted_n, i])
             s.steps = int(steps_out[i])
             s.carry = int(tok_out[i])
             s.done = bool(done_out[i])
-            self._stats["tokens_generated"] += emitted_n
-            saw_eos = (emitted_n > 0
-                       and self.runtime.eos_id in s.tokens[-emitted_n:])
+            s.hist = None  # draft cache is stale once the carry moved
+            emitted_total += emitted_n
+            self._bump(tokens_generated=emitted_n)
+            saw_eos = emitted_n > 0 and self.runtime.eos_id in s.tokens[-emitted_n:]
             if saw_eos or s.steps >= s.budget:
                 freed.append(i)
+        self._led_decode_s += decode_s
+        self._led_committed += emitted_total
+        self._rates["tokens_s"].mark(emitted_total)
+        # Periodic checkpoint tick: refresh still-running slots so a
+        # later failure loses at most ``checkpoint_interval`` dispatches
+        # of work — a resubmitted id resumes from here, not the prompt.
+        if self.checkpoint_interval > 0:
+            with self._stats_lock:
+                dispatches = self._stats["decode_dispatches"]
+            if dispatches % self.checkpoint_interval == 0:
+                settling = set(freed)
+                for i, s in occupied:
+                    if i not in settling:
+                        self._checkpoint(i, s)
         for i in freed:
             self._settle(i, self._slots[i])
         return True
@@ -403,74 +1795,363 @@ class ContinuousScheduler:
     # ------------------------------------------------------------- settle
 
     def _settle(self, idx: int, slot: _Slot) -> None:
-        """Reply with the generated text and its label; free the slot."""
+        """Emit the reply, record TTFT/TPOT, free the slot."""
+        tel = get_telemetry()
         eos = self.runtime.eos_id
         toks = slot.tokens
         if eos in toks:
             toks = toks[:toks.index(eos)]
         toks = toks[:slot.budget]
         text = self.backend.tokenizer.decode(toks)
+        now = time.monotonic()
+        tpot_miss = False
+        if slot.t_first is not None and len(toks) > 1:
+            tpot = (now - slot.t_first) / (len(toks) - 1)
+            tpot_miss = (
+                self.tpot_slo_ms > 0.0 and tpot * 1000.0 > self.tpot_slo_ms
+            )
+            self._tpot.observe(tpot)
+            with self._stats_lock:
+                self._tpot_ewma_s = (
+                    tpot if self._tpot_ewma_s == 0.0
+                    else 0.8 * self._tpot_ewma_s + 0.2 * tpot
+                )
+                led = self._tenant_ledger(slot.req.tenant)
+                prev_ms = led.get("tpot_ewma_ms", 0.0)
+                tpot_ms = tpot * 1000.0
+                led["tpot_ewma_ms"] = round(
+                    tpot_ms if prev_ms == 0.0
+                    else 0.8 * prev_ms + 0.2 * tpot_ms, 6
+                )
+                if tpot_miss:
+                    self._stats["tpot_slo_misses"] += 1
+            tel.observe("serving.tpot_seconds", tpot,
+                        buckets=_TOKEN_BUCKETS)
+        rt = get_reqtrace()
+        if rt.enabled:
+            # Close the decode phase BEFORE succeed() stamps the settle
+            # clock (the complete() hook), so the cursor partition stays
+            # contiguous: ... decode | commit | reply.
+            tt = slot.req.meta.get("trace_t") or {}
+            attrs: Dict[str, Any] = {
+                "slot": idx, "tokens": len(toks), "steps": slot.steps,
+            }
+            if "spec_drafted" in tt:
+                attrs["spec_drafted"] = tt["spec_drafted"]
+                attrs["spec_accepted"] = tt.get("spec_accepted", 0)
+            rt.advance(slot.req, "decode", **attrs)
+            if tpot_miss:
+                rt.keep(slot.req, "tpot_slo_miss")
         slot.req.succeed(
             text=text,
             label=normalise_label(text) if text.strip() else "Neutral",
             tokens=len(toks),
         )
-        self._stats["completed"] += 1
+        self._bump(completed=1)
+        with self._stats_lock:
+            self._tenant_ledger(slot.req.tenant)["completed"] += 1
+            if slot.req.meta.get("preempted"):
+                self._stats["resumed"] += 1
+        tel.count("serving.decode_completed")
+        tel.observe("serving.request_seconds", now - slot.req.t_enqueue,
+                    buckets=_LATENCY_BUCKETS)
+        self._drop_ckpt_for(slot.req)
+        self._fanout(slot.req)
         self._free([idx])
 
     def _free(self, indices: List[int], zero: bool = False) -> None:
-        """Release slots: unpin their pages and point their table rows at
-        the trash page.  Normal completion needs no device work (prefill
-        overwrites every prompt row it attends to, decode writes a row
-        before reading it, the rest is masked); ``zero=True`` (failure
-        paths) also zeroes the pages the slot owned alone."""
+        """Release slots for reuse.
+
+        Normal completion is host-only: the next occupant's prefill
+        overwrites every prompt row it will attend to, the decode step
+        overwrites row ``R + t`` before attending to it, and everything
+        else is masked to an exact-zero attention contribution — so the
+        device zeroing is semantically redundant (the continuous-vs-
+        static byte-identity tests run *with* slot reuse).  Failure
+        paths pass ``zero=True`` to hard-zero a poisoned slot's rows via
+        ``free_slots`` / ``free_pages`` anyway: after a fault nothing about
+        the slot's contents is trusted, including the invariants above.
+
+        Paged: completion additionally unpins the slot's pages (shared
+        pages stay resident for the radix tree; exclusively-owned pages
+        return to the free list) and points the table row back at the
+        trash page.  The failure path hard-zeroes only pages the slot
+        owned exclusively — shared/tree pages hold prompt KV written by
+        prefill dispatches that *succeeded*, and decode never writes
+        below ``prompt_region``.
+        """
         mask = np.zeros(self.plan.n_slots, bool)
         released: List[int] = []
         for i in indices:
             mask[i] = True
             slot = self._slots[i]
-            if slot is not None and slot.pages is not None:
+            if self.paged and slot is not None and slot.pages is not None:
                 released.extend(slot.pages)
                 self._table[i] = self.plan.trash_page
             self._slots[i] = None
-        pool = self._pool
-        for phys in released:
-            pool.unpin(phys)
-        if zero:
-            page_mask = np.zeros(self.plan.n_pages + 1, bool)
+        if self.paged:
+            pool = self._pool
             for phys in released:
-                if pool.slot_refs[phys] == 0 and not pool.in_tree[phys]:
-                    page_mask[phys] = True
-            dev = self.device
-            self.caches = self.runtime.free_pages(
-                self.caches, torch.from_numpy(page_mask).to(dev),
-                torch.from_numpy(mask).to(dev))
+                pool.unpin(phys)
+            if zero:
+                page_mask = np.zeros(self.plan.n_pages + 1, bool)
+                for phys in released:
+                    if pool.slot_refs[phys] == 0 and not pool.in_tree[phys]:
+                        page_mask[phys] = True
+                self.caches = self.runtime.free_pages(
+                    self.caches, *self._upload(page_mask, mask))
+            return
+        if zero:
+            (mask_dev,) = self._upload(mask)
+            self.caches = self.runtime.free_slots(self.caches, mask_dev)
 
     # ----------------------------------------------------------- readouts
 
+    def _publish_gauges(self) -> None:
+        tel = get_telemetry()
+        active = sum(
+            1 for s in self._slots if s is not None and s.active
+        )
+        prefilling = sum(
+            1 for s in self._slots if s is not None and s.next_chunk >= 0
+        )
+        with self._cond:
+            backlog = len(self._queue) + prefilling
+        tel.gauge("serving.decode.active_slots", active)
+        tel.gauge("serving.decode.free_slots",
+                  self.plan.n_slots - self._occupied())
+        tel.gauge("serving.decode.prefill_backlog", backlog)
+        if self.paged:
+            tel.gauge("serving.decode.pages_free", self._pool.free_count)
+
     def stats(self) -> Dict[str, Any]:
-        """Counters, geometry and the prefix cache's effect."""
-        plan = self.plan
-        out: Dict[str, Any] = dict(self._stats)
+        """JSON-able snapshot for the ``stats`` control op, the manifest's
+        ``serving.decode`` section, and the ``continuous`` bench suite."""
+        with self._stats_lock:
+            out: Dict[str, Any] = dict(self._stats)
+            ttft = self._ttft.as_dict()
+            tpot = self._tpot.as_dict()
+            occ = self._occupancy.as_dict()
+            spec = dict(self._spec)
+            accept_hist = self._accept_hist.as_dict()
+            block_hist = self._block_hist.as_dict()
+        with self._cond:
+            backlog = len(self._queue)
+        active = sum(1 for s in self._slots if s is not None and s.active)
+        prefilling = sum(
+            1 for s in self._slots if s is not None and s.next_chunk >= 0
+        )
+        decode_s = out.pop("decode_seconds")
+        out["prefill_seconds"] = round(out["prefill_seconds"], 6)
         out.update(
-            n_slots=plan.n_slots, prefill_chunk=plan.prefill_chunk,
-            prompt_region=plan.prompt_region, max_new_tokens=plan.max_new,
-            decode_span=plan.decode_span, page_size=plan.page_size,
-            kv_pages=plan.n_pages, pages_per_slot=plan.pages_per_slot,
-            kv_backend="paged", kv_quant=self.kv_quant,
-            active_slots=sum(1 for s in self._slots if s is not None and s.active),
-            free_slots=plan.n_slots - self._occupied(),
-            pool_bytes=self.runtime.pool_bytes(),
+            n_slots=self.plan.n_slots,
+            prefill_chunk=self.plan.prefill_chunk,
+            prompt_region=self.plan.prompt_region,
+            max_new_tokens=self.plan.max_new,
+            decode_span=self.plan.decode_span,
+            active_slots=active,
+            free_slots=self.plan.n_slots - self._occupied(),
+            prefill_backlog=backlog + prefilling,
+            decode_seconds=round(decode_s, 6),
+            tokens_per_s=(
+                round(out["tokens_generated"] / decode_s, 3)
+                if decode_s > 0 else None
+            ),
+            ttft=ttft,
+            tpot=tpot,
+            slot_occupancy_hist=occ,
+            compiled_variants=self.runtime.compiled_variants(),
+            warmup=self._warmup_record,
+            kv_backend="paged" if self.paged else "slots",
+            checkpoint_interval=self.checkpoint_interval,
+            checkpoints_live=len(self._ckpts),
+            rates={
+                "window_s": self._rates["req_s"].tau_s,
+                "req_s": self._rates["req_s"].rate(),
+                "tokens_s": self._rates["tokens_s"].rate(),
+                "shed_s": self._rates["shed_s"].rate(),
+            },
         )
-        prefix = dict(self._prefix)
-        lookups, hits = prefix["lookups"], prefix["hits"]
-        prefix.update(
-            enabled=self._radix is not None,
-            misses=lookups - hits,
-            hit_rate=round(hits / lookups, 4) if lookups else None,
-            bytes_saved=prefix["tokens_shared"] * self.runtime.kv_token_bytes(),
-            tree_pages=self._radix.page_count() if self._radix is not None else 0,
-            pages_free=self._pool.free_count,
+        out["ttft_ewma_ms"] = round(self._ttft_ewma_s * 1000.0, 3)
+        out["tpot_ewma_ms"] = round(self._tpot_ewma_s * 1000.0, 3)
+        spec.update(
+            enabled=self.speculate_k > 0,
+            k=self.speculate_k,
+            acceptance_rate=(
+                round(spec["accepted"] / spec["drafted"], 4)
+                if spec["drafted"] else None
+            ),
+            accepted_tokens_per_dispatch=(
+                round(spec["tokens_committed"] / spec["dispatches"], 4)
+                if spec["dispatches"] else None
+            ),
+            acceptance_rate_hist=accept_hist,
+            accepted_tokens_hist=block_hist,
         )
-        out["prefix_cache"] = prefix
+        out["speculation"] = spec
+        if self.paged:
+            plan = self.plan
+            with self._stats_lock:
+                prefix = dict(self._prefix)
+            lookups = prefix["lookups"]
+            hits = prefix["hits"]
+            page_bytes = self.runtime.page_bytes()
+            prefix.update(
+                enabled=self._radix is not None,
+                misses=lookups - hits,
+                hit_rate=round(hits / lookups, 4) if lookups else None,
+                bytes_saved=(
+                    prefix["tokens_shared"] * self.runtime.kv_token_bytes()
+                ),
+                tree_pages=(
+                    self._radix.page_count() if self._radix is not None else 0
+                ),
+                pages_free=self._pool.free_count,
+                # Private HBM footprint one admitted sequence actually
+                # cost, vs the unshared pages_per_slot * page_bytes.
+                hbm_bytes_per_seq=(
+                    round(prefix["fresh_pages"] * page_bytes / lookups)
+                    if lookups else None
+                ),
+                hbm_bytes_per_seq_unshared=plan.pages_per_slot * page_bytes,
+            )
+            # KV quantization accounting: the pool's resident bytes under
+            # the active scheme vs the bf16 layout it replaces.  The
+            # byte counters above (kv_token_bytes / page_bytes /
+            # hbm_bytes_per_seq) are already scheme-aware — int8 counts
+            # codes plus the per-(page, row) f32 scales.
+            pool_bytes = self.runtime.pool_bytes()
+            unq_ratio = (
+                self.runtime.kv_token_bytes_unquantized()
+                / self.runtime.kv_token_bytes()
+            )
+            pool_unq = round(pool_bytes * unq_ratio)
+            out.update(
+                page_size=plan.page_size,
+                kv_pages=plan.n_pages,
+                pages_per_slot=plan.pages_per_slot,
+                page_bytes=page_bytes,
+                prefix_cache=prefix,
+                kv_quant={
+                    "scheme": self.kv_quant,
+                    "degraded": self._kv_quant_degraded,
+                    "pool_bytes": pool_bytes,
+                    "pool_bytes_unquantized": pool_unq,
+                    "bytes_saved": pool_unq - pool_bytes,
+                    "hbm_bytes_per_seq": (
+                        plan.pages_per_slot * page_bytes
+                    ),
+                    "hbm_bytes_per_seq_unquantized": round(
+                        plan.pages_per_slot * page_bytes * unq_ratio
+                    ),
+                    "compression": round(unq_ratio, 4),
+                },
+            )
+        # Engine goodput ledger: per-tick wall-time attribution +
+        # occupancy + per-tenant chip-seconds (manifest
+        # ``serving.decode.ledger``; flattened counters merge fleet-wide
+        # through the metrics plane's stats-poll ingest).
+        out["ledger"] = self._ledger.snapshot()
+        if self.response_cache is not None:
+            out["response_cache"] = self.response_cache.stats()
         return out
+
+    def _ledger_occupancy_sample(self) -> Dict[str, Any]:
+        """Occupancy snapshot for the ledger: read off the structures
+        that already know the truth (slots, page pool, radix tree, KV
+        byte accounting).  Called at flush/stats time only — never on
+        the per-tick hot path."""
+        active = self._occupied()
+        occ: Dict[str, Any] = {
+            "slots_active": active,
+            "slots_total": self.plan.n_slots,
+            "slot_occupancy": round(active / self.plan.n_slots, 6),
+        }
+        if self.paged and self._pool is not None:
+            pool = self._pool
+            pinned = sum(1 for r in pool.slot_refs if r > 0)
+            shared = sum(1 for r in pool.slot_refs if r > 1)
+            in_tree = sum(1 for t in pool.in_tree if t)
+            # Boundary-page fragmentation: tokens reserved but unfilled
+            # in each occupied slot's last mapped page.
+            P = self.plan.page_size
+            frag = 0
+            for s in self._slots:
+                if s is None or not s.pages:
+                    continue
+                used = min(s.plen + s.steps, len(s.pages) * P)
+                frag += len(s.pages) * P - used
+            occ.update(
+                pages_total=pool.n_pages,
+                pages_free=pool.free_count,
+                pages_pinned=pinned,
+                pages_shared=shared,
+                pages_in_tree=in_tree,
+                boundary_fragmentation_tokens=frag,
+            )
+            if self._radix is not None:
+                occ.update(
+                    radix_nodes=self._radix.node_count(),
+                    radix_pinned_tokens=self._radix.token_count(),
+                )
+            occ.update(
+                kv_pool_bytes=self.runtime.pool_bytes(),
+                kv_pool_bytes_unquantized=round(
+                    self.runtime.pool_bytes()
+                    * self.runtime.kv_token_bytes_unquantized()
+                    / self.runtime.kv_token_bytes()
+                ),
+            )
+        else:
+            kv_bytes = self.runtime.kv_bytes()
+            occ.update(
+                kv_pool_bytes=kv_bytes,
+                kv_pool_bytes_unquantized=kv_bytes,
+            )
+        return occ
+
+    def slo_snapshot(self) -> Dict[str, Any]:
+        """The manifest's ``serving.slo.decode`` contribution: targets,
+        preemption/throttle counters, shed taxonomy, and the per-tenant
+        ledger.  Empty when the SLO layer was neither configured nor
+        exercised (only-when-used, like the batcher's)."""
+        with self._stats_lock:
+            tenants = {t: dict(v) for t, v in self._tenants.items()}
+            sheds = {
+                key: self._stats[key]
+                for key in ("shed_queue_full", "shed_slo_unattainable",
+                            "shed_tenant_budget", "shed_evicted")
+            }
+            counters = {
+                key: self._stats[key]
+                for key in ("preemptions", "preempt_faults", "resumed",
+                            "tpot_throttle_ticks", "ttft_slo_misses",
+                            "tpot_slo_misses")
+            }
+        # Chip-second attribution (engine ledger): what each tenant's
+        # slot share actually cost in engine time — the number the
+        # admission ledgers alone can't provide.
+        chip = self._ledger.chip_seconds()
+        for t, v in tenants.items():
+            v["chip_seconds"] = round(chip.get(t, 0.0), 6)
+        configured = (
+            self.ttft_slo_ms > 0.0 or self.tpot_slo_ms > 0.0
+            or self.tenant_budget > 0.0
+        )
+        exercised = (
+            any(sheds.values()) or any(counters.values())
+            or any(t != DEFAULT_TENANT for t in tenants)
+        )
+        if not configured and not exercised:
+            return {}
+        return {
+            "ttft_slo_ms": self.ttft_slo_ms,
+            "tpot_slo_ms": self.tpot_slo_ms,
+            "tenant_budget_req_s": self.tenant_budget,
+            "default_priority": self.default_priority,
+            "ttft_ewma_ms": round(self._ttft_ewma_s * 1000.0, 3),
+            "tpot_ewma_ms": round(self._tpot_ewma_s * 1000.0, 3),
+            **counters,
+            "sheds": sheds,
+            "tenants": tenants,
+        }

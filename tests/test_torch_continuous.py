@@ -147,10 +147,17 @@ def test_scheduler_sheds_and_refuses_monolithic(pair):
     sched.run_until_idle()
     assert all(r.response["ok"] for r in reqs[:2])
     assert sched.stats()["shed"] == 1
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        _scheduler(tc, n_slots=2, page_size=0)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tc.generate_batch_continuous(PROMPTS, speculate_k=2)
+    # The monolithic slot cache and speculation are ported: both build and
+    # generate (their text against JAX is held in test_torch_kv_slots.py
+    # and test_torch_speculative.py).
+    mono = _scheduler(tc, n_slots=2, page_size=0)
+    assert mono.stats()["kv_backend"] == "slots"
+    assert _run(mono, PROMPTS[:2]) == _run(_scheduler(tc, n_slots=2),
+                                           PROMPTS[:2])
+    assert tc.generate_batch_continuous(
+        PROMPTS, max_new_tokens=8, n_slots=2, prefill_chunk=16,
+        speculate_k=2) == tc.generate_batch_continuous(
+        PROMPTS, max_new_tokens=8, n_slots=2, prefill_chunk=16)
 
 
 @pytest.mark.parametrize("mode", ["score", "generate"])

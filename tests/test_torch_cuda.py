@@ -611,3 +611,114 @@ def test_quantize_array_on_the_card_equals_the_cpu(dev, scheme):
     q_cpu, s_cpu = quant._quantize_rows(x.float())
     q_card, s_card = quant._quantize_rows(x.to(dev).float())
     assert torch.equal(q_card.cpu(), q_cpu) and torch.equal(s_card.cpu(), s_cpu)
+
+
+# ------------------------------------------------------------ serve path
+
+_SERVE_PROMPTS = ["golden sunshine on the river", "rain", "la la la la",
+                  "shadows fall across the empty street tonight",
+                  "my heart beats a broken drum", "ok"]
+
+
+def _serve_llama(dev):
+    from music_analyst_tpu_torch.models.llama import (
+        LlamaConfig,
+        LlamaZeroShotClassifier,
+    )
+
+    return LlamaZeroShotClassifier(
+        config=LlamaConfig.tiny(dim=256, n_heads=2, n_kv_heads=1,
+                                hidden_dim=512),
+        max_prompt_len=64, device=dev)
+
+
+def _serve_run(sched, prompts=_SERVE_PROMPTS, threaded=False):
+    reqs = [sched.submit(i, p) for i, p in enumerate(prompts)]
+    if threaded:
+        sched.start()
+        sched.drain(timeout=120)
+    else:
+        sched.run_until_idle()
+    assert all(r.response["ok"] for r in reqs), [r.response for r in reqs]
+    return [r.response["text"] for r in reqs]
+
+
+def test_speculative_text_equals_plain_on_card(dev):
+    """bf16 on the card: speculative (k = 4) and preempt-free plain decode
+    go through the same paged kernel at the same shapes, so their greedy
+    text is byte-identical; the verify blocks launch the kernel."""
+    from music_analyst_tpu_torch.serving.decode_loop import (
+        ContinuousScheduler,
+    )
+
+    clf = _serve_llama(dev)
+    kw = dict(n_slots=4, prefill_chunk=16, prompt_region=64,
+              max_new_tokens=16)
+    plain = _serve_run(ContinuousScheduler(clf, **kw))
+    sched = ContinuousScheduler(clf, speculate_k=4, **kw)
+    before = kernels.launches()["paged_attention"]
+    assert _serve_run(sched) == plain
+    assert kernels.launches()["paged_attention"] > before
+    assert sched.stats()["speculation"]["dispatches"] > 0
+
+
+def test_paged_verify_block_reproduces_decode_on_card(dev):
+    """A verify block fed the tokens plain decode emitted predicts exactly
+    the tokens plain decode emitted next (the same 1-wide kernel step)."""
+    import numpy as np
+
+    from music_analyst_tpu_torch.serving.decode_loop import (
+        ContinuousScheduler,
+    )
+
+    clf = _serve_llama(dev)
+    sched = ContinuousScheduler(clf, n_slots=4, prefill_chunk=16,
+                                prompt_region=64, max_new_tokens=8,
+                                decode_span=4)
+    for i, p in enumerate(_SERVE_PROMPTS[:4]):
+        sched.submit(i, p)
+    sched._admit()
+    while any(s is not None and s.next_chunk >= 0 for s in sched._slots):
+        sched._prefill_tick()
+    slots = sched._slots
+    n = sched.plan.n_slots
+    carry = np.array([s.carry for s in slots], np.int32)
+    plens = np.array([s.plen for s in slots], np.int32)
+    zeros = np.zeros(n, np.int32)
+    args = sched._upload(sched._table, carry, plens, zeros,
+                         np.full(n, 8, np.int32), np.zeros(n, bool),
+                         np.ones(n, bool))
+    _, _, _, _, emitted = sched.runtime.decode_step(sched.caches, *args)
+    emitted = emitted.cpu().numpy().T                      # [n, span]
+    blk = emitted[:, :4].astype(np.int32)
+    table, blk_d, plens_d, steps_d = sched._upload(sched._table, blk, plens,
+                                                   zeros)
+    _, preds = sched.runtime.verify_block(sched.caches, table, blk_d,
+                                          plens_d, steps_d)
+    preds = preds.cpu().numpy()
+    eos = sched.runtime.eos_id
+    for i in range(n):
+        for j in range(3):
+            if emitted[i, j] == eos:    # decode latches EOS; verify does not
+                break
+            assert preds[i, j] == emitted[i, j + 1], (i, j)
+
+
+def test_threaded_scheduler_and_slot_cache_on_card(dev):
+    """The threaded loop (its own inference_mode and current device) gives
+    the synchronous loop's text; the monolithic slot cache runs on the
+    card through dense attention, without the paged kernel."""
+    from music_analyst_tpu_torch.serving.decode_loop import (
+        ContinuousScheduler,
+    )
+
+    clf = _serve_llama(dev)
+    kw = dict(n_slots=4, prefill_chunk=16, prompt_region=64,
+              max_new_tokens=8)
+    sync = _serve_run(ContinuousScheduler(clf, **kw))
+    assert _serve_run(ContinuousScheduler(clf, **kw), threaded=True) == sync
+    before = kernels.launches()["paged_attention"]
+    slots = _serve_run(ContinuousScheduler(clf, page_size=0, **kw),
+                       threaded=True)
+    assert len(slots) == len(_SERVE_PROMPTS)
+    assert kernels.launches()["paged_attention"] == before

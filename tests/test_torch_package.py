@@ -162,3 +162,35 @@ def test_quantized_entry_points_raise_without_cuda(monkeypatch, fixture_csv,
     assert main(["sentiment", str(fixture_csv), "--model", "distilbert-tiny",
                  "--weight-quant", "int8", "--device", "cpu",
                  "--output-dir", str(tmp_path)]) == 0
+
+
+def test_scan_covers_the_serve_slice():
+    scanned = {str(p.relative_to(ROOT)) for p in _port_files()}
+    for rel in ("resilience/faults.py", "resilience/failover.py",
+                "telemetry/__init__.py", "telemetry/core.py",
+                "telemetry/reqtrace.py", "observability/metrics_plane.py",
+                "observability/engine_ledger.py", "observability/watchdog.py",
+                "observability/flight.py", "serving/slo.py",
+                "serving/batcher.py", "serving/response_cache.py",
+                "serving/journal.py", "ops/kv_slots.py",
+                "serving/decode_loop.py", "serving/residency.py",
+                "serving/server.py"):
+        assert f"music_analyst_tpu_torch/{rel}" in scanned
+
+
+def test_serve_entry_points_raise_without_cuda(monkeypatch):
+    from music_analyst_tpu_torch.cli.main import main
+    from music_analyst_tpu_torch.serving.residency import ModelResidency
+    from music_analyst_tpu_torch.serving.server import run_server
+
+    _no_cuda(monkeypatch)
+    calls = [
+        lambda: main(["serve", "--stdio", "--mock"]),
+        lambda: run_server(mock=True, stdio=True, quiet=True),
+        lambda: ModelResidency(model="mock", mock=True).acquire(),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA was requested"):
+            call()
+    assert ModelResidency(model="mock", mock=True,
+                          device="cpu").acquire().device.type == "cpu"
