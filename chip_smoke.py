@@ -126,6 +126,28 @@
    active slots, up to four), for each but the preempt run.  No serve
    thread may outlive its drain.
 
+9. Drives the replica router and the run-manifest tools, after the
+   quantized Llama phases.  (a) ``serve --replicas 2 --stdio --mock`` as a
+   process over step 8's 2,048-request stream: every reply equal to the
+   single replica's of this run, labels and word counts exact, the scan
+   launched by the workers (each counts its own, read from the router's
+   run manifest).  (b) ``serve --replicas 2 --socket --model distilbert``
+   as a process (full width, each worker draws seed 0 on the card) over
+   4,096 requests at max_batch 256: labels held against the seed-0 model
+   drawn here, the workers' flash launches summed, ``monitor --once``
+   attached to the router, then a second stream with one worker SIGKILLed
+   halfway (every request answered; the manifest's ``serving.router``
+   records the transition; the supervised respawn comes back before the
+   drain).  (c) ``sentiment --model distilbert --profile-dir D
+   --telemetry-dir T`` on one 8,192-song batch as a process: D's
+   ``torch_trace.json`` names ``flash_wgmma_kernel`` and D holds
+   ``trace_spans.json``; T's manifest names the card; then
+   ``telemetry-report`` over the run dirs of an ``analyze`` run, (a), (b)
+   and (c) (exit 0, with the router fleet section), ``trace-report`` over
+   (b)'s request traces, and ``profile-diff`` (0 on a manifest against
+   itself, 1 with its wall doubled).  Every worker a router spawned is
+   gone when its phase ends.
+
 Prints the card's name and power limit, a ``{"quant_gemm": [...]}`` line,
 a ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
 {...}}``.  Exits non-zero, printing no
@@ -139,6 +161,7 @@ import gc
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import threading
@@ -2382,6 +2405,8 @@ def serve_mock_path(torch, dev, card) -> dict:
     out = dict(requests=n, requests_per_s=len(texts) / wall, wall_s=wall,
                latency=_quantiles(req["latency"]), batches=req["batches"],
                occupancy=req["occupancy"], exit_code=rc)
+    # For the router phase: every fleet reply must equal this run's.
+    out["replies"] = replies
 
     # The process's own count of the session's launches (warmup excluded).
     prefix = "serve: kernel launches since ready "
@@ -2392,7 +2417,8 @@ def serve_mock_path(torch, dev, card) -> dict:
     out["launches"] = json.loads(line[-1][len(prefix):])
     if out["launches"]["keyword_scan"] == 0:
         fail(f"serve --mock: the keyword scan never launched {out['launches']}")
-    log(f"serve --mock (process) on {card}: {json.dumps(out)}")
+    log(f"serve --mock (process) on {card}: "
+        f"{json.dumps({k: v for k, v in out.items() if k != 'replies'})}")
     return out
 
 
@@ -2755,6 +2781,443 @@ def serve_llama_path(torch, dev, clf, prompts, card) -> dict:
     return report
 
 
+# Slice 9: the replica router and the run-manifest tools on the card.
+ROUTER_REPLICAS = 2
+ROUTER_TRACE_SAMPLE = 0.05   # head-sampled request traces in (b)
+PROFILED_SONGS = 8192        # (c): one flat batch under --profile-dir
+
+
+def _fleet_env(tmp: str, **extra) -> dict:
+    """The router's environment: its fleet's temp dir (worker sockets)
+    under ``tmp``, so every worker it spawns can be found and stopped."""
+    os.makedirs(tmp, exist_ok=True)
+    return dict(os.environ, TMPDIR=tmp, **extra)
+
+
+def _stop_fleet_leftovers(tmp: str) -> list:
+    """Kill any process whose command line names ``tmp`` (a worker a
+    router left behind, e.g. one respawned while it drained)."""
+    import signal
+
+    killed = []
+    for pid in os.listdir("/proc"):
+        if not pid.isdigit() or int(pid) == os.getpid():
+            continue
+        try:
+            with open(f"/proc/{pid}/cmdline", "rb") as fh:
+                cmdline = fh.read().decode(errors="replace")
+        except OSError:
+            continue
+        if tmp in cmdline:
+            try:
+                os.kill(int(pid), signal.SIGKILL)
+                killed.append(int(pid))
+            except OSError:
+                pass
+    return killed
+
+
+def _spawn_router(args, tmp, env_extra=None, stdio=False):
+    """``serve --replicas 2 …`` as a process; returns it with a list that
+    a thread fills with its stderr lines."""
+    cmd = [sys.executable, "-m", "music_analyst_tpu_torch", "serve",
+           "--replicas", str(ROUTER_REPLICAS), *args]
+    proc = subprocess.Popen(
+        cmd, cwd=ROOT, env=_fleet_env(tmp, **(env_extra or {})),
+        stdin=subprocess.PIPE if stdio else subprocess.DEVNULL,
+        stdout=subprocess.PIPE if stdio else subprocess.DEVNULL,
+        stderr=subprocess.PIPE, text=True)
+    stderr = []
+    threading.Thread(target=lambda: stderr.extend(proc.stderr),
+                     daemon=True).start()
+    t_wait = time.perf_counter() + 300
+    while not any("routing over" in s for s in stderr):
+        if proc.poll() is not None or time.perf_counter() > t_wait:
+            proc.kill()
+            fail(f"serve --replicas {ROUTER_REPLICAS} did not come up: "
+                 f"{''.join(stderr)[-3000:]}")
+        time.sleep(0.05)
+    return proc, stderr
+
+
+def _burst(wfile, rfile, lines, on_reply=None):
+    """Write ``lines`` from a thread and read as many replies; returns the
+    replies, each reply's arrival (s after the first write) and the wall."""
+    t0 = time.perf_counter()
+    writer = threading.Thread(
+        target=lambda: (wfile.write("".join(l + "\n" for l in lines)),
+                        wfile.flush()), daemon=True)
+    writer.start()
+    replies, arrivals = [], []
+    for k in range(len(lines)):
+        line = rfile.readline()
+        if not line:
+            fail(f"router: the stream ended after {k} of {len(lines)} replies")
+        replies.append(json.loads(line))
+        arrivals.append(time.perf_counter() - t0)
+        if on_reply is not None:
+            on_reply(k)
+    wall = time.perf_counter() - t0
+    writer.join()
+    return replies, arrivals, wall
+
+
+def _arrival_quantiles(arrivals) -> dict:
+    import numpy as np
+
+    return {"p50_ms": float(np.percentile(arrivals, 50)) * 1e3,
+            "p99_ms": float(np.percentile(arrivals, 99)) * 1e3}
+
+
+def _worker_launches(router_stats: dict, kernel: str) -> dict:
+    """Each worker's own count of ``kernel`` launches since it was ready,
+    from its last polled ``stats`` reply."""
+    out = {}
+    for name, snap in router_stats["replicas"].items():
+        launches = (snap.get("last_stats") or {}).get("kernel_launches")
+        if launches is None:
+            fail(f"router: {name} reported no kernel launches: {snap}")
+        out[name] = launches[kernel]
+    return out
+
+
+def _manifest(directory: str) -> dict:
+    path = os.path.join(directory, "run_manifest.json")
+    if not os.path.exists(path):
+        fail(f"no run manifest in {directory}")
+    with open(path) as fh:
+        return json.load(fh)
+
+
+def _cli(args, timeout=600):
+    return subprocess.run(
+        [sys.executable, "-m", "music_analyst_tpu_torch", *args], cwd=ROOT,
+        capture_output=True, text=True, timeout=timeout)
+
+
+def router_mock_path(torch, card, single, single_replies) -> dict:
+    """(a) ``serve --replicas 2 --stdio --mock`` as a process over the
+    single-replica phase's 2,048-request stream: labels and word counts
+    exact, every reply equal to the single replica's, the scan launched by
+    the workers (each counts its own), requests/s and arrival p50/p99
+    beside the single replica's figures of this run."""
+    from music_analyst_tpu_torch.data.csv_io import iter_songs
+
+    dataset = os.path.join(WORK, f"serve_{SERVE_MOCK_REQUESTS}.csv")
+    texts = [t for _, _, t in iter_songs(dataset)]
+    lines = (_lines(texts) + _lines(texts[:8], "wordcount", "w")
+             + ["{not json"])
+    tel_dir = os.path.join(WORK, "router_mock_telemetry")
+    tmp = os.path.join(WORK, "router_mock_tmp")
+    shutil.rmtree(tel_dir, ignore_errors=True)
+    proc, stderr = _spawn_router(
+        ["--stdio", "--mock", "--no-response-cache",
+         "--max-queue", str(len(lines) + 16), "--telemetry-dir", tel_dir],
+        tmp, stdio=True)
+    try:
+        replies, arrivals, wall = _burst(proc.stdin, proc.stdout, lines)
+        proc.stdin.write(json.dumps({"id": "z", "op": "shutdown"}) + "\n")
+        proc.stdin.flush()
+        bye = json.loads(proc.stdout.readline())
+        proc.stdin.close()
+        rc = proc.wait(timeout=120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        leftovers = _stop_fleet_leftovers(tmp)
+    if rc != 0 or not bye.get("draining") or leftovers:
+        fail(f"router --mock exited {rc} after {bye} (leftover workers "
+             f"{leftovers}): {''.join(stderr)[-2000:]}")
+    if replies != single_replies:
+        bad = sum(a != b for a, b in zip(replies, single_replies))
+        fail(f"router --mock: {bad} replies differ from the single replica's")
+    want = [reference_mock_label(t) for t in texts]
+    if [r.get("label") for r in replies[:len(texts)]] != want:
+        fail("router --mock: labels differ from the reference heuristic")
+    for r, text in zip(replies[len(texts):len(texts) + 8], texts[:8]):
+        if {k: r.get(k) for k in ("counts", "total_words")} != \
+                _wordcount_contract(text):
+            fail(f"router --mock: wordcount reply {r['id']} breaks the "
+                 "contract")
+    router = _manifest(tel_dir).get("serving", {}).get("router")
+    if not router or router["replica_count"] != ROUTER_REPLICAS:
+        fail(f"router --mock: the manifest's serving.router is {router}")
+    launches = _worker_launches(router, "keyword_scan")
+    dispatched = {n: s["dispatched"] for n, s in router["replicas"].items()}
+    if sum(launches.values()) == 0 or min(dispatched.values()) == 0:
+        fail(f"router --mock: scan launches {launches}, dispatched "
+             f"{dispatched}")
+    out = dict(requests=len(lines), requests_per_s=len(texts) / wall,
+               wall_s=wall, arrival=_arrival_quantiles(arrivals[:len(texts)]),
+               launches_by_worker=launches,
+               scan_launches=sum(launches.values()), dispatched=dispatched,
+               single_replica=dict(requests_per_s=single["requests_per_s"],
+                                   latency=single["latency"],
+                                   launches=single["launches"]["keyword_scan"]),
+               replies_equal_single=True)
+    log(f"serve --replicas {ROUTER_REPLICAS} --mock (process) on {card}: "
+        f"{json.dumps(out)}")
+    return out
+
+
+def router_distilbert_path(torch, dev, card, dataset, single) -> dict:
+    """(b) ``serve --replicas 2 --socket --model distilbert`` as a process:
+    full-width DistilBERT in each worker (random init from seed 0, bf16,
+    flash), 4,096 requests at max_batch 256.  Labels are held against the
+    parent's reference model drawn from the same seed (equal except within
+    SERVE_FLIP_REL of the scale of a decision boundary); the workers'
+    flash launches summed; ``monitor --once`` attaches to the router; then
+    a second stream with one worker SIGKILLed halfway: every request must
+    be answered, and the manifest's ``serving.router`` must record the
+    worker's health transition."""
+    import math
+    import signal
+
+    import numpy as np
+
+    from music_analyst_tpu_torch.data.csv_io import iter_songs
+    from music_analyst_tpu_torch.models.distilbert import (
+        DistilBertClassifier,
+        DistilBertConfig,
+    )
+    from music_analyst_tpu_torch.runtime.wire import to_device
+
+    n = SERVE_DISTILBERT_REQUESTS
+    texts = [t for _, _, t in iter_songs(dataset, limit=n)]
+    # The reference: the workers' model, drawn here from the same seed.
+    clf = DistilBertClassifier.from_pretrained_or_random(
+        "distilbert", config=DistilBertConfig(attn_impl="flash"), seed=0,
+        device=dev)
+    ids, lens = clf.tokenizer.encode_batch(texts, clf.max_len)
+    ref = clf.forward_logits(*to_device(
+        [np.asarray(ids, np.int64), np.asarray(lens)], dev)).float().cpu()
+    threshold = clf.neutral_threshold
+    del clf
+    torch.cuda.empty_cache()
+    scale = max(1.0, float(ref.abs().max()))
+    boundary = math.log(threshold / (1.0 - threshold))
+    top2 = ref.topk(2, dim=-1).values
+    gap = top2[:, 0] - top2[:, 1]
+    want = ["Neutral" if not t.strip() or float(g) < boundary
+            else DistilBertClassifier._CLASS_LABELS[int(k)]
+            for t, g, k in zip(texts, gap, ref.argmax(dim=-1))]
+    near = (torch.minimum(gap, (gap - boundary).abs())
+            < SERVE_FLIP_REL * scale).tolist()
+
+    def check(replies, what):
+        if not all(r.get("ok") for r in replies):
+            bad = [r for r in replies if not r.get("ok")]
+            fail(f"router distilbert ({what}): {len(bad)} requests failed, "
+                 f"first {bad[0]}")
+        off = [i for i, r in enumerate(replies)
+               if r["label"] != want[i] and not near[i]]
+        if off:
+            fail(f"router distilbert ({what}): {len(off)} labels differ from "
+                 f"the seed-0 reference away from a boundary (first id "
+                 f"{off[0]}: {replies[off[0]]['label']} vs {want[off[0]]})")
+
+    tel_dir = os.path.join(WORK, "router_distilbert_telemetry")
+    trace_dir = os.path.join(WORK, "router_distilbert_traces")
+    tmp = os.path.join(WORK, "router_distilbert_tmp")
+    sock_path = os.path.join(WORK, "router.sock")
+    for d in (tel_dir, trace_dir):
+        shutil.rmtree(d, ignore_errors=True)
+    t_start = time.perf_counter()
+    proc, stderr = _spawn_router(
+        ["--socket", sock_path, "--model", "distilbert",
+         "--max-batch", str(SERVE_MAX_BATCH), "--max-queue", str(4 * n),
+         "--no-response-cache", "--telemetry-dir", tel_dir],
+        tmp, env_extra={"MUSICAAL_TRACE_DIR": trace_dir,
+                        "MUSICAAL_TRACE_SAMPLE": str(ROUTER_TRACE_SAMPLE)})
+    startup_s = time.perf_counter() - t_start
+    import socket as socketlib
+
+    sock = socketlib.socket(socketlib.AF_UNIX, socketlib.SOCK_STREAM)
+    try:
+        t_wait = time.perf_counter() + 60
+        while True:
+            try:
+                sock.connect(sock_path)
+                break
+            except OSError:
+                if time.perf_counter() > t_wait or proc.poll() is not None:
+                    fail(f"router distilbert: no socket: "
+                         f"{''.join(stderr)[-2000:]}")
+                time.sleep(0.05)
+        wfile = sock.makefile("w", encoding="utf-8")
+        rfile = sock.makefile("r", encoding="utf-8")
+
+        def stats():
+            wfile.write(json.dumps({"id": "stats", "op": "stats"}) + "\n")
+            wfile.flush()
+            return json.loads(rfile.readline())["stats"]
+
+        replies, arrivals, wall = _burst(wfile, rfile, _lines(texts))
+        check(replies, "measured stream")
+        time.sleep(1.0)          # one more stats poll of each worker
+        fleet = stats()["router"]
+        launches = _worker_launches(fleet, "flash_attention")
+        if min(launches.values()) == 0:
+            fail(f"router distilbert: a worker launched no flash kernel "
+                 f"{launches}")
+        worker_latency = {
+            name: _quantiles(snap["last_stats"]["requests"]["latency"])
+            for name, snap in fleet["replicas"].items()}
+        mon = _cli(["monitor", "--socket", sock_path, "--once"], timeout=60)
+        if mon.returncode != 0:
+            fail(f"monitor --once: rc {mon.returncode}: {mon.stdout[-1000:]} "
+                 f"{mon.stderr[-1000:]}")
+
+        # The kill stream: SIGKILL one worker once half the replies are in.
+        victim = sorted(fleet["replicas"])[0]
+        pid = fleet["replicas"][victim]["pid"]
+        killed = []
+
+        def kill_halfway(k):
+            if k == n // 2 and not killed:
+                os.kill(pid, signal.SIGKILL)
+                killed.append(time.perf_counter())
+
+        kill_replies, _, kill_wall = _burst(
+            wfile, rfile, _lines(texts, prefix="k"), on_reply=kill_halfway)
+        if [r.get("id") for r in kill_replies] != [f"k{i}" for i in range(n)]:
+            fail("router distilbert (kill stream): replies out of order")
+        check(kill_replies, "kill stream")
+        # Wait for the supervised respawn, so no worker starts mid-drain.
+        t_wait = time.perf_counter() + 180
+        while True:
+            fleet_after = stats()["router"]
+            if fleet_after["replicas"][victim]["respawns"] >= 1 and \
+                    fleet_after["replicas"][victim]["health"] == "healthy":
+                break
+            if time.perf_counter() > t_wait:
+                fail(f"router distilbert: {victim} was not respawned: "
+                     f"{fleet_after['health_transitions']}")
+            time.sleep(0.5)
+        wfile.write(json.dumps({"id": "z", "op": "shutdown"}) + "\n")
+        wfile.flush()
+        bye = json.loads(rfile.readline())
+        rc = proc.wait(timeout=180)
+    finally:
+        sock.close()
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        leftovers = _stop_fleet_leftovers(tmp)
+    if rc != 0 or not bye.get("draining") or leftovers:
+        fail(f"router distilbert exited {rc} after {bye} (leftover workers "
+             f"{leftovers}): {''.join(stderr)[-2000:]}")
+    manifest = _manifest(tel_dir)
+    router = manifest.get("serving", {}).get("router") or {}
+    lost = [t for t in router.get("health_transitions", [])
+            if t["replica"] == victim and t["to"] in ("unhealthy", "dead")]
+    if not lost:
+        fail(f"router distilbert: the manifest records no health transition "
+             f"for {victim}: {router.get('health_transitions')}")
+    if manifest["device"]["platform"] != "gpu":
+        fail(f"router distilbert: manifest device {manifest['device']}")
+    out = dict(requests=n, requests_per_s=n / wall, wall_s=wall,
+               startup_s=startup_s,
+               arrival=_arrival_quantiles(arrivals),
+               worker_latency=worker_latency,
+               launches_by_worker=launches,
+               flash_launches=sum(launches.values()),
+               dispatched={k: s["dispatched"]
+                           for k, s in fleet["replicas"].items()},
+               reference_labels={l: want.count(l) for l in sorted(set(want))},
+               near_boundary=int(sum(near)),
+               kill=dict(victim=victim, wall_s=kill_wall,
+                         requests_per_s=n / kill_wall, all_answered=True,
+                         requeued=router.get("requeued"),
+                         respawns=router.get("respawns"),
+                         transitions=router.get("health_transitions")),
+               monitor=mon.stdout.strip().splitlines()[:8],
+               single_replica=dict(
+                   requests_per_s=single["requests_per_s"],
+                   latency=single["latency"],
+                   launches=single["launches"]["flash_attention"],
+                   note="in process (handle_stream), the serve phase"),
+               telemetry_dir=tel_dir, trace_dir=trace_dir)
+    log(f"serve --replicas {ROUTER_REPLICAS} --model distilbert on {card}: "
+        f"{json.dumps(out)}")
+    return out
+
+
+def manifest_tools_path(torch, card, dataset, run_dirs, trace_dir) -> dict:
+    """(c) ``sentiment --model distilbert --profile-dir D --telemetry-dir
+    T`` on one 8,192-song batch: D holds a device trace naming
+    ``flash_wgmma_kernel`` and ``trace_spans.json``, T a manifest naming
+    the card.  Then ``telemetry-report`` over the run dirs of (a), (b), (c)
+    and one ``analyze`` (exit 0, with the router fleet section),
+    ``trace-report`` over (b)'s request traces, and ``profile-diff`` (0 on
+    a manifest against itself, 1 with the wall doubled)."""
+    prof_dir = os.path.join(WORK, "profiled_sentiment_profile")
+    tel_dir = os.path.join(WORK, "profiled_sentiment_telemetry")
+    out_dir = os.path.join(WORK, "profiled_sentiment")
+    for d in (prof_dir, tel_dir):
+        shutil.rmtree(d, ignore_errors=True)
+    t0 = time.perf_counter()
+    run = _cli(["sentiment", dataset, "--model", "distilbert",
+                "--limit", str(PROFILED_SONGS),
+                "--batch-size", str(PROFILED_SONGS),
+                "--profile-dir", prof_dir, "--telemetry-dir", tel_dir,
+                "--output-dir", out_dir])
+    wall = time.perf_counter() - t0
+    if run.returncode != 0:
+        fail(f"sentiment --profile-dir: rc {run.returncode}: "
+             f"{run.stderr[-2000:]}")
+    with open(os.path.join(prof_dir, "torch_trace.json")) as fh:
+        trace = json.load(fh)
+    flash_events = sum(1 for e in trace.get("traceEvents", [])
+                       if e.get("cat") == "kernel"
+                       and "flash_wgmma_kernel" in e.get("name", ""))
+    kernel_events = sum(1 for e in trace.get("traceEvents", [])
+                        if e.get("cat") == "kernel")
+    if flash_events == 0:
+        fail(f"sentiment --profile-dir: the device trace holds no "
+             f"flash_wgmma_kernel ({kernel_events} kernel events)")
+    with open(os.path.join(prof_dir, "trace_spans.json")) as fh:
+        spans = json.load(fh)["traceEvents"]
+    if not any(e.get("name") == "compute" for e in spans):
+        fail("sentiment --profile-dir: trace_spans.json has no compute span")
+    manifest = _manifest(tel_dir)
+    kind = torch.cuda.get_device_name(0)
+    if manifest["device"]["platform"] != "gpu" or \
+            manifest["device"]["kinds"] != [kind]:
+        fail(f"sentiment --profile-dir: manifest device {manifest['device']}")
+    if manifest["profiling"].get("profiler", {}).get("status") != "recording":
+        fail(f"sentiment --profile-dir: profiler {manifest['profiling']}")
+    out = dict(wall_s=wall, flash_events=flash_events,
+               kernel_events=kernel_events, span_events=len(spans),
+               manifest_wall_s=manifest["wall_seconds"],
+               manifest_device=manifest["device"]["kinds"])
+
+    report = _cli(["telemetry-report", *run_dirs, tel_dir], timeout=120)
+    if report.returncode != 0 or "router fleet" not in report.stdout:
+        fail(f"telemetry-report: rc {report.returncode}: "
+             f"{report.stdout[-2000:]} {report.stderr[-1000:]}")
+    out["telemetry_report"] = report.stdout.splitlines()
+    traces = _cli(["trace-report", trace_dir], timeout=120)
+    if traces.returncode != 0:
+        fail(f"trace-report: rc {traces.returncode}: {traces.stdout[-1000:]} "
+             f"{traces.stderr[-1000:]}")
+    out["trace_report"] = traces.stdout.splitlines()[:12]
+    base = os.path.join(tel_dir, "run_manifest.json")
+    doubled = dict(manifest, wall_seconds=2 * manifest["wall_seconds"])
+    slow = os.path.join(WORK, "manifest_wall_doubled.json")
+    with open(slow, "w") as fh:
+        json.dump(doubled, fh)
+    same = _cli(["profile-diff", base, base], timeout=60)
+    worse = _cli(["profile-diff", base, slow], timeout=60)
+    if same.returncode != 0 or worse.returncode != 1:
+        fail(f"profile-diff: rc {same.returncode} on a manifest against "
+             f"itself, {worse.returncode} with the wall doubled")
+    out["profile_diff_rc"] = [same.returncode, worse.returncode]
+    log(f"manifests and tools on {card}: {json.dumps(out)}")
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -2802,10 +3265,12 @@ def main() -> int:
     report["quant_gemm"] = quant_gemm_probe(torch, dev)
     slice7_s = time.perf_counter() - t0
     report["main_path"] = main_path(torch, dev, dataset, card)
-    slice8_s = report["main_path"]["serve"]["wall_s"]
+    mp = report["main_path"]
+    slice8_s = mp["serve"]["wall_s"]
     torch.cuda.empty_cache()
     t1 = time.perf_counter()
     report["serve_mock"] = serve_mock_path(torch, dev, card)
+    mock_replies = report["serve_mock"].pop("replies")
     slice8_s += time.perf_counter() - t1
     t0 = time.perf_counter()
     report["distilbert_quant"] = distilbert_quant_path(torch, dev, dataset,
@@ -2840,6 +3305,20 @@ def main() -> int:
     report["llama_quant"] = llama_quant_path(torch, dev, card)
     report["slice7_s"] = slice7_s + time.perf_counter() - t0
     log(f"quantized and per-song phases: {report['slice7_s']:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    report["router_mock"] = router_mock_path(
+        torch, card, report["serve_mock"], mock_replies)
+    report["router_distilbert"] = router_distilbert_path(
+        torch, dev, card, dataset, mp["serve"])
+    report["manifests"] = manifest_tools_path(
+        torch, card, dataset,
+        [os.path.join(WORK, "analyze_auto_streaming"),
+         os.path.join(WORK, "router_mock_telemetry"),
+         report["router_distilbert"]["telemetry_dir"]],
+        report["router_distilbert"]["trace_dir"])
+    report["slice9_s"] = time.perf_counter() - t0
+    log(f"router and manifest phases: {report['slice9_s']:.1f} s")
     report["host_python_ms"]["end"] = python_ms()
     log(f"host probe (ms of a fixed Python loop): "
         f"{json.dumps(report['host_python_ms'])}")
@@ -2848,7 +3327,6 @@ def main() -> int:
     timing = report["timing"]
     errs = dict(report["flash_max_abs_err"],
                 distilbert_main_shape=timing["flash_attention"]["max_abs_err"])
-    mp = report["main_path"]
     kernels_line = {"kernels": [
         dict(name="flash_attention", route="cuda",
              source="music_analyst_tpu_torch/csrc/flash_attention.cu",
@@ -2857,6 +3335,8 @@ def main() -> int:
              joint_launches=report["joint"]["distilbert"]["launches"][
                  "flash_attention"],
              serve_launches=mp["serve"]["launches"]["flash_attention"],
+             router_launches=report["router_distilbert"]["flash_launches"],
+             profile_dir_trace_events=report["manifests"]["flash_events"],
              **{f"{name}_launches": report["distilbert_quant"][name][
                  "launches"]["flash_attention"]
                 for name in ("int8_dynamic", "wq_int8", "wq_int4")},
@@ -2869,6 +3349,7 @@ def main() -> int:
              launches=mp["mock_cli"]["launches"]["keyword_scan"],
              joint_launches=report["joint"]["mock"]["launches"]["keyword_scan"],
              serve_launches=report["serve_mock"]["launches"]["keyword_scan"],
+             router_launches=report["router_mock"]["scan_launches"],
              max_abs_err=0.0,
              **{key: timing["keyword_scan"][key] for key in
                 ("shape", "ms", "ms_l2_flushed", "event_ms", "plain_ms",
@@ -2901,7 +3382,10 @@ def main() -> int:
         f"distilbert {report['joint']['distilbert']['songs_per_s']:.1f}; "
         f"serve --mock {report['serve_mock']['requests_per_s']:.1f} req/s, "
         f"serve distilbert {mp['serve']['requests_per_s']:.1f} req/s; "
-        f"total {report['seconds']:.1f} s")
+        f"router --mock "
+        f"{report['router_mock']['requests_per_s']:.1f} req/s, router "
+        f"distilbert {report['router_distilbert']['requests_per_s']:.1f} "
+        f"req/s; total {report['seconds']:.1f} s")
     print(json.dumps({"quant_gemm": report["quant_gemm"]}))
     print(json.dumps(kernels_line))
     print(card)

@@ -3,19 +3,24 @@
 Counterpart of ``music_analyst_tpu/cli/main.py`` for the subcommands
 ported so far — ``analyze`` (with ``--with-sentiment``, the joint
 pipeline), ``sentiment`` (``--weight-quant``, ``--model ollama[:tag]``),
-``wordcount-per-song``, ``split`` and ``serve`` (one replica, ``--tp 1``)
-— with the JAX flags and defaults, plus ``--device {cuda,cpu}`` on
-``analyze``, ``sentiment`` and ``serve`` (the counterpart of
+``wordcount-per-song``, ``split``, ``serve`` (``--replicas N`` puts the
+replica router in front of N worker processes; ``--tp 1``), and the
+host-only tools ``profile-diff``, ``telemetry-report``, ``trace-report``
+and ``monitor`` — with the JAX flags, defaults and exit codes, plus
+``--device {cuda,cpu}`` on ``analyze``, ``sentiment``,
+``wordcount-per-song`` and ``serve`` (the counterpart of
 ``JAX_PLATFORMS``; default ``cuda``, which fails rather than falling back
-when no card is present).  ``wordcount-per-song`` takes ``--device`` too,
-though it is host-only like ``split``.  ``serve`` also runs
-``--inject-faults`` and a non-zero ``--watchdog-timeout``; ``--replicas``
-and ``--tp`` above 1 are usage errors.
+when no card is present).
 
-Every JAX flag parses.  A flag whose feature is not ported yet passes at
-its default or no-op value (``--no-telemetry``, ``--devices 1``,
-``--watchdog-timeout 0``) and is a usage error naming the flag at any
-other value.
+Every run-scoped subcommand writes ``telemetry.jsonl`` and
+``run_manifest.json`` (to ``--telemetry-dir``, else the run's output dir;
+``--no-telemetry`` turns both off), flies with the flight recorder, and
+takes ``--profile-dir`` (a ``torch.profiler`` trace plus
+``trace_spans.json``); ``analyze`` and ``sentiment`` also take
+``--trace-dir``.  Not ported yet: ``validate`` and ``sweep``; ``--tp``
+above 1, ``--devices`` above 1, and ``--inject-faults`` or a non-zero
+``--watchdog-timeout`` outside ``serve``, which pass at their no-op
+values and are usage errors naming the flag at any other.
 """
 
 from __future__ import annotations
@@ -68,22 +73,29 @@ def _add_device_flag(p: argparse.ArgumentParser) -> None:
 
 def _add_run_flags(p: argparse.ArgumentParser, devices: bool = True) -> None:
     """The JAX run-scoped flags (``_add_telemetry_flags``, and
-    ``--trace-dir``/``--devices`` where the subcommand has them).  Parsed
-    as in JAX; :func:`_check_run_flags` admits only their no-op values."""
+    ``--trace-dir``/``--devices`` where the subcommand has them).
+    :func:`_check_run_flags` admits only the no-op values of the ones not
+    ported yet."""
     p.add_argument("--telemetry-dir", default=None,
-                   help="Telemetry output dir (not yet ported)")
+                   help="Write telemetry.jsonl + run_manifest.json here "
+                        "(default: the run's output dir)")
     p.add_argument("--no-telemetry", action="store_true",
-                   help="Disable run telemetry (the port writes none yet)")
+                   help="Disable run telemetry entirely (no extra files)")
     p.add_argument("--profile-dir", default=None,
-                   help="Profiler trace dir (not yet ported)")
+                   help="Capture a torch.profiler trace (the card's kernels "
+                        "when the run is on CUDA) + span-level Chrome trace "
+                        "(trace_spans.json) into this dir "
+                        "(profiling/trace.py)")
     p.add_argument("--watchdog-timeout", default=None,
-                   help="Heartbeat watchdog seconds; only 0 (disabled) "
-                        "runs in the port")
+                   help="Heartbeat watchdog seconds (serve); elsewhere only "
+                        "0 (disabled) runs in the port")
     p.add_argument("--inject-faults", default=None, metavar="SPEC",
-                   help="Fault injection (not yet ported)")
+                   help="Deterministic fault injection (serve only in the "
+                        "port; see resilience/faults.py)")
     if devices:
         p.add_argument("--trace-dir", default=None,
-                       help="Profiler trace dir (not yet ported)")
+                       help="Capture a torch.profiler trace into this dir "
+                            "(Chrome-trace viewable)")
         p.add_argument("--devices", type=int, default=None,
                        help="Devices of the mesh; the port runs on one")
 
@@ -93,12 +105,12 @@ def _check_run_flags(parser: argparse.ArgumentParser,
     # ``serve`` has its fault seams and watchdog scopes; the other
     # subcommands do not yet.
     serve = args.command == "serve"
-    unported = ("telemetry_dir", "profile_dir", "trace_dir")
-    if not serve:
-        unported += ("inject_faults",)
-    for flag in unported:
-        if getattr(args, flag, None) is not None:
-            parser.error(f"--{flag.replace('_', '-')} {_NOT_PORTED}")
+    # One profiler session per process: torch.profiler cannot nest.
+    if getattr(args, "trace_dir", None) and args.profile_dir:
+        parser.error("--trace-dir and --profile-dir each capture a device "
+                     "trace; give one of them")
+    if getattr(args, "inject_faults", None) is not None and not serve:
+        parser.error(f"--inject-faults {_NOT_PORTED}")
     if args.watchdog_timeout is not None and not serve:
         try:
             seconds = float(args.watchdog_timeout)
@@ -236,7 +248,8 @@ def _add_serve(sub: argparse._SubParsersAction) -> None:
         "serve",
         help="resident inference server: newline-delimited JSON over a "
              "unix socket (or --stdio), dynamic batching + warm model "
-             "residency (serving/); one replica on one device",
+             "residency (serving/); --replicas N routes over N worker "
+             "processes",
     )
     p.add_argument("--model", default="mock",
                    help="Model family: mock, distilbert[-*], llama[3*]")
@@ -302,8 +315,8 @@ def _add_serve(sub: argparse._SubParsersAction) -> None:
                    help="Worker server processes behind the replica "
                         "router (join-shortest-queue dispatch, "
                         "health-aware failover; 1 serves in-process; "
-                        "default $MUSICAAL_SERVE_REPLICAS or 1; only 1 is "
-                        "ported)")
+                        "default $MUSICAAL_SERVE_REPLICAS or 1); each "
+                        "worker runs on this --device")
     p.add_argument("--tp", type=int, default=None,
                    help="Tensor-parallel width per worker: attention "
                         "heads + KV cache shard over a tp mesh axis "
@@ -373,6 +386,82 @@ def _add_serve(sub: argparse._SubParsersAction) -> None:
     _add_run_flags(p, devices=False)
 
 
+def _add_profile_diff(sub: argparse._SubParsersAction) -> None:
+    p = sub.add_parser(
+        "profile-diff",
+        help="perf-regression gate: compare two run manifests / bench "
+             "lines; exit 1 on regression (profiling/diff.py)",
+    )
+    p.add_argument("a", help="Baseline: run_manifest.json, a bench JSON "
+                             "line file, or literal JSON")
+    p.add_argument("b", help="Candidate, same formats")
+    p.add_argument("--threshold", type=float, default=0.1,
+                   help="Relative throughput drop that fails the gate "
+                        "(default 0.10)")
+    p.add_argument("--wall-threshold", type=float, default=0.25,
+                   help="Relative wall-clock growth that fails the gate "
+                        "for manifests (default 0.25)")
+
+
+def _add_telemetry_report(sub: argparse._SubParsersAction) -> None:
+    p = sub.add_parser(
+        "telemetry-report",
+        help="cross-run analytics: aggregate telemetry dirs / BENCH_r*.json "
+             "captures / bench lines into a run-over-run report "
+             "(observability/report.py); exit 1 when the newest run failed",
+    )
+    p.add_argument("sources", nargs="+",
+                   help="Run sources, oldest first: telemetry run dirs, "
+                        "BENCH_r*.json bench captures, bench-line JSON "
+                        "files, or flight_record.json files")
+    p.add_argument("--json", action="store_true",
+                   help="Emit the aggregated report as one JSON object "
+                        "instead of text")
+
+
+def _add_trace_report(sub: argparse._SubParsersAction) -> None:
+    p = sub.add_parser(
+        "trace-report",
+        help="per-request waterfalls: reconstruct cross-process traces "
+             "from request_traces.jsonl and attribute each request's "
+             "wire latency to its phases (observability/report.py); "
+             "exit 1 when no complete waterfall was found",
+    )
+    p.add_argument("sources", nargs="+",
+                   help="Trace sources: profile dirs holding "
+                        "request_traces*.jsonl, or the .jsonl files "
+                        "themselves")
+    p.add_argument("--json", action="store_true",
+                   help="Emit the reconstructed traces as one JSON object "
+                        "instead of waterfall text")
+
+
+def _add_monitor(sub: argparse._SubParsersAction) -> None:
+    p = sub.add_parser(
+        "monitor",
+        help="live fleet monitor: attach to a serving socket and render "
+             "a refreshing per-replica table (req/s, tokens/s, "
+             "occupancy, queue depth, p50/p99, active burn-rate alerts); "
+             "host-only (observability/monitor.py)",
+    )
+    p.add_argument("--socket", required=True, metavar="PATH",
+                   help="Unix socket of a live serve front end (single "
+                        "server or replica router)")
+    p.add_argument("--once", action="store_true",
+                   help="Render one snapshot and exit (0 = healthy "
+                        "reply, 1 = draining, 2 = no usable reply)")
+    p.add_argument("--interval", type=float, default=2.0, metavar="S",
+                   help="Refresh period in seconds (default 2.0)")
+    p.add_argument("--json", action="store_true",
+                   help="Emit each snapshot as one JSON object instead "
+                        "of the table")
+    p.add_argument("--idle-bubble-gate", type=float, default=None,
+                   metavar="FRAC",
+                   help="With --once: also exit 1 when any engine's "
+                        "ledger idle_bubble fraction exceeds FRAC "
+                        "(0..1) — the goodput health gate")
+
+
 def _run_analyze(args: argparse.Namespace) -> int:
     common = dict(
         output_dir=args.output_dir,
@@ -386,21 +475,25 @@ def _run_analyze(args: argparse.Namespace) -> int:
         chunk_songs=args.chunk_songs,
         device=args.device,
     )
+    from music_analyst_tpu_torch.profiling.trace import maybe_trace
+
     if args.with_sentiment:
         from music_analyst_tpu_torch.engines.joint import run_joint
 
-        run_joint(
-            args.dataset,
-            model=args.model,
-            mock=args.mock,
-            batch_size=args.batch_size,
-            prefetch_depth=args.prefetch_depth,
-            **common,
-        )
+        with maybe_trace(args.trace_dir, device=args.device):
+            run_joint(
+                args.dataset,
+                model=args.model,
+                mock=args.mock,
+                batch_size=args.batch_size,
+                prefetch_depth=args.prefetch_depth,
+                **common,
+            )
         return 0
     from music_analyst_tpu_torch.engines.wordcount import run_analysis
 
-    run_analysis(args.dataset, count_mode=args.count_mode, **common)
+    with maybe_trace(args.trace_dir, device=args.device):
+        run_analysis(args.dataset, count_mode=args.count_mode, **common)
     return 0
 
 
@@ -422,19 +515,22 @@ def _run_sentiment(parser: argparse.ArgumentParser,
                 "--weight-quant requires an on-device model family "
                 "(distilbert[-*] or llama[3*])"
             )
-    run_sentiment(
-        args.dataset,
-        model=args.model,
-        mock=args.mock,
-        limit=args.limit,
-        output_dir=args.output_dir,
-        batch_size=args.batch_size,
-        resume=args.resume,
-        length_buckets=args.length_buckets,
-        prefetch_depth=args.prefetch_depth,
-        device=args.device,
-        weight_quant=args.weight_quant,
-    )
+    from music_analyst_tpu_torch.profiling.trace import maybe_trace
+
+    with maybe_trace(args.trace_dir, device=args.device):
+        run_sentiment(
+            args.dataset,
+            model=args.model,
+            mock=args.mock,
+            limit=args.limit,
+            output_dir=args.output_dir,
+            batch_size=args.batch_size,
+            resume=args.resume,
+            length_buckets=args.length_buckets,
+            prefetch_depth=args.prefetch_depth,
+            device=args.device,
+            weight_quant=args.weight_quant,
+        )
     return 0
 
 
@@ -459,9 +555,6 @@ def _run_wordcount_per_song(args: argparse.Namespace) -> int:
 def _run_serve(parser: argparse.ArgumentParser,
                args: argparse.Namespace) -> int:
     from music_analyst_tpu_torch.device import resolve_device
-    from music_analyst_tpu_torch.observability.flight import (
-        install_flight_recorder,
-    )
     from music_analyst_tpu_torch.observability.watchdog import (
         resolve_watchdog_timeout,
         start_watchdog,
@@ -475,7 +568,6 @@ def _run_serve(parser: argparse.ArgumentParser,
         resolve_tp,
     )
     from music_analyst_tpu_torch.serving.server import run_server
-    from music_analyst_tpu_torch.telemetry import configure
 
     if not args.stdio and not args.socket:
         parser.error("serve requires --socket PATH or --stdio")
@@ -491,23 +583,17 @@ def _run_serve(parser: argparse.ArgumentParser,
         replicas, tp = resolve_replicas(args.replicas), resolve_tp(args.tp)
     except ValueError as exc:
         parser.error(str(exc))
-    if replicas > 1:
-        parser.error(f"--replicas {replicas} (the replica router) "
-                     f"{_NOT_PORTED}")
     if tp > 1:
         parser.error(f"--tp {tp} {_NOT_PORTED}")
     resolve_device(args.device)
-    configure(enabled=not args.no_telemetry)
-    # A crash or SIGTERM leaves flight_record.json behind; the watchdog
-    # is opt-in (--watchdog-timeout / $MUSICAAL_WATCHDOG_S).
-    install_flight_recorder()
+    # The watchdog is opt-in (--watchdog-timeout / $MUSICAAL_WATCHDOG_S).
     try:
         start_watchdog(resolve_watchdog_timeout(args.watchdog_timeout))
         configure_faults(resolve_fault_spec(args.inject_faults))
     except ValueError as exc:
         parser.error(str(exc))
     try:
-        return run_server(
+        common = dict(
             model=args.model,
             mock=args.mock,
             weight_quant=(None if args.weight_quant == "none"
@@ -533,11 +619,17 @@ def _run_serve(parser: argparse.ArgumentParser,
             priority=args.priority,
             journal_dir=args.journal_dir,
             trace_sample=args.trace_sample,
+            trace_dir=args.profile_dir,
             metrics_interval_ms=args.metrics_interval_ms,
             response_cache_dir=args.response_cache_dir,
             use_response_cache=not args.no_response_cache,
             device=args.device,
         )
+        if replicas > 1:
+            from music_analyst_tpu_torch.serving.router import run_router
+
+            return run_router(replicas=replicas, **common)
+        return run_server(**common)
     except ValueError as exc:
         parser.error(str(exc))
     return 2
@@ -545,16 +637,21 @@ def _run_serve(parser: argparse.ArgumentParser,
 
 def _run_split(args: argparse.Namespace) -> int:
     from music_analyst_tpu_torch.data.splitter import split_csv_columns
+    from music_analyst_tpu_torch.telemetry import get_telemetry
 
-    out_dir, names = split_csv_columns(
-        args.csv_path,
-        output_dir=args.output_dir,
-        delimiter=args.delimiter,
-        quotechar=args.quotechar,
-        encoding=args.encoding,
-        no_header=args.no_header,
-        force=args.force,
-    )
+    # The splitter has no engine scope of its own; sink only where
+    # --telemetry-dir points (None ⇒ memory-only), never into the split
+    # output dir, whose listing is a compared artifact.
+    with get_telemetry().run_scope("split", None):
+        out_dir, names = split_csv_columns(
+            args.csv_path,
+            output_dir=args.output_dir,
+            delimiter=args.delimiter,
+            quotechar=args.quotechar,
+            encoding=args.encoding,
+            no_header=args.no_header,
+            force=args.force,
+        )
     print(f"Wrote {len(names)} column file(s) to {out_dir}:")
     for name in names:
         print(f"  {out_dir / name}")
@@ -572,9 +669,56 @@ def main(argv: Optional[List[str]] = None) -> int:
     _add_wordcount_per_song(sub)
     _add_split(sub)
     _add_serve(sub)
+    _add_profile_diff(sub)
+    _add_telemetry_report(sub)
+    _add_trace_report(sub)
+    _add_monitor(sub)
     args = parser.parse_args(argv)
-    _check_run_flags(parser, args)
 
+    # The host-only tools: no telemetry scope, no device, no torch import.
+    if args.command == "profile-diff":
+        from music_analyst_tpu_torch.profiling.diff import run_profile_diff
+
+        return run_profile_diff(args.a, args.b, threshold=args.threshold,
+                                wall_threshold=args.wall_threshold)
+    if args.command == "telemetry-report":
+        from music_analyst_tpu_torch.observability.report import (
+            run_telemetry_report,
+        )
+
+        return run_telemetry_report(args.sources, json_output=args.json)
+    if args.command == "trace-report":
+        from music_analyst_tpu_torch.observability.report import (
+            run_trace_report,
+        )
+
+        return run_trace_report(args.sources, json_output=args.json)
+    if args.command == "monitor":
+        from music_analyst_tpu_torch.observability.monitor import run_monitor
+
+        return run_monitor(
+            args.socket, once=args.once, interval_s=args.interval,
+            json_output=args.json, idle_bubble_gate=args.idle_bubble_gate,
+        )
+
+    _check_run_flags(parser, args)
+    from music_analyst_tpu_torch.observability.flight import (
+        install_flight_recorder,
+    )
+    from music_analyst_tpu_torch.profiling.trace import profile_run
+    from music_analyst_tpu_torch.telemetry import configure
+
+    configure(enabled=not args.no_telemetry, directory=args.telemetry_dir)
+    # Every run-scoped subcommand flies with the recorder installed: an
+    # unhandled exception or SIGTERM leaves flight_record.json behind.
+    install_flight_recorder()
+    with profile_run(args.profile_dir,
+                     device=getattr(args, "device", "cpu")):
+        return _dispatch(parser, args)
+
+
+def _dispatch(parser: argparse.ArgumentParser,
+              args: argparse.Namespace) -> int:
     if args.command == "analyze":
         return _run_analyze(args)
     if args.command == "sentiment":

@@ -20,8 +20,9 @@ package loads in the other.
   schema, meta mismatch) deletes the entry and counts as a miss, so the
   caller re-ingests.  The cache never fails a run.
 
-The JAX package's telemetry counters, publish retry and fault-injection
-seam are not ported; :func:`cache_stats` keeps the counts.
+:func:`cache_stats` keeps the process's counts, mirrored into the run's
+``corpus_cache.*`` telemetry counters as in JAX.  The JAX package's
+publish retry and fault-injection seam are not ported.
 """
 
 from __future__ import annotations
@@ -41,7 +42,7 @@ SCHEMA_VERSION = 1
 _META_NAME = "meta.json"
 _HASH_CHUNK = 1 << 22  # 4 MiB reads: streaming hash, bounded memory
 
-# Process-lifetime stats (the port has no telemetry to mirror them into).
+# Process-lifetime stats (each bump is mirrored into the run's telemetry).
 _STATS_LOCK = threading.Lock()
 _STATS: Dict[str, int] = {
     "hits": 0,
@@ -55,6 +56,9 @@ _STATS: Dict[str, int] = {
 def _bump(name: str, n: int = 1) -> None:
     with _STATS_LOCK:
         _STATS[name] += n
+    from music_analyst_tpu_torch.telemetry import get_telemetry
+
+    get_telemetry().count(f"corpus_cache.{name}", n)
 
 
 def cache_stats() -> Dict[str, int]:

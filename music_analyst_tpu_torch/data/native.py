@@ -242,6 +242,7 @@ def ingest_native(
     from music_analyst_tpu_torch.data import corpus_cache
     from music_analyst_tpu_torch.data.ingest import IngestResult
     from music_analyst_tpu_torch.data.vocab import Vocab
+    from music_analyst_tpu_torch.telemetry import get_telemetry
 
     lib = _require()
     if cache_dir:
@@ -250,10 +251,17 @@ def ingest_native(
         )
         if cached is not None:
             return cached
-    handle = lib.man_ingest_v2(
-        path.encode("utf-8"), -1 if limit is None else limit, num_threads,
-        1 if capture_records else 0,
-    )
+    tel = get_telemetry()
+    try:
+        file_bytes = os.path.getsize(path)
+    except OSError:
+        file_bytes = 0
+    # The span times the C++ parse only; the copy-out below is host glue.
+    with tel.span("native_ingest", bytes=file_bytes):
+        handle = lib.man_ingest_v2(
+            path.encode("utf-8"), -1 if limit is None else limit,
+            num_threads, 1 if capture_records else 0,
+        )
     if not handle:
         raise RuntimeError("native ingest failed to allocate")
     try:
@@ -262,6 +270,9 @@ def ingest_native(
             raise RuntimeError(f"native ingest: {err.decode()}")
         songs = lib.man_song_count(handle)
         tokens = lib.man_token_count(handle)
+        tel.count("native_bytes_parsed", file_bytes)
+        tel.count("native_songs_parsed", int(songs))
+        tel.count("native_tokens_parsed", int(tokens))
         word_ids = np.empty(tokens, dtype=np.int32)
         word_offsets = np.empty(songs + 1, dtype=np.int64)
         artist_ids = np.empty(songs, dtype=np.int32)

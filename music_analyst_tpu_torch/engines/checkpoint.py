@@ -182,4 +182,10 @@ def load_quantized_params(
     with _LOAD_LOCK:
         _LAST_LOAD_STATS.clear()
         _LAST_LOAD_STATS.update(stats)
+    from music_analyst_tpu_torch.telemetry import get_telemetry
+
+    tel = get_telemetry()
+    tel.gauge("wq_load.peak_host_staging_bytes", staged["peak"])
+    tel.gauge("wq_load.seconds", stats["load_seconds"])
+    tel.count(f"wq_load.cache_{cache_state}")
     return out_tree

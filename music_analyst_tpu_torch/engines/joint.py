@@ -12,6 +12,10 @@ Parser note: the fused run classifies exactly the records the exact
 keeps the reference script's ``csv.DictReader`` semantics, so on datasets
 with short or malformed rows the two standalone tools can disagree with
 each other, as the reference's do; the joint run cannot.
+
+The ``joint`` run scope owns the telemetry sinks: the nested wordcount and
+sentiment scopes become spans under it, so the fused run writes one
+``run_manifest.json``.
 """
 
 from __future__ import annotations
@@ -39,6 +43,7 @@ from music_analyst_tpu_torch.metrics.perf import (
 )
 from music_analyst_tpu_torch.metrics.timer import StageTimer
 from music_analyst_tpu_torch.parallel.mesh import data_parallel_mesh
+from music_analyst_tpu_torch.telemetry import get_telemetry
 
 
 @dataclasses.dataclass
@@ -66,6 +71,22 @@ def run_joint(
     use_corpus_cache: bool = True,
     chunk_songs=None,
     device: DeviceLike = "cuda",
+) -> JointResult:
+    # Owner scope: the nested engines' run scopes degrade to spans.
+    with get_telemetry().run_scope("joint", output_dir):
+        return _run_joint_impl(
+            dataset_path, output_dir, model, mock, word_limit, artist_limit,
+            limit, batch_size, mesh, write_split, ingest_backend, quiet,
+            prefetch_depth, corpus_cache_dir, use_corpus_cache, chunk_songs,
+            device,
+        )
+
+
+def _run_joint_impl(
+    dataset_path, output_dir, model, mock, word_limit, artist_limit,
+    limit, batch_size, mesh, write_split, ingest_backend, quiet,
+    prefetch_depth, corpus_cache_dir, use_corpus_cache, chunk_songs,
+    device,
 ) -> JointResult:
     if mesh is None:
         mesh = data_parallel_mesh(device=device)

@@ -12,8 +12,8 @@ Latin-1 regex (``data/tokenizer.py:tokenize_latin1``).
 Words get dense first-seen ids and fold into a flat count list; the
 global ranking is one stable sort on ``-count``.  Tokenization runs on a
 multi-worker stage of the prefetch pipeline with results folded in
-submission order.  Host-only: no device work.  The JAX package's watchdog
-and telemetry hooks are not ported yet.
+submission order.  Host-only: no device work.  The run scope, spans and
+counters are JAX's (``persong``); its watchdog hooks are not ported yet.
 """
 
 from __future__ import annotations
@@ -21,6 +21,7 @@ from __future__ import annotations
 import contextlib
 import csv
 import os
+import time
 from dataclasses import dataclass, field
 from pathlib import Path
 from typing import Dict, Iterable, Iterator, List, Optional, Sequence, Tuple
@@ -28,6 +29,7 @@ from typing import Dict, Iterable, Iterator, List, Optional, Sequence, Tuple
 from music_analyst_tpu_torch.data.csv_io import sniff_delimiter
 from music_analyst_tpu_torch.data.tokenizer import tokenize_latin1
 from music_analyst_tpu_torch.runtime import PrefetchPipeline, Stage
+from music_analyst_tpu_torch.telemetry import get_telemetry
 
 # Rows per tokenize task.
 _CHUNK_ROWS = 512
@@ -66,13 +68,19 @@ class _DenseHistogram:
 
 
 def _tokenize_chunk(rows: Sequence[Tuple[str, str, str]]) -> List[_SongCounts]:
-    """Tokenize a block of ``(artist, song, text)`` rows."""
+    """Tokenize a block of ``(artist, song, text)`` rows; records one
+    ``tokenize`` span per block (from the pool thread: the registry is
+    thread-safe)."""
+    start = time.perf_counter()
     out: List[_SongCounts] = []
     for artist, song, text in rows:
         per_song: Dict[str, int] = {}
         for token in tokenize_latin1(text):
             per_song[token] = per_song.get(token, 0) + 1
         out.append((artist, song, tuple(per_song.items())) if per_song else None)
+    get_telemetry().record_span(
+        "tokenize", time.perf_counter() - start, rows=len(rows)
+    )
     return out
 
 
@@ -119,8 +127,14 @@ def run_per_song_wordcount(
         raise ValueError(f"chunk_rows must be >= 1, got {chunk_rows}")
     n_workers = workers if workers > 0 else max(1, os.cpu_count() or 1)
     histogram = _DenseHistogram()
-    total_rows = _persong_stream(src, per_song_path, global_path, encoding,
-                                 delimiter, n_workers, histogram, chunk_rows)
+    tel = get_telemetry()
+    with tel.run_scope("persong", str(out)):
+        total_rows = _persong_stream(src, per_song_path, global_path,
+                                     encoding, delimiter, n_workers,
+                                     histogram, tel, chunk_rows)
+        tel.count("rows_processed", total_rows)
+        tel.count("distinct_words", len(histogram.counts))
+        tel.count("words_counted", histogram.total)
     if not quiet:
         print(
             f"Processed {total_rows} row(s); "
@@ -132,9 +146,10 @@ def run_per_song_wordcount(
 
 
 def _persong_stream(src, per_song_path, global_path, encoding, delimiter,
-                    n_workers, histogram, chunk_rows) -> int:
+                    n_workers, histogram, tel, chunk_rows) -> int:
     total_rows = 0
-    with open(src, "r", encoding=encoding, newline="") as fh:
+    with tel.span("ingest", workers=n_workers), \
+            open(src, "r", encoding=encoding, newline="") as fh:
         delim = delimiter or sniff_delimiter(fh.read(65536))
         fh.seek(0)
         reader = csv.DictReader(fh, delimiter=delim)
@@ -146,9 +161,12 @@ def _persong_stream(src, per_song_path, global_path, encoding, delimiter,
         with open(per_song_path, "w", encoding="utf-8", newline="") as ps_fh:
             by_song = csv.writer(ps_fh)
             by_song.writerow(["artist", "song", "word", "count"])
+            # _tokenize_chunk records its own "tokenize" spans, so the
+            # stage does not (record_spans=False).
             pipe = PrefetchPipeline(
-                [Stage("tokenize", _tokenize_chunk, workers=n_workers)],
-                depth=_WINDOW_PER_WORKER, name="persong",
+                [Stage("tokenize", _tokenize_chunk, workers=n_workers,
+                       record_spans=False)],
+                depth=_WINDOW_PER_WORKER, name="persong", sink_name="fold",
             )
             # closing(): the pipeline is cancelled and joined before the
             # reader's file goes away.
@@ -164,7 +182,8 @@ def _persong_stream(src, per_song_path, global_path, encoding, delimiter,
                         for word, count in items:
                             histogram.add(word, count)
                             by_song.writerow([artist, song, word, count])
-    with open(global_path, "w", encoding="utf-8", newline="") as g_fh:
+    with tel.span("write", rows=total_rows), \
+            open(global_path, "w", encoding="utf-8", newline="") as g_fh:
         ranked = csv.writer(g_fh)
         ranked.writerow(["word", "count"])
         ranked.writerows(histogram.ranked())

@@ -13,8 +13,11 @@ quantize its projections), ``llama*`` (zero-shot decoder; its continuous
 generation decodes through the paged-attention kernel; ``-int8`` and
 ``weight_quant`` as for DistilBERT) and ``ollama[:tag]`` (the reference's
 HTTP path, whose per-song request latency is written as measured).
-Residency, failover, the watchdog and telemetry are not part of the port
-yet.
+Telemetry is JAX's: the ``sentiment`` run scope, the ``backend_init``,
+``ingest``, ``compute`` and ``write`` spans (the backend loads through
+``serving/residency.py``, as in JAX), the ``rows_classified`` counter and
+the pipeline's stage accounting.  Failover and the watchdog are not part
+of the port yet.
 """
 
 from __future__ import annotations
@@ -34,6 +37,7 @@ from music_analyst_tpu_torch.runtime import (
     Stage,
     resolve_prefetch_depth,
 )
+from music_analyst_tpu_torch.telemetry import get_telemetry
 from music_analyst_tpu_torch.utils.atomic import atomic_write
 from music_analyst_tpu_torch.utils.labels import SUPPORTED_LABELS
 
@@ -234,6 +238,39 @@ def run_sentiment(
     """
     if songs is not None and resume:
         raise ValueError("resume=True cannot be combined with songs=")
+    tel = get_telemetry()
+    with tel.run_scope("sentiment", output_dir):
+        return _run_sentiment_impl(
+            tel, dataset_path, model, mock, limit, output_dir, batch_size,
+            backend, quiet, resume, songs, length_buckets, prefetch_depth,
+            device, weight_quant,
+        )
+
+
+def _timed_source(tel, source):
+    """Yield rows from ``source`` while accumulating pure read time; the
+    total lands as ONE ``ingest`` span (per-row spans would swamp the log
+    on million-row datasets)."""
+    read_s = 0.0
+    n = 0
+    it = iter(source)
+    while True:
+        t0 = time.perf_counter()
+        try:
+            item = next(it)
+        except StopIteration:
+            break
+        read_s += time.perf_counter() - t0
+        n += 1
+        yield item
+    tel.record_span("ingest", read_s, rows=n)
+
+
+def _run_sentiment_impl(
+    tel, dataset_path, model, mock, limit, output_dir, batch_size, backend,
+    quiet, resume, songs, length_buckets, prefetch_depth, device,
+    weight_quant,
+) -> SentimentResult:
     if backend is not None and (
             _has_buckets(length_buckets)
             or weight_quant not in (None, "none")):
@@ -243,10 +280,17 @@ def run_sentiment(
         )
     os.makedirs(output_dir, exist_ok=True)
     depth = resolve_prefetch_depth(prefetch_depth)
-    clf = backend if backend is not None else get_backend(
-        model, mock=mock, length_buckets=length_buckets,
-        weight_quant=weight_quant, device=device,
+    # One owner for the backend's lifetime, as in JAX: the residency
+    # loads it (its ``serve.load`` span) on the requested device.
+    from music_analyst_tpu_torch.serving.residency import ModelResidency
+
+    residency = ModelResidency(
+        model=model, mock=mock, weight_quant=weight_quant, backend=backend,
+        device=device, length_buckets=length_buckets,
     )
+    with tel.span("backend_init", model=model, mock=bool(mock)):
+        clf = residency.acquire()
+    tel.annotate(backend=clf.name, batch_size=batch_size, prefetch_depth=depth)
 
     totals_path = os.path.join(output_dir, "sentiment_totals.json")
     details_path = os.path.join(output_dir, "sentiment_details.csv")
@@ -294,7 +338,10 @@ def run_sentiment(
         [Stage("tokenize", tokenize_stage), Stage("h2d", h2d_stage)],
         depth=depth,
     )
-    source = songs if songs is not None else iter_songs(dataset_path, limit=limit)
+    source = _timed_source(
+        tel,
+        songs if songs is not None else iter_songs(dataset_path, limit=limit),
+    )
     with open(
         details_path, "a" if skip else "w", newline="", encoding="utf-8"
     ) as details_fh:
@@ -307,30 +354,34 @@ def run_sentiment(
         # pipeline threads, not leave them prefetching into a dead run.
         with contextlib.closing(pipe.run(batches(source))) as results:
             for rows_batch, handle, t_submit, measured in results:
-                labels = clf.collect(handle)
+                with tel.span("compute", rows=len(rows_batch)):
+                    labels = clf.collect(handle)
                 # Submit→collect wall time per batch, amortized per song,
                 # unless the backend measured each song.
                 elapsed = time.perf_counter() - t_submit
+                tel.observe("sentiment.batch_seconds", elapsed)
+                tel.count("rows_classified", len(rows_batch))
                 per_song = (
                     elapsed / max(1, len(rows_batch))
                     if clf.reports_latency else 0.0
                 )
                 exact = measured and len(measured) == len(rows_batch)
-                for i, ((artist, song, text), label) in enumerate(
-                        zip(rows_batch, labels)):
-                    if exact:
-                        latency = measured[i]
-                    else:
-                        latency = 0.0 if not text.strip() else per_song
-                    counts[label] += 1
-                    rows.append(SentimentRow(artist, song, label, latency))
-                    writer.writerow({
-                        "artist": artist,
-                        "song": song,
-                        "label": label,
-                        "latency_seconds": f"{latency:.4f}",
-                    })
-                details_fh.flush()
+                with tel.span("write", rows=len(rows_batch)):
+                    for i, ((artist, song, text), label) in enumerate(
+                            zip(rows_batch, labels)):
+                        if exact:
+                            latency = measured[i]
+                        else:
+                            latency = 0.0 if not text.strip() else per_song
+                        counts[label] += 1
+                        rows.append(SentimentRow(artist, song, label, latency))
+                        writer.writerow({
+                            "artist": artist,
+                            "song": song,
+                            "label": label,
+                            "latency_seconds": f"{latency:.4f}",
+                        })
+                    details_fh.flush()
     wall = time.perf_counter() - start
 
     with atomic_write(totals_path) as fh:

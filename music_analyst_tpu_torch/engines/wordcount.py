@@ -15,8 +15,11 @@ same stages (cf. the reference call stack, SURVEY.md §3.1):
    report, and ``performance_metrics.json`` with per-chip timings
    (``:1027-1053,1084-1109``).
 
-Left out for now (roadmap item 7): the telemetry run scope, the XLA
-compile cache, the watchdog and ``run_with_failover``.  The JAX engine's
+Telemetry as in JAX: the ``wordcount`` run scope, a span per stage, the
+``songs_ingested`` / ``words_counted`` counters, and profiler annotations
+around the histograms.  Left out for now: the watchdog and
+``run_with_failover`` (the XLA compile cache needs no port).  The JAX
+engine's
 degrade to a host ``np.bincount`` when the device is lost is deliberately
 not ported: a failure on the card raises.
 """
@@ -56,6 +59,8 @@ from music_analyst_tpu_torch.ops.histogram import (
     sharded_histogram_streaming,
 )
 from music_analyst_tpu_torch.parallel.mesh import data_parallel_mesh
+from music_analyst_tpu_torch.profiling.trace import annotate
+from music_analyst_tpu_torch.telemetry import get_telemetry
 
 COUNT_MODES = ("host-shard", "device-ids")
 
@@ -83,23 +88,27 @@ def _device_counts(corpus: IngestResult, mesh, count_mode: str, chunk: int):
         # The word stream walks bounded chunks; its wall-clock is every
         # shard's share.  The artist histogram is O(songs), too small for
         # chunking to pay, and stays host-local with per-shard timing.
-        t0 = time.perf_counter()
-        word_counts = sharded_histogram_streaming(
-            corpus.word_ids, corpus.word_offsets, word_vocab, mesh,
-            chunk_songs=chunk,
-        )
-        word_wall = time.perf_counter() - t0
-        artist_counts, artist_times = sharded_histogram_hostlocal_timed(
-            corpus.artist_ids, artist_vocab, mesh
-        )
+        with annotate("wordcount.word_histogram"):
+            t0 = time.perf_counter()
+            word_counts = sharded_histogram_streaming(
+                corpus.word_ids, corpus.word_offsets, word_vocab, mesh,
+                chunk_songs=chunk,
+            )
+            word_wall = time.perf_counter() - t0
+        with annotate("wordcount.artist_histogram"):
+            artist_counts, artist_times = sharded_histogram_hostlocal_timed(
+                corpus.artist_ids, artist_vocab, mesh
+            )
         per_chip = [word_wall + a for a in artist_times.per_chip_seconds()]
     elif count_mode == "host-shard":
-        word_counts, word_times = sharded_histogram_hostlocal_timed(
-            corpus.word_ids, word_vocab, mesh
-        )
-        artist_counts, artist_times = sharded_histogram_hostlocal_timed(
-            corpus.artist_ids, artist_vocab, mesh
-        )
+        with annotate("wordcount.word_histogram"):
+            word_counts, word_times = sharded_histogram_hostlocal_timed(
+                corpus.word_ids, word_vocab, mesh
+            )
+        with annotate("wordcount.artist_histogram"):
+            artist_counts, artist_times = sharded_histogram_hostlocal_timed(
+                corpus.artist_ids, artist_vocab, mesh
+            )
         # Shard i's measured compute: its own count phases plus the merges
         # every device sits in together.
         per_chip = [
@@ -109,10 +118,12 @@ def _device_counts(corpus: IngestResult, mesh, count_mode: str, chunk: int):
         ]
     else:
         # .cpu() is the synchronisation point of each histogram.
-        word_counts = sharded_histogram(
-            corpus.word_ids, word_vocab, mesh).cpu().numpy()
-        artist_counts = sharded_histogram(
-            corpus.artist_ids, artist_vocab, mesh).cpu().numpy()
+        with annotate("wordcount.word_histogram"):
+            word_counts = sharded_histogram(
+                corpus.word_ids, word_vocab, mesh).cpu().numpy()
+        with annotate("wordcount.artist_histogram"):
+            artist_counts = sharded_histogram(
+                corpus.artist_ids, artist_vocab, mesh).cpu().numpy()
         per_chip = None
     return word_counts, artist_counts, per_chip
 
@@ -151,10 +162,25 @@ def run_analysis(
     if mesh is None:
         mesh = data_parallel_mesh(device=device)
     cache_dir = resolve_cache_dir(corpus_cache_dir, use_corpus_cache)
+    tel = get_telemetry()
     timer = StageTimer()
     os.makedirs(output_dir, exist_ok=True)
     split_dir = os.path.join(output_dir, "split_columns")
 
+    with tel.run_scope("wordcount", output_dir):
+        return _run_analysis_instrumented(
+            tel, timer, dataset_path, output_dir, split_dir, word_limit,
+            artist_limit, limit, mesh, write_split, ingest_backend,
+            count_mode, quiet, corpus, ingest_seconds, cache_dir,
+            chunk_songs,
+        )
+
+
+def _run_analysis_instrumented(
+    tel, timer, dataset_path, output_dir, split_dir, word_limit,
+    artist_limit, limit, mesh, write_split, ingest_backend, count_mode,
+    quiet, corpus, ingest_seconds, cache_dir, chunk_songs,
+) -> AnalysisResult:
     with timer.stage("split"):
         if write_split:
             artist_label, text_label = read_header_labels(dataset_path)
@@ -179,6 +205,10 @@ def run_analysis(
     chunk = resolve_chunk_songs(
         chunk_songs, corpus.song_count, corpus.token_count
     )
+    tel.count("songs_ingested", corpus.song_count)
+    tel.count("words_counted", corpus.token_count)
+    tel.annotate(mesh_shape=mesh.shape, count_mode=count_mode,
+                 chunk_songs=chunk)
     with timer.stage("device_compute"):
         word_counts, artist_counts, per_chip_compute = _device_counts(
             corpus, mesh, count_mode, chunk

@@ -21,8 +21,9 @@ other to the same codes (the default directory is shared):
 
 Resolution: an explicit ``cache_dir`` wins, then ``$MUSICAAL_WQ_CACHE`` (a
 directory, or ``0``/``off``/``false``/``no`` to disable), then
-``~/.cache/musicaal_wq``.  Not ported: the JAX package's fault-injection
-seam, its telemetry mirror and its publish retries.
+``~/.cache/musicaal_wq``.  Each stats bump is mirrored into the run's
+``wq_cache.*`` telemetry counters, as in JAX.  Not ported: the JAX
+package's fault-injection seam and its publish retries.
 """
 
 from __future__ import annotations
@@ -58,6 +59,9 @@ _STATS: Dict[str, int] = {
 def _bump(name: str, n: int = 1) -> None:
     with _STATS_LOCK:
         _STATS[name] += n
+    from music_analyst_tpu_torch.telemetry import get_telemetry
+
+    get_telemetry().count(f"wq_cache.{name}", n)
 
 
 def cache_stats() -> Dict[str, int]:

@@ -52,7 +52,11 @@ from music_analyst_tpu_torch.models.layers import (
 )
 from music_analyst_tpu_torch.models.tokenization import resolve_bert_tokenizer
 from music_analyst_tpu_torch.models.tree import as_tensor, f32, put_kernel
-from music_analyst_tpu_torch.runtime.wire import narrow_lengths, to_device
+from music_analyst_tpu_torch.runtime.wire import (
+    count_h2d_bytes,
+    narrow_lengths,
+    to_device,
+)
 from music_analyst_tpu_torch.utils.shapes import round_pow2
 
 # HF DistilBERT hardcodes nn.LayerNorm(eps=1e-12).
@@ -747,12 +751,14 @@ class DistilBertClassifier(ClassifierBackend):
 
     def transfer(self, prepared):
         """H2D phase: every planned wire array onto the device (pinned
-        staging, asynchronous copy)."""
+        staging, asynchronous copy).  Bytes shipped (and saved against an
+        int32 wire) land in the ``pipeline.h2d_bytes*`` counters."""
         texts, parts = prepared
-        return texts, [
-            (gather, n, to_device(arrays, self.device))
-            for gather, n, arrays in parts
-        ]
+        placed = []
+        for gather, n, arrays in parts:
+            count_h2d_bytes(arrays)
+            placed.append((gather, n, to_device(arrays, self.device)))
+        return texts, placed
 
     def _forward(self, token_ids, lengths):
         logits = self.model(token_ids.long(), lengths.to(torch.int32))

@@ -61,6 +61,7 @@ from music_analyst_tpu_torch.models.tokenization import (
 )
 from music_analyst_tpu_torch.models.tree import as_tensor, f32, put_kernel
 from music_analyst_tpu_torch.ops.quant import WQ_DEFAULT_GROUP
+from music_analyst_tpu_torch.runtime.wire import count_h2d_bytes
 from music_analyst_tpu_torch.utils.labels import SUPPORTED_LABELS, normalise_label
 from music_analyst_tpu_torch.utils.shapes import round_pow2
 
@@ -706,6 +707,7 @@ class LlamaZeroShotClassifier(ClassifierBackend):
         if not len(texts):
             return []
         ids, lens = self._encode_prompts(texts)
+        count_h2d_bytes([ids, lens])
         scores = self.score_labels(self._tensor(ids), self._tensor(lens))
         best = scores.argmax(dim=1).cpu().numpy()
         return ["Neutral" if not text.strip() else SUPPORTED_LABELS[int(i)]

@@ -25,6 +25,7 @@ from music_analyst_tpu_torch.resilience.policy import (
     classify_retryable,
     resolve_http_retries,
 )
+from music_analyst_tpu_torch.telemetry import get_telemetry
 from music_analyst_tpu_torch.utils.labels import normalise_label
 
 DEFAULT_ENDPOINT = "http://localhost:11434"
@@ -101,6 +102,7 @@ class OllamaClassifier(ClassifierBackend):
             elapsed = time.perf_counter() - start
             response.raise_for_status()
             raw_output = response.json().get("response", "").strip()
+            get_telemetry().observe("ollama.request_seconds", elapsed)
             return normalise_label(raw_output), elapsed
 
         return self._retry.call(request, site="ollama.request")
@@ -108,8 +110,9 @@ class OllamaClassifier(ClassifierBackend):
     def classify_batch(self, texts: Sequence[str]) -> List[str]:
         labels: List[str] = []
         self.last_latencies = []
-        for text in texts:
-            label, latency = self._classify_one(text)
-            labels.append(label)
-            self.last_latencies.append(latency)
+        with get_telemetry().span("ollama_batch", rows=len(texts)):
+            for text in texts:
+                label, latency = self._classify_one(text)
+                labels.append(label)
+                self.last_latencies.append(latency)
         return labels

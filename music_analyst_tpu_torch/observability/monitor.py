@@ -1,0 +1,320 @@
+"""Live fleet monitor: the ``monitor`` CLI subcommand.
+
+The port's copy of ``music_analyst_tpu/observability/monitor.py``; it
+speaks the same ``ndjson/v1`` ``stats`` op, so it attaches to either
+package's server or router.
+
+Attaches to a live serving front end (single server or replica router)
+over its unix socket, polls the ``stats`` op, and renders a refreshing
+per-replica table — req/s, tokens/s, batch occupancy, queue depth,
+p50/p99 latency, health — plus the metrics plane's active burn-rate
+alerts.  One NDJSON request per refresh; the server answers ``stats``
+from its control path, so monitoring never competes with inference for
+batch slots.
+
+``--once`` renders a single snapshot and exits 0 on a healthy reply —
+the scriptable liveness probe the smoke target uses.  Exit codes follow
+the house 0/1/2 gate semantics: 0 = healthy reply, 1 = the server
+answered but reported itself draining/unhealthy, 2 = no usable reply
+(dead socket, bad payload).
+
+Host-only by design — a monitor must attach while the card is busy.
+"""
+
+from __future__ import annotations
+
+import json
+import socket
+import sys
+import time
+from typing import Any, Dict, List, Optional
+
+_CLEAR = "\x1b[2J\x1b[H"  # ANSI clear + home (the refresh between polls)
+
+
+def _num(value: Any, digits: int = 2) -> str:
+    if isinstance(value, bool) or not isinstance(value, (int, float)):
+        return "-"
+    return f"{value:.{digits}f}"
+
+
+def _ms(value: Any) -> str:
+    """Seconds → ms column (latency quantiles are stored in seconds)."""
+    if isinstance(value, bool) or not isinstance(value, (int, float)):
+        return "-"
+    return f"{value * 1000.0:.1f}"
+
+
+def _dig(payload: Any, *path: str) -> Any:
+    for key in path:
+        if not isinstance(payload, dict):
+            return None
+        payload = payload.get(key)
+    return payload
+
+
+def extract_row(name: str, stats: Optional[Dict[str, Any]],
+                health: str = "healthy") -> Dict[str, Any]:
+    """One table row from one process's stats snapshot (the ``stats``
+    op payload, or a replica's ``last_stats``)."""
+    stats = stats if isinstance(stats, dict) else {}
+    row: Dict[str, Any] = {
+        "name": name,
+        "health": health,
+        "req_s": _dig(stats, "requests", "rates", "req_s"),
+        "shed_s": _dig(stats, "requests", "rates", "shed_s"),
+        "tokens_s": _dig(stats, "decode", "rates", "tokens_s"),
+        "occupancy": _dig(stats, "requests", "occupancy"),
+        "queue_depth": (
+            _dig(stats, "requests", "queue_depth")
+            if _dig(stats, "requests", "queue_depth") is not None
+            else _dig(stats, "requests", "queue_depth_max")
+        ),
+        "p50_s": _dig(stats, "requests", "latency", "p50_s"),
+        "p99_s": _dig(stats, "requests", "latency", "p99_s"),
+    }
+    return row
+
+
+def _bar(frac: Any, width: int = 8) -> str:
+    """A fixed-width occupancy bar: ``[####----]``."""
+    if isinstance(frac, bool) or not isinstance(frac, (int, float)):
+        return "[" + "?" * width + "]"
+    filled = int(round(min(1.0, max(0.0, frac)) * width))
+    return "[" + "#" * filled + "-" * (width - filled) + "]"
+
+
+def extract_engine_row(name: str,
+                       stats: Optional[Dict[str, Any]]) -> Optional[Dict[str, Any]]:
+    """One engine-panel row from a stats snapshot's ``decode`` section
+    (engine ledger + speculation EWMA); None when the process serves no
+    continuous scheduler."""
+    decode = stats.get("decode") if isinstance(stats, dict) else None
+    if not isinstance(decode, dict):
+        return None
+    ledger = decode.get("ledger") or {}
+    occ = ledger.get("occupancy") or {}
+    fractions = ledger.get("fractions") or {}
+    slots_total = occ.get("slots_total", decode.get("n_slots"))
+    slots_active = occ.get("slots_active", decode.get("active_slots"))
+    occupancy = None
+    if (isinstance(slots_total, int) and slots_total > 0
+            and isinstance(slots_active, int)):
+        occupancy = slots_active / slots_total
+    return {
+        "name": name,
+        "slots_active": slots_active,
+        "slots_total": slots_total,
+        "occupancy": occupancy,
+        "goodput": ledger.get("goodput_fraction"),
+        "prefill": fractions.get("prefill"),
+        "idle_bubble": fractions.get("idle_bubble"),
+        "pages_free": occ.get("pages_free"),
+        "pages_pinned": occ.get("pages_pinned"),
+        "spec_accept": _dig(decode, "speculation", "acceptance_rate"),
+    }
+
+
+def build_view(payload: Dict[str, Any]) -> Dict[str, Any]:
+    """The reply payload of one ``stats`` op → rows + alerts + header."""
+    stats = payload.get("stats") or {}
+    rows: List[Dict[str, Any]] = []
+    engine: List[Dict[str, Any]] = []
+    router = stats.get("router")
+    if isinstance(router, dict) and router.get("replicas"):
+        for name, snap in sorted(router["replicas"].items()):
+            rows.append(extract_row(
+                name, (snap or {}).get("last_stats"),
+                health=(snap or {}).get("health") or "?",
+            ))
+            engine_row = extract_engine_row(
+                name, (snap or {}).get("last_stats")
+            )
+            if engine_row is not None:
+                engine.append(engine_row)
+        # The front end's own admission edge rides along as the fleet
+        # row: its rates already aggregate what it dispatched.
+        fleet = extract_row("fleet", stats)
+        fleet["health"] = (
+            f"{router.get('healthy_count')}/{router.get('replica_count')} "
+            f"healthy"
+        )
+        rows.append(fleet)
+    else:
+        rows.append(extract_row("local", stats))
+        engine_row = extract_engine_row("local", stats)
+        if engine_row is not None:
+            engine.append(engine_row)
+    metrics = stats.get("metrics") or {}
+    alerts = list(metrics.get("active_alerts") or [])
+    idle_fracs = [
+        r["idle_bubble"] for r in engine
+        if isinstance(r.get("idle_bubble"), (int, float))
+    ]
+    return {
+        "mode": stats.get("mode"),
+        "uptime_s": stats.get("uptime_s"),
+        "draining": bool(stats.get("draining")),
+        "rows": rows,
+        "engine": engine,
+        "idle_bubble_max": max(idle_fracs) if idle_fracs else None,
+        "alerts": alerts,
+        "metrics": {
+            k: metrics.get(k)
+            for k in ("samples", "scrape_errors", "alerts_fired",
+                      "alerts_resolved", "stale", "interval_ms")
+            if k in metrics
+        },
+    }
+
+
+def render_view(view: Dict[str, Any]) -> List[str]:
+    lines = [
+        f"monitor: mode={view['mode']} uptime={_num(view['uptime_s'], 1)}s"
+        + (" DRAINING" if view["draining"] else "")
+    ]
+    header = (
+        f"{'replica':<12} {'health':<14} {'req/s':>8} {'tok/s':>8} "
+        f"{'occ':>6} {'queue':>6} {'p50ms':>8} {'p99ms':>8}"
+    )
+    lines.append(header)
+    lines.append("-" * len(header))
+    for row in view["rows"]:
+        lines.append(
+            f"{str(row['name'])[:12]:<12} {str(row['health'])[:14]:<14} "
+            f"{_num(row['req_s']):>8} {_num(row['tokens_s']):>8} "
+            f"{_num(row['occupancy']):>6} "
+            f"{row['queue_depth'] if row['queue_depth'] is not None else '-':>6} "
+            f"{_ms(row['p50_s']):>8} {_ms(row['p99_s']):>8}"
+        )
+    engine = view.get("engine") or []
+    if engine:
+        lines.append("engine panel (goodput ledger):")
+        for row in engine:
+            slots = (
+                f"{row['slots_active']}/{row['slots_total']}"
+                if row.get("slots_total") is not None else "-"
+            )
+            pool = (
+                f" pool free={row['pages_free']} pinned={row['pages_pinned']}"
+                if row.get("pages_free") is not None else ""
+            )
+            spec = (
+                f" spec={_num(row['spec_accept'])}"
+                if row.get("spec_accept") is not None else ""
+            )
+            lines.append(
+                f"  {str(row['name'])[:12]:<12} occ {_bar(row['occupancy'])} "
+                f"{slots:>5}  goodput={_num(row['goodput'])} "
+                f"prefill={_num(row['prefill'])} "
+                f"idle={_num(row['idle_bubble'])}{pool}{spec}"
+            )
+    metrics = view.get("metrics") or {}
+    if metrics:
+        shown = " ".join(f"{k}={v}" for k, v in metrics.items())
+        lines.append(f"metrics plane: {shown}")
+    if view["alerts"]:
+        lines.append("ACTIVE ALERTS:")
+        for alert in view["alerts"]:
+            tenant = f" tenant={alert.get('tenant')}" \
+                if alert.get("tenant") else ""
+            trace = f" trace={alert.get('trace_id')}" \
+                if alert.get("trace_id") else ""
+            lines.append(
+                f"  {alert.get('alert')}{tenant}: "
+                f"burn {alert.get('burn_fast')}x/{alert.get('burn_slow')}x "
+                f"(threshold {alert.get('threshold')}x){trace}"
+            )
+    else:
+        lines.append("no active alerts")
+    return lines
+
+
+class _StatsClient:
+    """One persistent NDJSON connection; a fresh wire id per poll."""
+
+    def __init__(self, socket_path: str, timeout_s: float = 5.0) -> None:
+        self._sock = socket.socket(socket.AF_UNIX, socket.SOCK_STREAM)
+        self._sock.settimeout(timeout_s)
+        self._sock.connect(socket_path)
+        self._rfile = self._sock.makefile("r", encoding="utf-8")
+        self._seq = 0
+
+    def poll(self) -> Optional[Dict[str, Any]]:
+        self._seq += 1
+        wire_id = f"monitor-{self._seq}"
+        line = json.dumps({"id": wire_id, "op": "stats"}) + "\n"
+        self._sock.sendall(line.encode("utf-8"))
+        for raw in self._rfile:
+            raw = raw.strip()
+            if not raw:
+                continue
+            try:
+                payload = json.loads(raw)
+            except ValueError:
+                continue
+            if isinstance(payload, dict) and payload.get("id") == wire_id:
+                return payload
+        return None
+
+    def close(self) -> None:
+        try:
+            self._rfile.close()
+        except OSError:
+            pass
+        try:
+            self._sock.close()
+        except OSError:
+            pass
+
+
+def run_monitor(socket_path: str, once: bool = False,
+                interval_s: float = 2.0,
+                json_output: bool = False,
+                idle_bubble_gate: Optional[float] = None) -> int:
+    """CLI entry.  0 = healthy reply, 1 = server answered but draining
+    (or, with ``--idle-bubble-gate``, reported an engine idle_bubble
+    fraction above the threshold), 2 = no usable reply."""
+    try:
+        client = _StatsClient(socket_path)
+    except OSError as exc:
+        print(f"monitor: cannot connect to {socket_path}: {exc}",
+              file=sys.stderr)
+        return 2
+    try:
+        while True:
+            try:
+                payload = client.poll()
+            except OSError as exc:
+                print(f"monitor: poll failed: {exc}", file=sys.stderr)
+                return 2
+            if payload is None or not payload.get("ok"):
+                print("monitor: no usable stats reply", file=sys.stderr)
+                return 2
+            view = build_view(payload)
+            if json_output:
+                print(json.dumps(view, default=str))
+            else:
+                if not once:
+                    sys.stdout.write(_CLEAR)
+                for line in render_view(view):
+                    print(line)
+                sys.stdout.flush()
+            if once:
+                idle_max = view.get("idle_bubble_max")
+                gate_tripped = (
+                    idle_bubble_gate is not None
+                    and isinstance(idle_max, (int, float))
+                    and idle_max > idle_bubble_gate
+                )
+                if gate_tripped:
+                    print(
+                        f"monitor: idle_bubble {idle_max} exceeds gate "
+                        f"{idle_bubble_gate}", file=sys.stderr,
+                    )
+                return 1 if (view["draining"] or gate_tripped) else 0
+            time.sleep(max(interval_s, 0.1))
+    except KeyboardInterrupt:
+        return 0
+    finally:
+        client.close()

@@ -235,6 +235,7 @@ def sharded_histogram_streaming(
     chunk size.  One device only, like the mesh.
     """
     from music_analyst_tpu_torch.runtime.prefetch import resolve_prefetch_depth
+    from music_analyst_tpu_torch.telemetry import get_telemetry
 
     ids = np.asarray(ids)
     offsets = np.asarray(offsets, dtype=np.int64)
@@ -251,10 +252,15 @@ def sharded_histogram_streaming(
     bounds = chunk_token_bounds(offsets, chunk_songs)
     spans = list(zip(bounds, bounds[1:]))
     hist = _bins(vocab_size, device)
+    tel = get_telemetry()
+    tel.count("histogram.stream_chunks", len(spans))
     if device.type != "cuda":
+        tel.count("histogram.stream_h2d_bytes", 0)
         for start, end in spans:
             _accumulate(hist, _host_tensor(ids[start:end]))
         return hist[:vocab_size].numpy().copy()
+    # The bytes that cross: each chunk's int32 ids, unpadded.
+    tel.count("histogram.stream_h2d_bytes", 4 * (bounds[-1] - bounds[0]))
 
     ring = resolve_prefetch_depth(prefetch_depth) + 1
     width = max(end - start for start, end in spans)

@@ -1,18 +1,26 @@
 """Bounded-depth staged pipeline executor (host↔device overlap).
 
-Trimmed copy of ``music_analyst_tpu/runtime/prefetch.py`` (the port keeps
-its own; watchdog, fault injection, stage retries and stage accounting stay
-out).  A source iterator feeds a chain of stages, each in its own
-thread, joined by bounded queues; the consumer iterates results **in
-submission order** while up to ``depth`` items per hop are in flight ahead
-of it.  ``depth`` is the backpressure knob: a fast producer blocks instead
-of buffering the corpus, and the card holds at most ``depth + 1`` staged
-batches.
+Copy of ``music_analyst_tpu/runtime/prefetch.py`` (the port keeps its
+own; the watchdog scopes, fault injection and stage retries stay out).  A
+source iterator feeds a chain of stages, each in its own thread, joined by
+bounded queues; the consumer iterates results **in submission order**
+while up to ``depth`` items per hop are in flight ahead of it.  ``depth``
+is the backpressure knob: a fast producer blocks instead of buffering the
+corpus, and the card holds at most ``depth + 1`` staged batches.
 
 Failure contract: an exception in any stage (or in the source) is carried
 down the chain and re-raised in the consumer promptly; closing the
 consumer generator early cancels the pipeline, drains the queues and joins
 every thread.  ``depth=0`` runs the same stages inline (no threads).
+
+Accounting, as in JAX: each stage tracks items, work seconds, **stall**
+seconds (waiting for input — the upstream stage is the bottleneck),
+backpressure seconds (waiting for output space — the downstream is), and
+the max depth its input queue reached.  On completion the pipeline
+publishes ``<name>.<stage>_stall_s`` / ``<name>.<stage>_queue_depth_max``
+gauges plus a structured record (:meth:`Telemetry.record_pipeline`) that
+lands in the run manifest's ``pipeline`` section, and per-item stage
+spans.
 """
 
 from __future__ import annotations
@@ -20,17 +28,23 @@ from __future__ import annotations
 import os
 import queue
 import threading
+import time
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
-from typing import Any, Callable, Iterable, Iterator, List, Sequence
+from typing import Any, Callable, Dict, Iterable, Iterator, List, Sequence
+
+from music_analyst_tpu_torch.telemetry import get_telemetry
 
 DEFAULT_PREFETCH_DEPTH = 2
 
-# Cancellation poll period for blocking queue ops.
+# Cancellation poll period for blocking queue ops.  Long enough that the
+# steady state pays ~zero wakeups, short enough that close() returns fast.
 _POLL_S = 0.05
-# Thread-join grace at shutdown; a stage fn that ignores the cancel longer
-# is left to finish as a daemon rather than hanging the caller.
+
+# Thread-join grace at shutdown.  Stages only block in cancellable poll
+# loops or in user fns; a user fn that ignores the cancel for longer than
+# this is left to finish as a daemon rather than hanging the caller.
 _JOIN_S = 5.0
 
 _DONE = object()          # end-of-stream sentinel
@@ -49,12 +63,45 @@ class _Failure:
 @dataclass
 class Stage:
     """One pipeline hop: ``fn(item) -> item`` under a stable ``name``.
-    ``workers > 1`` runs ``fn`` on a pool of that many threads with up to
-    ``2 * workers`` items in flight; results still leave in order."""
+
+    ``workers > 1`` runs the stage on an internal thread pool with a
+    bounded in-flight window; results still leave the stage in submission
+    order (the per-song engine's old deque window, generalized).  Set
+    ``record_spans=False`` when ``fn`` records its own telemetry span
+    (avoids double-counting in ``top_spans``).
+    """
 
     name: str
     fn: Callable[[Any], Any]
     workers: int = 1
+    record_spans: bool = True
+
+
+class StageStats:
+    """Accounting for one stage (or the source/sink pseudo-stages)."""
+
+    __slots__ = (
+        "name", "items", "work_s", "stall_s", "backpressure_s",
+        "queue_depth_max",
+    )
+
+    def __init__(self, name: str) -> None:
+        self.name = name
+        self.items = 0
+        self.work_s = 0.0
+        self.stall_s = 0.0
+        self.backpressure_s = 0.0
+        self.queue_depth_max = 0
+
+    def as_dict(self) -> Dict[str, Any]:
+        return {
+            "stage": self.name,
+            "items": self.items,
+            "work_s": round(self.work_s, 6),
+            "stall_s": round(self.stall_s, 6),
+            "backpressure_s": round(self.backpressure_s, 6),
+            "queue_depth_max": self.queue_depth_max,
+        }
 
 
 def resolve_prefetch_depth(
@@ -81,7 +128,9 @@ def resolve_prefetch_depth(
 class PrefetchPipeline:
     """Run ``source → stages… → consumer`` with ``depth`` items per hop.
 
-    One-shot: build, then iterate :meth:`run`.
+    One-shot: build, iterate :meth:`run`, read :meth:`summary`.  The
+    consumer sees results strictly in source order regardless of depth or
+    per-stage worker count.
     """
 
     def __init__(
@@ -89,101 +138,152 @@ class PrefetchPipeline:
         stages: Sequence[Stage],
         depth: int = DEFAULT_PREFETCH_DEPTH,
         name: str = "pipeline",
+        sink_name: str = "compute",
     ) -> None:
         if depth < 0:
             raise ValueError(f"depth must be >= 0, got {depth}")
-        self.stages = list(stages)
-        for stage in self.stages:
+        for stage in stages:
             if stage.workers < 1:
                 raise ValueError(
                     f"stage {stage.name!r}: workers must be >= 1, got "
                     f"{stage.workers}")
+        self.stages = list(stages)
         self.depth = depth
         self.name = name
         self._cancel = threading.Event()
         self._threads: List[threading.Thread] = []
         self._queues: List[queue.Queue] = []
+        self._source_stats = StageStats("source")
+        self._stage_stats = [StageStats(s.name) for s in self.stages]
+        self._sink_stats = StageStats(sink_name)
+        self._published = False
 
-    def _put(self, q: queue.Queue, item: Any) -> bool:
-        """Blocking put that respects cancellation; False on cancel."""
+    # ------------------------------------------------------- queue helpers
+
+    def _put(self, q: queue.Queue, item: Any, stats: StageStats = None) -> bool:
+        """Blocking put that respects cancellation; waiting time counts as
+        the producing stage's backpressure.  Returns False on cancel."""
+        t0 = time.perf_counter()
         while not self._cancel.is_set():
             try:
                 q.put(item, timeout=_POLL_S)
             except queue.Full:
                 continue
+            if stats is not None:
+                stats.backpressure_s += time.perf_counter() - t0
             return True
         return False
 
-    def _get(self, q: queue.Queue) -> Any:
-        """Blocking get that respects cancellation; ``_CANCELLED`` on
+    def _get(self, q: queue.Queue, stats: StageStats = None) -> Any:
+        """Blocking get that respects cancellation; waiting time counts as
+        the consuming stage's input stall.  Returns ``_CANCELLED`` on
         cancel."""
+        t0 = time.perf_counter()
         while not self._cancel.is_set():
+            if stats is not None:
+                stats.queue_depth_max = max(stats.queue_depth_max, q.qsize())
             try:
-                return q.get(timeout=_POLL_S)
+                item = q.get(timeout=_POLL_S)
             except queue.Empty:
                 continue
+            if stats is not None:
+                stats.stall_s += time.perf_counter() - t0
+            return item
         return _CANCELLED
 
+    # ------------------------------------------------------------- threads
+
     def _pump(self, source: Iterable[Any], q_out: queue.Queue) -> None:
+        """Feed the first queue from the source iterator.  Source read time
+        is the pseudo-stage's work (an ingest-bound run shows up here)."""
+        stats = self._source_stats
         it = iter(source)
         while True:
+            t0 = time.perf_counter()
             try:
                 item = next(it)
             except StopIteration:
-                self._put(q_out, _DONE)
+                self._put(q_out, _DONE, stats)
                 return
             except BaseException as exc:  # forwarded, re-raised in consumer
-                self._put(q_out, _Failure(exc))
+                self._put(q_out, _Failure(exc), stats)
                 return
-            if not self._put(q_out, item):
+            stats.work_s += time.perf_counter() - t0
+            stats.items += 1
+            if not self._put(q_out, item, stats):
                 return
 
     @staticmethod
-    def _call(stage: Stage, item: Any) -> Any:
+    def _timed_fn(stage: Stage, item: Any):
+        """Run one stage fn; returns ``(duration_s, result | _Failure)``."""
+        t0 = time.perf_counter()
         try:
-            return stage.fn(item)
+            result = stage.fn(item)
         except BaseException as exc:  # forwarded, re-raised in consumer
-            return _Failure(exc)
+            return time.perf_counter() - t0, _Failure(exc)
+        return time.perf_counter() - t0, result
+
+    def _account(self, stage: Stage, stats: StageStats, dur: float) -> None:
+        stats.work_s += dur
+        stats.items += 1
+        if stage.record_spans:
+            get_telemetry().record_span(stage.name, dur, pipeline=self.name)
 
     def _stage_loop(
-        self, stage: Stage, q_in: queue.Queue, q_out: queue.Queue
+        self, stage: Stage, stats: StageStats,
+        q_in: queue.Queue, q_out: queue.Queue,
     ) -> None:
-        pool = (ThreadPoolExecutor(max_workers=stage.workers,
-                                   thread_name_prefix=f"{self.name}-{stage.name}")
-                if stage.workers > 1 else None)
-        window: deque = deque()
+        """Coordinator thread for one stage.
 
-        def emit(result) -> bool:
-            """Forward one result; False ends the loop (cancelled, or a
-            failure that poisons the chain)."""
-            return self._put(q_out, result) and not isinstance(result,
-                                                               _Failure)
+        ``workers == 1`` processes inline; ``workers > 1`` keeps a bounded
+        window of pool futures and emits results in submission order, so
+        downstream ordering never depends on worker scheduling.
+        """
+        pool = (
+            ThreadPoolExecutor(
+                max_workers=stage.workers,
+                thread_name_prefix=f"{self.name}-{stage.name}",
+            )
+            if stage.workers > 1 else None
+        )
+        window: deque = deque()
+        window_cap = stage.workers * 2
+
+        def emit(dur: float, result: Any) -> bool:
+            """Account + forward one result; False ends the loop (either
+            cancellation or a failure that poisons the chain)."""
+            self._account(stage, stats, dur)
+            if not self._put(q_out, result, stats):
+                return False
+            return not isinstance(result, _Failure)
 
         try:
             while True:
-                item = self._get(q_in)
+                item = self._get(q_in, stats)
                 if item is _CANCELLED:
                     return
                 if item is _DONE or isinstance(item, _Failure):
                     while window:
-                        if not emit(window.popleft().result()):
+                        if not emit(*window.popleft().result()):
                             return
-                    self._put(q_out, item)
+                    self._put(q_out, item, stats)
                     return
                 if pool is None:
-                    if not emit(self._call(stage, item)):
+                    if not emit(*self._timed_fn(stage, item)):
                         return
-                    continue
-                window.append(pool.submit(self._call, stage, item))
-                if len(window) >= 2 * stage.workers:
-                    if not emit(window.popleft().result()):
-                        return
+                else:
+                    window.append(pool.submit(self._timed_fn, stage, item))
+                    if len(window) >= window_cap:
+                        if not emit(*window.popleft().result()):
+                            return
         finally:
             if pool is not None:
                 pool.shutdown(wait=False, cancel_futures=True)
 
+    # ------------------------------------------------------------ shutdown
+
     def _shutdown(self) -> None:
-        """Cancel, drain, join.  Idempotent; never raises."""
+        """Cancel, drain, join, publish.  Idempotent; never raises."""
         self._cancel.set()
         for q in self._queues:
             while True:
@@ -193,11 +293,42 @@ class PrefetchPipeline:
                     break
         for thread in self._threads:
             thread.join(timeout=_JOIN_S)
+        self._publish()
+
+    def _publish(self) -> None:
+        if self._published:
+            return
+        self._published = True
+        tel = get_telemetry()
+        summary = self.summary()
+        for entry in summary["stages"]:
+            prefix = f"{self.name}.{entry['stage']}"
+            tel.gauge(f"{prefix}_stall_s", entry["stall_s"])
+            if entry["queue_depth_max"]:
+                tel.gauge(
+                    f"{prefix}_queue_depth_max", entry["queue_depth_max"]
+                )
+        tel.record_pipeline(self.name, summary)
+
+    def summary(self) -> Dict[str, Any]:
+        """JSON-able stats: per-stage stall/work/backpressure seconds and
+        queue-depth high-water marks (the manifest ``pipeline`` entry)."""
+        stats = [self._source_stats, *self._stage_stats, self._sink_stats]
+        return {
+            "depth": self.depth,
+            "stages": [s.as_dict() for s in stats],
+            "max_queue_depth": max(s.queue_depth_max for s in stats),
+        }
+
+    # ----------------------------------------------------------------- run
 
     def run(self, source: Iterable[Any]) -> Iterator[Any]:
-        """Yield each source item after it has passed through every stage,
-        in source order.  A stage/source exception re-raises here; closing
-        the generator cancels and joins the pipeline."""
+        """Yield each source item after it has passed through every stage.
+
+        Results arrive in source order.  A stage/source exception re-raises
+        here; closing the generator (break / caller exception) cancels and
+        joins the pipeline before control returns.
+        """
         if self.depth == 0:
             yield from self._run_inline(source)
             return
@@ -215,29 +346,51 @@ class PrefetchPipeline:
             self._threads.append(
                 threading.Thread(
                     target=self._stage_loop,
-                    args=(stage, self._queues[i], self._queues[i + 1]),
+                    args=(
+                        stage, self._stage_stats[i],
+                        self._queues[i], self._queues[i + 1],
+                    ),
                     name=f"{self.name}-{stage.name}",
                     daemon=True,
                 )
             )
         for thread in self._threads:
             thread.start()
+        sink = self._sink_stats
         try:
             while True:
-                item = self._get(self._queues[-1])
+                item = self._get(self._queues[-1], sink)
                 if item is _DONE or item is _CANCELLED:
                     return
                 if isinstance(item, _Failure):
                     raise item.exc
+                sink.items += 1
+                t0 = time.perf_counter()
                 yield item
+                sink.work_s += time.perf_counter() - t0
         finally:
             self._shutdown()
 
     def _run_inline(self, source: Iterable[Any]) -> Iterator[Any]:
-        """depth=0: same stages, no threads, no overlap."""
-        for item in source:
-            for stage in self.stages:
-                item = self._call(stage, item)
-                if isinstance(item, _Failure):
-                    raise item.exc
-            yield item
+        """depth=0: same stages, same accounting, no threads, no overlap."""
+        try:
+            it = iter(source)
+            while True:
+                t0 = time.perf_counter()
+                try:
+                    item = next(it)
+                except StopIteration:
+                    return
+                self._source_stats.work_s += time.perf_counter() - t0
+                self._source_stats.items += 1
+                for stage, stats in zip(self.stages, self._stage_stats):
+                    dur, item = self._timed_fn(stage, item)
+                    self._account(stage, stats, dur)
+                    if isinstance(item, _Failure):
+                        raise item.exc
+                self._sink_stats.items += 1
+                t0 = time.perf_counter()
+                yield item
+                self._sink_stats.work_s += time.perf_counter() - t0
+        finally:
+            self._publish()

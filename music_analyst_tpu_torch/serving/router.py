@@ -1,0 +1,1401 @@
+"""Replica router: one dispatch point in front of N worker servers.
+
+Counterpart of ``music_analyst_tpu/serving/router.py``.  Workers are
+``python -m music_analyst_tpu_torch serve --socket … --device D``
+processes, where ``D`` is the router's own device.  They inherit the
+environment, so on a machine with one card every worker shares it
+unless the caller sets ``CUDA_VISIBLE_DEVICES``; a worker told to use
+CUDA on a machine without it exits non-zero and the spawn fails, never
+serving from the CPU.  The front response cache's fingerprint folds in
+``framework="torch"`` and the card's name, as the single server's does.
+One repair: a worker lost while the router drains still has its
+unanswered requests requeued to the survivors (JAX ignores a loss once
+draining has begun, so those requests wait out the drain's timeout and
+fail); only the drain's own teardown of the fleet is not a loss.  Three
+additions over JAX: each replica's snapshot names its ``pid``;
+:meth:`ReplicaRouter.drain` polls every healthy worker's ``stats`` once
+more before stopping the fleet, so the manifest holds each worker's
+closing counters (the port's workers count their own kernel launches);
+and CPU workers split the host's cores (``OMP_NUM_THREADS``, unless the
+caller set it), since N PyTorch processes each spinning a thread per core
+on the same host slow every one of them by an order of magnitude.
+
+One resident server (``serving/server.py``) is one process on one
+backend; the scale-out shape is N such workers — each a full
+``SentimentServer`` listening on its own unix socket, typically spawned
+by :func:`spawn_replicas` — behind this router:
+
+* **join-shortest-queue dispatch** — each admitted request goes to the
+  healthy replica with the fewest router-side in-flight requests, tie
+  broken by the queue depth its last polled ``stats`` reply reported;
+* **health** — a poll thread pings every replica's ``stats`` op; a
+  transport failure, worker death, or dispatch failure classified by the
+  watchdog taxonomy (``tunnel_dead`` / ``decode_stall``) marks the
+  replica unhealthy, its undelivered in-flight requests are *requeued*
+  and re-dispatched to the survivors (``resilience/failover.py``
+  classification + the shared :class:`RetryPolicy` at the new
+  ``router.dispatch`` fault site), and the transition is recorded for
+  the run manifest's ``serving.router`` section.  A replica whose
+  *process* died is respawned under supervision (capped exponential
+  backoff, transition kind ``respawned``) — the fleet heals itself
+  instead of shrinking monotonically;
+* **per-tenant overload isolation** — the router's admission queue is
+  the same :class:`~music_analyst_tpu_torch.serving.slo.FairQueue` the batcher
+  and decode scheduler use (strict priority classes, per-tenant WFQ),
+  with per-tenant token buckets and deadline-aware ``slo_unattainable``
+  sheds: one greedy tenant sheds at *its own* budget/queue share while
+  the rest of the fleet's capacity keeps flowing;
+* **zero loss** — every admitted request either settles with a replica's
+  answer (possibly after re-dispatch) or fails with a structured error
+  (``queue_full``/``slo_unattainable``, each with a ``retry_after_ms``
+  hint; ``replica_lost`` when no healthy replica remains); nothing is
+  dropped silently.  Sentiment and wordcount ops are pure functions of
+  their text, so re-dispatching a request whose first answer died with
+  its worker is idempotent;
+* **graceful fleet drain** — SIGTERM (installed by :func:`run_router`)
+  stops admission, settles everything in flight, then SIGTERMs each
+  worker so *their* graceful-drain contract runs, escalating to SIGKILL
+  only for stragglers.
+
+The router speaks the same ``ndjson/v1`` wire protocol downstream that
+it serves upstream; request ids are rewritten to router-scoped wire ids
+on the way down and restored on the way up, so colliding client ids
+across connections cannot cross-talk.  The router quacks like a
+``DynamicBatcher`` (``submit``/``drain``/``stats``), so the front end is
+a plain ``SentimentServer`` with this object in the batcher seat.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import threading
+import time
+import weakref
+from typing import Any, Dict, List, Optional
+
+from music_analyst_tpu_torch.observability import watchdog
+from music_analyst_tpu_torch.resilience.failover import should_failover
+from music_analyst_tpu_torch.resilience.faults import fault_point
+from music_analyst_tpu_torch.resilience.policy import RetryPolicy, classify_retryable
+from music_analyst_tpu_torch.serving.batcher import (
+    _RETRY_AFTER_CAP_MS,
+    DEFAULT_TENANT,
+    ServeRequest,
+    resolve_max_queue,
+    resolve_priority,
+    resolve_replicas,
+    resolve_tenant_budget,
+    resolve_tp,
+    resolve_ttft_slo_ms,
+)
+from music_analyst_tpu_torch.observability.metrics_plane import (
+    configure_metrics,
+    get_metrics_plane,
+)
+from music_analyst_tpu_torch.serving.response_cache import (
+    ResponseCache,
+    backend_fingerprint,
+    checkpoint_stamp,
+    resolve_response_cache_dir,
+    try_answer,
+)
+from music_analyst_tpu_torch.serving.slo import FairQueue, RateMeter, TokenBucket
+from music_analyst_tpu_torch.telemetry import get_telemetry
+from music_analyst_tpu_torch.telemetry.reqtrace import (
+    configure_reqtrace,
+    get_reqtrace,
+)
+
+# Ops the router will forward; anything else is a bad_request at the edge
+# (control ops never reach here — the front server answers them itself).
+_FORWARD_OPS = ("sentiment", "wordcount", "generate")
+
+# How long to wait for a spawned worker's socket + first ping.  Workers
+# compile their warmup ladder before listening, so this is generous; a
+# worker that cannot come up inside it is killed and reported.
+_SPAWN_TIMEOUT_S = 120.0
+
+
+# A weak reference, as for the server's: a module global must not keep a
+# drained fleet's handles alive.
+_LAST_ROUTER: Optional["weakref.ref[ReplicaRouter]"] = None
+
+
+def router_stats() -> Dict[str, Any]:
+    """Stats of the most recent live router in this process ({} if none)."""
+    router = _LAST_ROUTER() if _LAST_ROUTER is not None else None
+    return router.stats() if router is not None else {}
+
+
+def _is_transport(exc: BaseException) -> bool:
+    """Failures that indict the replica's transport, not the request."""
+    return isinstance(exc, (OSError, EOFError))
+
+
+class ReplicaHandle:
+    """One worker server: its process, socket, and in-flight table.
+
+    ``proc`` is None for externally-managed workers (tests connect the
+    router to servers they started themselves); health tracking and
+    requeue work the same either way.
+    """
+
+    def __init__(self, name: str, socket_path: str,
+                 proc: Optional[subprocess.Popen] = None,
+                 cmd: Optional[List[str]] = None) -> None:
+        self.name = name
+        self.socket_path = socket_path
+        self.proc = proc
+        # The argv that started ``proc`` — what supervised respawn
+        # relaunches.  None (externally-managed worker) disables respawn
+        # for this handle.
+        self.cmd = list(cmd) if cmd is not None else None
+        # The spawn environment (None: the router's own), for respawns.
+        self.env: Optional[Dict[str, str]] = None
+        self.health = "starting"
+        self.dispatched = 0
+        self.requeues = 0
+        self.respawns = 0
+        self.last_stats: Optional[Dict[str, Any]] = None
+        self._sock = None
+        self._wfile = None
+        self._reader: Optional[threading.Thread] = None
+        self._lock = threading.Lock()
+        # wire id → (original id, ServeRequest); None req marks a poll.
+        self._pending: Dict[int, Any] = {}
+        self._on_lost = None     # set by the router at adoption
+        self._on_reply = None    # ditto: per-settled-reply bookkeeping
+
+    # ---------------------------------------------------------- lifecycle
+
+    def connect(self, timeout_s: float = _SPAWN_TIMEOUT_S) -> None:
+        """Wait for the worker's socket, connect, and start the reader."""
+        import socket as socketlib
+
+        deadline = time.monotonic() + timeout_s
+        last_exc: Optional[BaseException] = None
+        while time.monotonic() < deadline:
+            if self.proc is not None and self.proc.poll() is not None:
+                raise RuntimeError(
+                    f"replica {self.name} exited rc={self.proc.returncode} "
+                    "before its socket came up"
+                )
+            if os.path.exists(self.socket_path):
+                sock = socketlib.socket(
+                    socketlib.AF_UNIX, socketlib.SOCK_STREAM
+                )
+                try:
+                    sock.connect(self.socket_path)
+                except OSError as exc:
+                    last_exc = exc
+                    sock.close()
+                else:
+                    self._sock = sock
+                    self._wfile = sock.makefile("w", encoding="utf-8")
+                    self._reader = threading.Thread(
+                        target=self._read_loop,
+                        args=(sock.makefile("r", encoding="utf-8"),),
+                        name=f"router-read-{self.name}",
+                        daemon=True,
+                    )
+                    self._reader.start()
+                    self.health = "healthy"
+                    return
+            time.sleep(0.05)
+        raise RuntimeError(
+            f"replica {self.name} not reachable at {self.socket_path} "
+            f"after {timeout_s:.0f}s"
+            + (f" ({last_exc})" if last_exc else "")
+        )
+
+    def alive(self) -> bool:
+        return self.proc is None or self.proc.poll() is None
+
+    def close(self) -> None:
+        with self._lock:
+            wfile, sock = self._wfile, self._sock
+            self._wfile = self._sock = None
+        for closable in (wfile, sock):
+            try:
+                if closable is not None:
+                    closable.close()
+            except OSError:
+                pass
+
+    # ------------------------------------------------------------- wire
+
+    def send(self, wire_id: int, payload: Dict[str, Any],
+             entry: Any) -> None:
+        """Register ``entry`` under ``wire_id`` and write one request line.
+
+        Registration happens first so a reply can never race its own
+        pending record; on a write failure the record is withdrawn and the
+        transport error propagates to the dispatcher."""
+        with self._lock:
+            wfile = self._wfile
+            if wfile is None:
+                raise ConnectionError(
+                    f"replica {self.name} has no live connection"
+                )
+            self._pending[wire_id] = entry
+            try:
+                wfile.write(json.dumps(payload) + "\n")
+                wfile.flush()
+            except Exception:
+                self._pending.pop(wire_id, None)
+                raise
+
+    def in_flight(self) -> int:
+        with self._lock:
+            return sum(
+                1 for entry in self._pending.values() if entry[1] is not None
+            )
+
+    def take_pending(self) -> List[Any]:
+        """Drain the in-flight table (replica lost): the unanswered
+        requests, for the router to requeue."""
+        with self._lock:
+            entries = [
+                entry for entry in self._pending.values()
+                if entry[1] is not None
+            ]
+            self._pending.clear()
+        return entries
+
+    def _read_loop(self, rfile) -> None:
+        try:
+            for line in rfile:
+                line = line.strip()
+                if not line:
+                    continue
+                try:
+                    payload = json.loads(line)
+                except ValueError:
+                    continue
+                with self._lock:
+                    entry = self._pending.pop(payload.get("id"), None)
+                if entry is None:
+                    continue
+                original_id, req = entry
+                if req is None:  # stats poll reply
+                    self.last_stats = payload.get("stats")
+                    # The poll doubles as the fleet metrics scrape: the
+                    # plane keeps a per-replica series and merges the
+                    # fresh ones (observability/metrics_plane.py).
+                    plane = get_metrics_plane()
+                    if plane.enabled:
+                        plane.ingest_replica(self.name, self.last_stats)
+                    continue
+                payload["id"] = original_id
+                rt = get_reqtrace()
+                if rt.enabled:
+                    # The worker answered: close the cross-process phase
+                    # (its own record details what happened over there).
+                    rt.advance(req, "downstream", replica=self.name)
+                req.complete(payload)
+                on_reply = self._on_reply
+                if on_reply is not None:
+                    on_reply(req, bool(payload.get("ok")))
+        except (OSError, ValueError):
+            pass
+        finally:
+            on_lost = self._on_lost
+            if on_lost is not None:
+                on_lost(self)
+
+    # ----------------------------------------------------------- teardown
+
+    def terminate(self, grace_s: float = 10.0) -> None:
+        """SIGTERM the worker (its graceful drain), SIGKILL a straggler."""
+        self.close()
+        proc = self.proc
+        if proc is None or proc.poll() is not None:
+            return
+        try:
+            proc.terminate()
+            proc.wait(timeout=grace_s)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            try:
+                proc.wait(timeout=5.0)
+            except subprocess.TimeoutExpired:
+                pass
+        except OSError:
+            pass
+
+    def snapshot(self) -> Dict[str, Any]:
+        return {
+            "socket": self.socket_path,
+            "pid": self.proc.pid if self.proc is not None else None,
+            "health": self.health,
+            "alive": self.alive(),
+            "dispatched": self.dispatched,
+            "requeues": self.requeues,
+            "respawns": self.respawns,
+            "in_flight": self.in_flight(),
+            "last_stats": self.last_stats,
+        }
+
+
+class _RouterDecode:
+    """Adapter putting the router in a ``SentimentServer``'s decode seat:
+    ``generate`` requests forward to a replica (whose own scheduler hosts
+    the decode runtime) instead of running in the router process."""
+
+    def __init__(self, router: "ReplicaRouter") -> None:
+        self._router = router
+
+    def submit(self, rid: Any, text: str,
+               max_new_tokens: Optional[int] = None,
+               tenant: Optional[str] = None,
+               priority: Optional[int] = None,
+               deadline_ms: Optional[float] = None) -> ServeRequest:
+        meta = (
+            {"max_new_tokens": int(max_new_tokens)}
+            if max_new_tokens is not None else {}
+        )
+        return self._router.submit(rid, "generate", text, meta=meta,
+                                   tenant=tenant, priority=priority,
+                                   deadline_ms=deadline_ms)
+
+    def drain(self, timeout: Optional[float] = None) -> None:
+        pass  # the router's own drain covers the fleet
+
+    def stats(self) -> Dict[str, Any]:
+        return {"forwarded": True}
+
+
+class ReplicaRouter:
+    """Join-shortest-queue dispatch with health-aware failover."""
+
+    def __init__(
+        self,
+        replicas: List[ReplicaHandle],
+        max_queue: Optional[int] = None,
+        poll_interval_s: float = 0.25,
+        redispatch_limit: int = 3,
+        respawn: bool = True,
+        respawn_backoff_s: float = 0.5,
+        respawn_cap_s: float = 30.0,
+        ttft_slo_ms: Optional[float] = None,
+        tenant_budget: Optional[float] = None,
+        priority: Optional[int] = None,
+        response_cache=None,
+    ) -> None:
+        if not replicas:
+            raise ValueError("router needs at least one replica")
+        # Cross-request response cache (serving/response_cache.py),
+        # consulted in submit() BEFORE the shed ladder and tenant
+        # metering — a hit never reaches a replica; None leaves every
+        # request on the forward path.
+        self.response_cache = response_cache
+        self.replicas = list(replicas)
+        self.max_queue = resolve_max_queue(max_queue)
+        self.poll_interval_s = float(poll_interval_s)
+        self.redispatch_limit = int(redispatch_limit)
+        self.respawn = bool(respawn)
+        self.respawn_backoff_s = float(respawn_backoff_s)
+        self.respawn_cap_s = float(respawn_cap_s)
+        self.ttft_slo_ms = resolve_ttft_slo_ms(ttft_slo_ms)
+        self.tenant_budget = resolve_tenant_budget(tenant_budget)
+        self.default_priority = resolve_priority(priority)
+        self._retry = RetryPolicy(base_s=0.05, cap_s=1.0)
+        self._cond = threading.Condition()
+        self._queue = FairQueue()
+        self._buckets: Dict[str, TokenBucket] = {}
+        self._draining = False
+        # Set once drain() starts stopping the fleet: the connections it
+        # closes from then on are not replica losses.
+        self._stopping = False
+        self._threads: List[threading.Thread] = []
+        self._wire_ids = 0
+        self._stats_lock = threading.Lock()
+        self._stats: Dict[str, Any] = {
+            "admitted": 0, "shed": 0, "completed": 0, "failed": 0,
+            "bad_request": 0, "dispatched": 0, "requeued": 0,
+            "queue_depth_max": 0, "retry_after_ms_last": None,
+            "respawns": 0, "respawn_failures": 0, "cache_hits": 0,
+            "shed_queue_full": 0, "shed_slo_unattainable": 0,
+            "shed_tenant_budget": 0, "shed_evicted": 0,
+        }
+        self._tenants: Dict[str, Dict[str, int]] = {}
+        self._transitions: List[Dict[str, Any]] = []
+        # Rolling-window rates (serving/slo.py RateMeter) for live
+        # ``stats`` polls — fleet req/s and shed/s without client deltas.
+        self._rates = {"req_s": RateMeter(), "shed_s": RateMeter()}
+        self._started_mono = time.monotonic()
+        # Per-replica respawn backoff: name -> [not_before_t, backoff_s].
+        self._respawn_state: Dict[str, List[float]] = {}
+        for handle in self.replicas:
+            handle._on_lost = self._replica_lost
+            handle._on_reply = self._reply_settled
+        global _LAST_ROUTER
+        _LAST_ROUTER = weakref.ref(self)
+
+    # ----------------------------------------------------------- lifecycle
+
+    def start(self) -> "ReplicaRouter":
+        if not self._threads:
+            for target, name in (
+                (self._dispatch_loop, "router-dispatch"),
+                (self._poll_loop, "router-poll"),
+            ):
+                thread = threading.Thread(target=target, name=name,
+                                          daemon=True)
+                thread.start()
+                self._threads.append(thread)
+        return self
+
+    def drain(self, timeout: Optional[float] = 30.0) -> None:
+        """Stop admission, settle every queued/in-flight request, then
+        gracefully stop the fleet (each worker runs its own drain)."""
+        with self._cond:
+            self._draining = True
+            self._cond.notify_all()
+        deadline = time.monotonic() + (timeout or 30.0)
+        while time.monotonic() < deadline:
+            with self._cond:
+                queued = len(self._queue)
+            in_flight = sum(h.in_flight() for h in self.replicas)
+            if queued == 0 and in_flight == 0:
+                break
+            time.sleep(0.02)
+        self._final_poll(deadline)
+        self._stopping = True
+        for handle in self.replicas:
+            for req_entry in handle.take_pending():
+                _, req = req_entry
+                if req is not None and not req.done:
+                    req.fail("draining", "router drained before the "
+                                         "replica answered")
+        for handle in self.replicas:
+            handle.terminate()
+        for thread in self._threads:
+            thread.join(timeout=2.0)
+        self._threads = []
+
+    def _final_poll(self, deadline: float) -> None:
+        """One last ``stats`` poll of every healthy replica (answered
+        before ``deadline`` or dropped), so ``last_stats`` holds each
+        worker's closing counters once its traffic has settled."""
+        sent = []
+        for handle in self.replicas:
+            if handle.health != "healthy":
+                continue
+            with self._cond:
+                self._wire_ids += 1
+                wire_id = self._wire_ids
+            try:
+                handle.send(wire_id, {"id": wire_id, "op": "stats"},
+                            (wire_id, None))
+            except Exception:  # noqa: BLE001 — a lost replica keeps its last
+                continue
+            sent.append((handle, wire_id))
+        for handle, wire_id in sent:
+            while time.monotonic() < deadline:
+                with handle._lock:
+                    if wire_id not in handle._pending:
+                        break
+                time.sleep(0.01)
+
+    @property
+    def draining(self) -> bool:
+        return self._draining
+
+    # ----------------------------------------------------------- admission
+
+    def submit(self, rid: Any, op: str, text: str,
+               meta: Optional[Dict[str, Any]] = None,
+               tenant: Optional[str] = None,
+               priority: Optional[int] = None,
+               deadline_ms: Optional[float] = None) -> ServeRequest:
+        """Admit (or shed) one request; mirrors ``DynamicBatcher.submit``
+        so a ``SentimentServer`` can sit directly in front — including
+        the SLO shed ladder (per-tenant token bucket, deadline-aware
+        ``slo_unattainable``, priority-aware eviction), so one greedy
+        tenant sheds at its own budget instead of the whole fleet's."""
+        tel = get_telemetry()
+        if deadline_ms is None and self.ttft_slo_ms > 0.0:
+            deadline_ms = self.ttft_slo_ms
+        req = ServeRequest(
+            rid, op, text, meta=meta,
+            tenant=tenant or DEFAULT_TENANT,
+            priority=(
+                self.default_priority if priority is None else int(priority)
+            ),
+            deadline_ms=deadline_ms,
+        )
+        # Trace attach BEFORE the shed ladder: sheds carry trace ids too.
+        get_reqtrace().begin_request(req)
+        if op not in _FORWARD_OPS:
+            req.fail("bad_request",
+                     f"unknown op {op!r}; have: {sorted(_FORWARD_OPS)}")
+            self._bump(bad_request=1)
+            return req
+        # Response cache BEFORE the shed ladder and the tenant meter: a
+        # repeat of a settled request is answered at the router front —
+        # no replica hop, no token-bucket charge — and a repeat that
+        # would shed queue_full/slo_unattainable is answered instead.
+        budget = req.meta.get("max_new_tokens")
+        if try_answer(self.response_cache, req,
+                      budget=None if budget is None else int(budget)):
+            self._bump(cache_hits=1)
+            self._rates["req_s"].mark()
+            tel.count("router.cache_hits")
+            return req
+        with self._cond:
+            if self._draining:
+                req.fail("draining", "router is draining; not admitting")
+                self._shed(req, None, None)
+                return req
+            if self.tenant_budget > 0.0:
+                bucket = self._buckets.get(req.tenant)
+                if bucket is None:
+                    bucket = self._buckets[req.tenant] = TokenBucket(
+                        self.tenant_budget
+                    )
+                if not bucket.take():
+                    hint_ms = max(
+                        bucket.retry_after_ms(), self.retry_after_ms(1)
+                    )
+                    req.fail(
+                        "queue_full",
+                        f"tenant {req.tenant!r} over its admission budget "
+                        f"({self.tenant_budget:g} req/s); retry after "
+                        f"{hint_ms:.0f} ms",
+                        retry_after_ms=hint_ms,
+                    )
+                    self._shed(req, "shed_tenant_budget", hint_ms)
+                    return req
+            if req.deadline_ms is not None and req.deadline_ms > 0.0:
+                est_ms = self._drain_estimate_ms(req.priority)
+                if est_ms is not None and est_ms > req.deadline_ms:
+                    hint_ms = self.retry_after_ms(len(self._queue))
+                    req.fail(
+                        "slo_unattainable",
+                        f"drain estimate {est_ms:.0f} ms already exceeds "
+                        f"the {req.deadline_ms:.0f} ms deadline; retry "
+                        f"after {hint_ms:.0f} ms",
+                        retry_after_ms=hint_ms,
+                        estimate_ms=round(est_ms, 3),
+                    )
+                    self._shed(req, "shed_slo_unattainable", hint_ms)
+                    return req
+            depth = len(self._queue)
+            if depth >= self.max_queue:
+                victim = self._queue.shed_candidate(req.tenant, req.priority)
+                hint_ms = self.retry_after_ms(depth)
+                if victim is None:
+                    req.fail(
+                        "queue_full",
+                        f"router queue full ({depth}/{self.max_queue}); "
+                        f"retry after {hint_ms:.0f} ms",
+                        retry_after_ms=hint_ms,
+                    )
+                    self._shed(req, "shed_queue_full", hint_ms)
+                    return req
+                victim.fail(
+                    "queue_full",
+                    f"evicted for a priority-{req.priority} admit with "
+                    f"the router queue full ({depth}/{self.max_queue}); "
+                    f"retry after {hint_ms:.0f} ms",
+                    retry_after_ms=hint_ms,
+                )
+                self._shed(victim, "shed_evicted", hint_ms)
+            self._queue.append(req)
+            depth = len(self._queue)
+            self._cond.notify_all()
+        with self._stats_lock:
+            self._stats["admitted"] += 1
+            self._tenant_ledger(req.tenant)["admitted"] += 1
+            if depth > self._stats["queue_depth_max"]:
+                self._stats["queue_depth_max"] = depth
+        self._rates["req_s"].mark()
+        tel.count("router.admitted")
+        tel.gauge("router.queue_depth", depth)
+        return req
+
+    def _tenant_ledger(self, tenant: str) -> Dict[str, int]:
+        """Caller holds ``_stats_lock``."""
+        ledger = self._tenants.get(tenant)
+        if ledger is None:
+            ledger = self._tenants[tenant] = {
+                "admitted": 0, "completed": 0, "shed": 0,
+            }
+        return ledger
+
+    def _shed(self, req: ServeRequest, kind_stat: Optional[str],
+              hint_ms: Optional[float]) -> None:
+        with self._stats_lock:
+            self._stats["shed"] += 1
+            if kind_stat in self._stats:
+                self._stats[kind_stat] += 1
+            if hint_ms is not None:
+                self._stats["retry_after_ms_last"] = hint_ms
+            self._tenant_ledger(req.tenant)["shed"] += 1
+        self._rates["shed_s"].mark()
+        get_telemetry().count("router.shed")
+
+    def _settle_rate(self) -> float:
+        """Fleet-wide settle throughput (requests/s since start)."""
+        with self._stats_lock:
+            settled = self._stats["completed"] + self._stats["failed"]
+        elapsed = max(time.monotonic() - self._started_mono, 1e-6)
+        return settled / elapsed if settled else 0.0
+
+    def _drain_estimate_ms(self, priority: int) -> Optional[float]:
+        """Time until a newcomer at ``priority`` would dispatch (caller
+        holds cond); None before the first settle."""
+        rate = self._settle_rate()
+        if rate <= 0.0:
+            return None
+        return self._queue.depth_ahead(priority) / rate * 1000.0
+
+    def retry_after_ms(self, depth: Optional[int] = None) -> float:
+        """Backoff hint for a shed client (the batcher's formula over the
+        fleet-wide settle rate)."""
+        if depth is None:
+            with self._cond:
+                depth = len(self._queue)
+        rate = self._settle_rate()
+        hint = depth / rate * 1000.0 if rate > 0.0 else 50.0 * max(depth, 1)
+        return round(min(max(hint, 1.0), _RETRY_AFTER_CAP_MS), 3)
+
+    def _bump(self, **deltas: int) -> None:
+        with self._stats_lock:
+            for key, n in deltas.items():
+                self._stats[key] += n
+
+    # ------------------------------------------------------------ dispatch
+
+    def _pick(self, excluded: set) -> Optional[ReplicaHandle]:
+        """Healthy replica with the shortest queue: router-side in-flight
+        first (exact), the replica's last-polled queue depth as the tie
+        break (the ``stats()`` feed)."""
+        best = None
+        best_key = None
+        for handle in self.replicas:
+            if handle.health != "healthy" or handle.name in excluded:
+                continue
+            polled = 0
+            stats = handle.last_stats
+            if isinstance(stats, dict):
+                requests = stats.get("requests", {})
+                polled = int(requests.get("queue_depth_max", 0) or 0)
+            key = (handle.in_flight(), polled)
+            if best_key is None or key < best_key:
+                best, best_key = handle, key
+        return best
+
+    def _wire_payload(self, wire_id: int, req: ServeRequest) -> Dict[str, Any]:
+        payload = {"id": wire_id, "op": req.op, "text": req.text}
+        budget = req.meta.get("max_new_tokens")
+        if budget is not None:
+            payload["max_new_tokens"] = budget
+        # Forward the SLO identity so the worker's own scheduler sees the
+        # same tenant/priority the router queued under.  The deadline is
+        # NOT forwarded: the router already spent (and accounted for) the
+        # queue wait; re-arming it downstream would double-count.
+        if req.tenant != DEFAULT_TENANT:
+            payload["tenant"] = req.tenant
+        if req.priority != self.default_priority:
+            payload["priority"] = req.priority
+        # Trace continuation downstream: the worker adopts the trace id
+        # and names the router's span as its parent (absent when tracing
+        # is off — ndjson/v1 unchanged).
+        trace = req.meta.get("trace")
+        if trace is not None:
+            payload["trace"] = {"id": trace["id"], "span": trace["span"]}
+        return payload
+
+    def _send_once(self, handle: ReplicaHandle, req: ServeRequest) -> None:
+        fault_point("router.dispatch", replica=handle.name, op=req.op)
+        with self._cond:
+            self._wire_ids += 1
+            wire_id = self._wire_ids
+        handle.send(wire_id, self._wire_payload(wire_id, req), (req.id, req))
+
+    def _dispatch_one(self, req: ServeRequest) -> None:
+        tel = get_telemetry()
+        excluded: set = set()
+        while not req.done:
+            handle = self._pick(excluded)
+            if handle is None:
+                req.fail(
+                    "replica_lost",
+                    "no healthy replica available (router_stall); "
+                    "all workers are unhealthy or excluded",
+                )
+                self._bump(failed=1)
+                tel.count("router.replica_lost")
+                return
+            try:
+                # A wedged worker hangs the send/flush edge silently —
+                # the watchdog names that router_stall; transient faults
+                # (injected router.dispatch, a mid-write hiccup) retry in
+                # place against the same replica first.
+                with watchdog.watch("router.dispatch", kind="router"):
+                    self._retry.call(
+                        self._send_once, handle, req,
+                        site="router.dispatch",
+                    )
+            except Exception as exc:  # noqa: BLE001 — failover boundary
+                retryable, kind = classify_retryable(exc)
+                if _is_transport(exc) or should_failover(exc):
+                    # The replica, not the request: mark it, requeue its
+                    # other in-flight work, and re-dispatch here to the
+                    # next-shortest healthy queue.
+                    self._mark_lost(
+                        handle, kind or "tunnel_dead",
+                        f"dispatch failed: {type(exc).__name__}: {exc}",
+                    )
+                    excluded.add(handle.name)
+                    continue
+                req.fail("request_failed",
+                         f"{type(exc).__name__}: {exc}"[:300])
+                self._bump(failed=1)
+                return
+            handle.dispatched += 1
+            self._bump(dispatched=1)
+            rt = get_reqtrace()
+            if rt.enabled:
+                # The router-side wait ends at the downstream write; the
+                # worker's reply closes the ``downstream`` phase.
+                rt.advance(req, "queue", replica=handle.name,
+                           hops=req.meta.get("router_attempts", 0))
+            tel.count("router.dispatched")
+            return
+
+    def _dispatch_loop(self) -> None:
+        while True:
+            with self._cond:
+                while not self._queue:
+                    if self._draining:
+                        return
+                    self._cond.wait(0.05)
+                req = self._queue.popleft()
+            if req is None or req.done:  # shed/settled while queued
+                continue
+            self._dispatch_one(req)
+            watchdog.beat("router.dispatch")
+
+    # -------------------------------------------------------------- health
+
+    def _record_transition(self, handle: ReplicaHandle, new: str,
+                           kind: str, reason: str) -> None:
+        transition = {
+            "replica": handle.name,
+            "from": handle.health,
+            "to": new,
+            "kind": kind,
+            "reason": reason[:200],
+            "t_s": round(time.monotonic() - self._started_mono, 3),
+        }
+        handle.health = new
+        with self._stats_lock:
+            self._transitions.append(transition)
+        tel = get_telemetry()
+        tel.count("router.health_transitions")
+        tel.event("router_health", **transition)
+
+    def _replica_lost(self, handle: ReplicaHandle) -> None:
+        """Reader-thread callback: the replica's connection died."""
+        if self._stopping or handle.health in ("unhealthy", "dead"):
+            return
+        self._mark_lost(handle, "tunnel_dead", "connection lost")
+
+    def _mark_lost(self, handle: ReplicaHandle, kind: str,
+                   reason: str) -> None:
+        if handle.health in ("unhealthy", "dead"):
+            return
+        new = "unhealthy" if handle.alive() else "dead"
+        self._record_transition(handle, new, kind, reason)
+        # A lost replica cannot be scraped: freeze its series as stale
+        # so the fleet merge stops counting its last numbers as live.
+        plane = get_metrics_plane()
+        if plane.enabled:
+            plane.mark_replica_stale(handle.name)
+        handle.close()
+        pending = handle.take_pending()
+        if not pending:
+            return
+        requeued = 0
+        for original_id, req in pending:
+            if req is None or req.done:
+                continue
+            attempts = req.meta.get("router_attempts", 0) + 1
+            req.meta["router_attempts"] = attempts
+            # Per-request hop trail: every replica that lost this request,
+            # with the loss kind — the terminal error below replays the
+            # request's whole journey instead of naming only the last hop.
+            hops = req.meta.setdefault("router_hops", [])
+            hops.append({"replica": handle.name, "kind": kind})
+            rt = get_reqtrace()
+            if rt.enabled:
+                # The hop that died: requeued traces always flush.
+                rt.advance(req, "hop.requeue", replica=handle.name,
+                           kind=kind, hops=attempts)
+                rt.keep(req, "requeued")
+            if attempts > self.redispatch_limit:
+                hint_ms = self.retry_after_ms()
+                req.fail(
+                    "replica_lost",
+                    f"replica {handle.name} lost ({kind}) and the request "
+                    f"exceeded {self.redispatch_limit} re-dispatches",
+                    hops=attempts,
+                    hop_trail=list(hops),
+                    retry_after_ms=hint_ms,
+                )
+                self._bump(failed=1)
+                continue
+            with self._cond:
+                # Head of its tenant queue: a re-dispatched request has
+                # already waited one full replica lifetime.
+                self._queue.requeue(req)
+                self._cond.notify_all()
+            requeued += 1
+        handle.requeues += requeued
+        self._bump(requeued=requeued)
+        get_telemetry().count("router.requeued", requeued)
+
+    def _poll_loop(self) -> None:
+        """Per-replica ``stats`` polling: feeds the JSQ tie break, acts as
+        a liveness probe, and notices worker death even when no request
+        is in flight to trip on it."""
+        while True:
+            with self._cond:
+                if self._draining:
+                    return
+            for handle in self.replicas:
+                if handle.health == "healthy":
+                    if not handle.alive():
+                        self._mark_lost(handle, "tunnel_dead",
+                                        "worker process exited")
+                        continue
+                    try:
+                        with self._cond:
+                            self._wire_ids += 1
+                            wire_id = self._wire_ids
+                        handle.send(
+                            wire_id, {"id": wire_id, "op": "stats"},
+                            (wire_id, None),
+                        )
+                    except Exception as exc:  # noqa: BLE001
+                        _, kind = classify_retryable(exc)
+                        self._mark_lost(handle, kind or "tunnel_dead",
+                                        f"stats poll failed: {exc}")
+                elif handle.health == "unhealthy" and handle.alive():
+                    # The process survived a transport blip: one reconnect
+                    # attempt per poll tick brings it back into rotation.
+                    try:
+                        handle.connect(timeout_s=0.5)
+                    except Exception:
+                        if not handle.alive():
+                            self._record_transition(
+                                handle, "dead", "tunnel_dead",
+                                "worker process exited during reconnect",
+                            )
+                    else:
+                        self._record_transition(
+                            handle, "healthy", "recovered", "reconnected"
+                        )
+                elif handle.health == "unhealthy" and not handle.alive():
+                    self._record_transition(
+                        handle, "dead", "tunnel_dead",
+                        "worker process exited",
+                    )
+                elif handle.health == "dead":
+                    self._maybe_respawn(handle)
+            time.sleep(self.poll_interval_s)
+
+    def _maybe_respawn(self, handle: ReplicaHandle) -> None:
+        """Supervised restart of a dead worker, gated by a capped
+        exponential backoff so a crash-looping worker cannot monopolize
+        the poll thread.  Success re-enters the handle into rotation with
+        a ``respawned`` health transition; failure doubles the backoff
+        and counts ``respawn_failures``.  Externally-managed workers
+        (no spawn cmd) and a draining router never respawn."""
+        if not self.respawn or handle.cmd is None or self._draining:
+            return
+        state = self._respawn_state.setdefault(
+            handle.name, [0.0, self.respawn_backoff_s]
+        )
+        if time.monotonic() < state[0]:
+            return
+        handle.close()
+        try:
+            os.unlink(handle.socket_path)
+        except OSError:
+            pass
+        try:
+            handle.proc = subprocess.Popen(
+                handle.cmd,
+                env=handle.env,
+                stdin=subprocess.DEVNULL,
+                stdout=subprocess.DEVNULL,
+                stderr=subprocess.DEVNULL,
+                start_new_session=True,
+            )
+            handle.connect()
+        except Exception as exc:  # noqa: BLE001 — backoff and retry
+            handle.terminate(grace_s=1.0)  # reap a half-started process
+            state[0] = time.monotonic() + state[1]
+            state[1] = min(state[1] * 2.0, self.respawn_cap_s)
+            self._bump(respawn_failures=1)
+            get_telemetry().count("router.respawn_failures")
+            get_telemetry().event(
+                "router_respawn_failed", replica=handle.name,
+                error=str(exc)[:200],
+                next_backoff_s=round(state[1], 3),
+            )
+            return
+        state[0] = 0.0
+        state[1] = self.respawn_backoff_s
+        handle.respawns += 1
+        self._bump(respawns=1)
+        get_telemetry().count("router.respawns")
+        self._record_transition(
+            handle, "healthy", "respawned",
+            f"respawned as pid {handle.proc.pid}",
+        )
+
+    # ------------------------------------------------------------ readouts
+
+    def _reply_settled(self, req: ServeRequest, ok: bool) -> None:
+        """Per-reply bookkeeping (called from each handle's reader
+        thread); feeds the settle rate behind ``retry_after_ms`` and the
+        per-tenant ledger."""
+        with self._stats_lock:
+            self._stats["completed" if ok else "failed"] += 1
+            if ok:
+                self._tenant_ledger(req.tenant)["completed"] += 1
+
+    def stats(self) -> Dict[str, Any]:
+        """JSON-able snapshot for the manifest's ``serving.router``
+        section: per-replica dispatch counts, health transitions,
+        requeues/respawns, and the admission counters."""
+        with self._stats_lock:
+            out: Dict[str, Any] = dict(self._stats)
+            transitions = list(self._transitions)
+        out.update(
+            replica_count=len(self.replicas),
+            healthy_count=sum(
+                1 for h in self.replicas if h.health == "healthy"
+            ),
+            max_queue=self.max_queue,
+            settle_rate_req_s=round(self._settle_rate(), 3),
+            rates={
+                "window_s": self._rates["req_s"].tau_s,
+                "req_s": self._rates["req_s"].rate(),
+                "shed_s": self._rates["shed_s"].rate(),
+            },
+            health_transitions=transitions,
+            replicas={h.name: h.snapshot() for h in self.replicas},
+        )
+        if self.response_cache is not None:
+            out["response_cache"] = self.response_cache.stats()
+        return out
+
+    def slo_snapshot(self) -> Dict[str, Any]:
+        """The manifest's ``serving.slo`` contribution when the router is
+        the admission edge; empty when neither configured nor
+        exercised."""
+        with self._stats_lock:
+            tenants = {t: dict(v) for t, v in self._tenants.items()}
+            sheds = {
+                key: self._stats[key]
+                for key in ("shed_queue_full", "shed_slo_unattainable",
+                            "shed_tenant_budget", "shed_evicted")
+            }
+        configured = self.ttft_slo_ms > 0.0 or self.tenant_budget > 0.0
+        exercised = (
+            any(sheds.values())
+            or any(t != DEFAULT_TENANT for t in tenants)
+        )
+        if not configured and not exercised:
+            return {}
+        return {
+            "ttft_slo_ms": self.ttft_slo_ms,
+            "tenant_budget_req_s": self.tenant_budget,
+            "default_priority": self.default_priority,
+            "sheds": sheds,
+            "tenants": tenants,
+        }
+
+
+# ----------------------------------------------------------------- CLI glue
+
+
+def _device_name(device) -> str:
+    """The card's name for CUDA (as ``server.device_identity``), else the
+    device type."""
+    import torch
+
+    if device.type == "cuda":
+        return torch.cuda.get_device_name(device)
+    return device.type
+
+
+def _replica_cmd(
+    socket_path: str,
+    model: str,
+    mock: bool,
+    weight_quant: Optional[str],
+    tp: int,
+    max_batch: Optional[int],
+    max_wait_ms: Optional[float],
+    max_queue: Optional[int],
+    slots: Optional[int],
+    prefill_chunk: Optional[int],
+    max_new_tokens: int,
+    page_size: Optional[int],
+    kv_pages: Optional[int],
+    warmup: bool,
+    kv_quant: Optional[str] = None,
+    speculate_k: Optional[int] = None,
+    ttft_slo_ms: Optional[float] = None,
+    tpot_slo_ms: Optional[float] = None,
+    tenant_budget: Optional[float] = None,
+    priority: Optional[int] = None,
+    journal_dir: Optional[str] = None,
+    trace_sample: Optional[float] = None,
+    metrics_interval_ms: Optional[float] = None,
+    response_cache_dir: Optional[str] = None,
+    use_response_cache: bool = True,
+    device: str = "cuda",
+) -> List[str]:
+    cmd = [
+        sys.executable, "-m", "music_analyst_tpu_torch", "serve",
+        "--socket", socket_path, "--quiet", "--no-telemetry",
+        "--model", model, "--max-new-tokens", str(int(max_new_tokens)),
+        "--device", device,
+    ]
+    if mock:
+        cmd.append("--mock")
+    if weight_quant:
+        cmd += ["--weight-quant", weight_quant]
+    if tp > 1:
+        cmd += ["--tp", str(int(tp))]
+    for flag, value in (
+        ("--max-batch", max_batch),
+        ("--max-wait-ms", max_wait_ms),
+        ("--max-queue", max_queue),
+        ("--slots", slots),
+        ("--prefill-chunk", prefill_chunk),
+        ("--page-size", page_size),
+        ("--kv-pages", kv_pages),
+        ("--kv-quant", kv_quant),
+        ("--speculate-k", speculate_k),
+        ("--ttft-slo-ms", ttft_slo_ms),
+        ("--tpot-slo-ms", tpot_slo_ms),
+        ("--tenant-budget", tenant_budget),
+        ("--priority", priority),
+        ("--journal-dir", journal_dir),
+        # Workers inherit $MUSICAAL_TRACE_DIR from the router's
+        # configure_reqtrace; the explicit sample keeps the fleet's
+        # head-sampling decision identical even if the env is scrubbed.
+        ("--trace-sample", trace_sample),
+        # Same belt-and-braces for the metrics plane: workers inherit
+        # $MUSICAAL_METRICS_* from configure_metrics, the explicit flag
+        # survives a scrubbed environment.
+        ("--metrics-interval-ms", metrics_interval_ms),
+        # Workers keep their own edge caches; an explicit dir flows
+        # through so the fleet shares one on-disk tier across replicas
+        # (content-addressed entries make concurrent publishers safe).
+        ("--response-cache-dir", response_cache_dir),
+    ):
+        if value is not None:
+            cmd += [flag, str(value)]
+    if not warmup:
+        cmd.append("--no-warmup")
+    if not use_response_cache:
+        cmd.append("--no-response-cache")
+    return cmd
+
+
+def spawn_replicas(
+    n: int,
+    base_dir: str,
+    *,
+    model: str = "mock",
+    mock: bool = False,
+    weight_quant: Optional[str] = None,
+    tp: int = 1,
+    max_batch: Optional[int] = None,
+    max_wait_ms: Optional[float] = None,
+    max_queue: Optional[int] = None,
+    slots: Optional[int] = None,
+    prefill_chunk: Optional[int] = None,
+    max_new_tokens: int = 16,
+    page_size: Optional[int] = None,
+    kv_pages: Optional[int] = None,
+    kv_quant: Optional[str] = None,
+    speculate_k: Optional[int] = None,
+    warmup: bool = True,
+    connect: bool = True,
+    ttft_slo_ms: Optional[float] = None,
+    tpot_slo_ms: Optional[float] = None,
+    tenant_budget: Optional[float] = None,
+    priority: Optional[int] = None,
+    journal_dir: Optional[str] = None,
+    trace_sample: Optional[float] = None,
+    metrics_interval_ms: Optional[float] = None,
+    response_cache_dir: Optional[str] = None,
+    use_response_cache: bool = True,
+    device: str = "cuda",
+) -> List[ReplicaHandle]:
+    """Start ``n`` worker server processes and (optionally) connect.
+
+    Workers inherit the parent environment (so ``MUSICAAL_*`` and
+    ``CUDA_VISIBLE_DEVICES`` flow through), run on ``device``, and with
+    telemetry off
+    — fleet-level stats live in the router's manifest section.  Each
+    handle keeps its spawn cmd, so the router's supervised respawn can
+    relaunch a dead worker in place.
+
+    With ``journal_dir`` set, each worker gets its own subdirectory
+    (``replica-<i>/``) passed explicitly on its command line — the
+    explicit flag outranks any inherited ``MUSICAAL_SERVE_JOURNAL``, so
+    replicas never share (and corrupt) one journal, and a supervised
+    respawn relaunches the same cmd, pointing the new process at the
+    dead one's journal to replay its unanswered requests.
+    """
+    handles: List[ReplicaHandle] = []
+    env = None
+    if device == "cpu" and "OMP_NUM_THREADS" not in os.environ:
+        env = dict(os.environ,
+                   OMP_NUM_THREADS=str(max(1, (os.cpu_count() or 1) // n)))
+    try:
+        for i in range(n):
+            socket_path = os.path.join(base_dir, f"replica-{i}.sock")
+            replica_journal = None
+            if journal_dir:
+                replica_journal = os.path.join(journal_dir, f"replica-{i}")
+            cmd = _replica_cmd(
+                socket_path, model, mock, weight_quant, tp, max_batch,
+                max_wait_ms, max_queue, slots, prefill_chunk,
+                max_new_tokens, page_size, kv_pages, warmup,
+                kv_quant=kv_quant, speculate_k=speculate_k,
+                ttft_slo_ms=ttft_slo_ms, tpot_slo_ms=tpot_slo_ms,
+                tenant_budget=tenant_budget, priority=priority,
+                journal_dir=replica_journal,
+                trace_sample=trace_sample,
+                metrics_interval_ms=metrics_interval_ms,
+                response_cache_dir=response_cache_dir,
+                use_response_cache=use_response_cache,
+                device=device,
+            )
+            proc = subprocess.Popen(
+                cmd,
+                env=env,
+                stdin=subprocess.DEVNULL,
+                stdout=subprocess.DEVNULL,
+                stderr=subprocess.DEVNULL,
+                start_new_session=True,
+            )
+            handle = ReplicaHandle(f"replica-{i}", socket_path, proc=proc,
+                                   cmd=cmd)
+            handle.env = env
+            handles.append(handle)
+        if connect:
+            for handle in handles:
+                handle.connect()
+    except Exception:
+        for handle in handles:
+            handle.terminate(grace_s=2.0)
+        raise
+    return handles
+
+
+def run_router(
+    model: str = "mock",
+    mock: bool = False,
+    weight_quant: Optional[str] = None,
+    stdio: bool = False,
+    socket_path: Optional[str] = None,
+    replicas: Optional[int] = None,
+    tp: Optional[int] = None,
+    max_batch: Optional[int] = None,
+    max_wait_ms: Optional[float] = None,
+    max_queue: Optional[int] = None,
+    warmup: bool = True,
+    quiet: bool = False,
+    slots: Optional[int] = None,
+    prefill_chunk: Optional[int] = None,
+    max_new_tokens: int = 16,
+    page_size: Optional[int] = None,
+    kv_pages: Optional[int] = None,
+    kv_quant: Optional[str] = None,
+    speculate_k: Optional[int] = None,
+    ttft_slo_ms: Optional[float] = None,
+    tpot_slo_ms: Optional[float] = None,
+    tenant_budget: Optional[float] = None,
+    priority: Optional[int] = None,
+    journal_dir: Optional[str] = None,
+    trace_sample: Optional[Any] = None,
+    trace_dir: Optional[str] = None,
+    metrics_interval_ms: Optional[Any] = None,
+    response_cache_dir: Optional[str] = None,
+    use_response_cache: bool = True,
+    device: str = "cuda",
+) -> int:
+    """``serve --replicas N`` (N > 1): spawn the fleet, route until
+    drained.  The front end is a stock ``SentimentServer`` with the
+    router in the batcher seat, so the wire protocol, reply ordering,
+    and graceful-drain semantics are identical to a single server."""
+    import signal
+    import tempfile
+
+    from music_analyst_tpu_torch.device import resolve_device
+    from music_analyst_tpu_torch.serving.journal import resolve_journal_dir
+    from music_analyst_tpu_torch.serving.server import SentimentServer
+
+    # The front computes nothing, but its device is the fleet's: refuse a
+    # missing card here, before any worker spawns.
+    front_device = resolve_device(device)
+
+    tel = get_telemetry()
+    n = resolve_replicas(replicas)
+    tp_width = resolve_tp(tp)
+    # Resolve here (flag beats $MUSICAAL_SERVE_JOURNAL) so the fleet gets
+    # per-replica subdirectories; workers inherit the env, and without an
+    # explicit per-worker flag they would all journal into the same dir.
+    journal_base = resolve_journal_dir(journal_dir)
+    # Configure tracing BEFORE the fleet spawns: configure_reqtrace
+    # exports the resolved dir/sample to the environment, which is how
+    # workers (spawned without --profile-dir) join the same trace files.
+    reqtrace = configure_reqtrace(
+        trace_sample, directory=trace_dir, role="router"
+    )
+    # Same ordering for the metrics plane: configure_metrics exports the
+    # resolved interval/dir, so every worker samples its own series into
+    # the shared metrics.jsonl while the router merges their stats polls.
+    metrics = configure_metrics(
+        metrics_interval_ms, directory=trace_dir, role="router"
+    )
+    with tel.run_scope("serve", None):
+        with tempfile.TemporaryDirectory(prefix="musicaal-fleet-") as base:
+            handles = spawn_replicas(
+                n, base, model=model, mock=mock, weight_quant=weight_quant,
+                tp=tp_width, max_batch=max_batch, max_wait_ms=max_wait_ms,
+                max_queue=max_queue, slots=slots,
+                prefill_chunk=prefill_chunk,
+                max_new_tokens=max_new_tokens, page_size=page_size,
+                kv_pages=kv_pages, kv_quant=kv_quant,
+                speculate_k=speculate_k, warmup=warmup,
+                ttft_slo_ms=ttft_slo_ms, tpot_slo_ms=tpot_slo_ms,
+                tenant_budget=tenant_budget, priority=priority,
+                journal_dir=journal_base,
+                response_cache_dir=response_cache_dir,
+                use_response_cache=use_response_cache,
+                device=device,
+                trace_sample=(
+                    reqtrace.sample if reqtrace.enabled else None
+                ),
+                metrics_interval_ms=(
+                    metrics.interval_ms if metrics.enabled else None
+                ),
+            )
+            # Response cache at the router front: a hit never reaches a
+            # replica, so it costs the fleet nothing.  The fingerprint
+            # covers everything the front knows that changes reply bytes;
+            # keys are disjoint from the replicas' own edge caches (their
+            # fingerprints add backend identity), which is harmless --
+            # each tier answers from what it has seen settle.  The
+            # framework (added by backend_fingerprint) and the card's name
+            # keep this package's entries apart from the JAX package's.
+            rc_dir = resolve_response_cache_dir(
+                response_cache_dir, use_response_cache
+            )
+            response_cache = None
+            if rc_dir is not None:
+                response_cache = ResponseCache(
+                    rc_dir,
+                    fingerprint=backend_fingerprint(
+                        model=model,
+                        mock=bool(mock),
+                        weight_quant=weight_quant or "none",
+                        kv_quant=kv_quant or "none",
+                        max_new_tokens=int(max_new_tokens),
+                        tp=tp_width,
+                        checkpoint=checkpoint_stamp(),
+                        device=_device_name(front_device),
+                    ),
+                )
+            router = ReplicaRouter(
+                handles, max_queue=max_queue, ttft_slo_ms=ttft_slo_ms,
+                tenant_budget=tenant_budget, priority=priority,
+                response_cache=response_cache,
+            ).start()
+            server = SentimentServer(
+                router, mode="stdio" if stdio else "unix",
+                decode=_RouterDecode(router), router=router,
+            )
+            if metrics.enabled:
+                metrics.attach(
+                    lambda: server.stats_snapshot(include_metrics=False)
+                )
+                metrics.start()
+            tel.annotate(
+                serve_mode=server.mode, router_replicas=n, router_tp=tp_width,
+            )
+            if journal_base:
+                tel.annotate(journal_dir=journal_base)
+            if rc_dir:
+                tel.annotate(response_cache_dir=rc_dir)
+            if not quiet:
+                print(
+                    f"serve: routing over {n} replica(s) (tp={tp_width})",
+                    file=sys.stderr,
+                )
+
+            previous: Dict[int, Any] = {}
+
+            def _on_signal(signum, frame) -> None:
+                try:
+                    name = signal.Signals(signum).name
+                except ValueError:  # pragma: no cover
+                    name = str(signum)
+                server.request_drain(f"signal:{name}")
+
+            for signum in (signal.SIGTERM, signal.SIGINT):
+                try:
+                    previous[signum] = signal.signal(signum, _on_signal)
+                except (ValueError, OSError):  # non-main thread (tests)
+                    pass
+            try:
+                if stdio:
+                    server.handle_stream(sys.stdin, sys.stdout,
+                                         drain_on_eof=True)
+                else:
+                    if not socket_path:
+                        raise ValueError(
+                            "serve: --socket PATH (or --stdio) is required"
+                        )
+                    server.serve_unix(socket_path)
+            finally:
+                server._drain_batcher()
+                for signum, prev in previous.items():
+                    try:
+                        signal.signal(signum, prev)
+                    except (ValueError, OSError):
+                        pass
+                metrics.close()
+                reqtrace.close()
+                stats = router.stats()
+                tel.gauge("router.requests_total", stats["admitted"])
+                tel.gauge("router.requeued_total", stats["requeued"])
+                if not quiet:
+                    print(
+                        f"serve: router drained "
+                        f"({server.drain_reason or 'eof'}): "
+                        f"{stats['dispatched']} dispatched, "
+                        f"{stats['requeued']} requeued, "
+                        f"{len(stats['health_transitions'])} health "
+                        f"transition(s)",
+                        file=sys.stderr,
+                    )
+    return 0

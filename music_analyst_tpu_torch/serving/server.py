@@ -6,8 +6,8 @@ the port's backends on the requested device (CUDA by default).  One
 deliberate difference: the response-cache fingerprint also folds in
 ``framework="torch"`` and the device's name, so a cache directory shared
 with the JAX package never answers one framework with the other's bytes.
-Tensor parallelism (``--tp > 1``) and the replica router are not ported
-yet.
+Tensor parallelism (``--tp > 1``) is not ported yet; the replica router
+(``serving/router.py``) sits in the batcher seat of this same server.
 
 The reference's sentiment path is one process per invocation; this is
 the shape of a production stack instead — a process that loads the model
@@ -58,6 +58,7 @@ import queue
 import sys
 import threading
 import time
+import weakref
 from typing import Any, Dict, List, Optional
 
 from music_analyst_tpu_torch import kernels
@@ -92,6 +93,18 @@ from music_analyst_tpu_torch.telemetry.reqtrace import (
 )
 
 PROTOCOL = "ndjson/v1"
+
+# The live server (for the run manifest's ``serving`` section): stats only
+# exist once a server has run, so serve-free runs keep their key set.  A
+# weak reference, unlike JAX's: a module global must not keep a drained
+# server's model (gigabytes on the card) alive.
+_LAST_SERVER: Optional["weakref.ref[SentimentServer]"] = None
+
+
+def serving_stats() -> Dict[str, Any]:
+    """Stats of the most recent live server in this process ({} if none)."""
+    server = _LAST_SERVER() if _LAST_SERVER is not None else None
+    return server.stats_snapshot() if server is not None else {}
 
 _EOF = object()  # reader→writer sentinel: the stream ended
 
@@ -143,6 +156,7 @@ class SentimentServer:
         mode: str = "stdio",
         decode=None,
         journal: Optional[RequestJournal] = None,
+        router=None,
     ) -> None:
         self.batcher = batcher
         self.residency = residency
@@ -155,6 +169,11 @@ class SentimentServer:
         # when the backend has no slot runtime (e.g. --mock) — generate
         # requests then settle as bad_request instead of crashing.
         self.decode = decode
+        # Scale-out mode (serving/router.py): the ReplicaRouter sitting in
+        # the batcher seat, kept separately so stats_snapshot can surface
+        # the fleet view (per-replica dispatch counts, health transitions)
+        # as the manifest's ``serving.router`` section.
+        self.router = router
         self.mode = mode
         self.drain_event = threading.Event()
         self.drain_reason: Optional[str] = None
@@ -162,6 +181,12 @@ class SentimentServer:
         self._drained = False
         self._auto_ids = 0
         self._started_mono = time.monotonic()
+        # Kernel launch counts when the server became ready (set by
+        # run_server); ``stats`` then reports the launches since, so a
+        # router's workers can each count their own.
+        self.launches_at_ready: Optional[Dict[str, int]] = None
+        global _LAST_SERVER
+        _LAST_SERVER = weakref.ref(self)
 
     # ------------------------------------------------------------- control
 
@@ -499,6 +524,12 @@ class SentimentServer:
 
     # ------------------------------------------------------------ readouts
 
+    def kernel_launches_since_ready(self) -> Dict[str, int]:
+        """Kernel launches of this session, warmup excluded."""
+        at_ready = self.launches_at_ready or {}
+        return {name: n - at_ready.get(name, 0)
+                for name, n in kernels.launches().items()}
+
     def stats_snapshot(self, include_metrics: bool = True) -> Dict[str, Any]:
         out: Dict[str, Any] = {
             "protocol": PROTOCOL,
@@ -514,9 +545,13 @@ class SentimentServer:
             out["residency"] = self.residency.snapshot()
         if self.journal is not None:
             out["journal"] = self.journal.stats()
+        if self.router is not None:
+            out["router"] = self.router.stats()
+        if self.launches_at_ready is not None:
+            out["kernel_launches"] = self.kernel_launches_since_ready()
         # Response cache (serving/response_cache.py) — one instance is
         # shared by whichever admission edges exist; only-when-used.
-        for edge in (self.batcher, self.decode):
+        for edge in (self.batcher, self.decode, self.router):
             cache = getattr(edge, "response_cache", None)
             if cache is not None:
                 out["response_cache"] = cache.stats()
@@ -874,7 +909,7 @@ def run_server(
                 pass
         # Kernel launches are reported per session: warmup's are not the
         # traffic's.
-        launches_at_ready = kernels.launches()
+        server.launches_at_ready = kernels.launches()
         try:
             if stdio:
                 if not quiet:
@@ -927,8 +962,7 @@ def run_server(
                     f"{reqs['occupancy']}",
                     file=sys.stderr,
                 )
-                served = {name: n - launches_at_ready.get(name, 0)
-                          for name, n in kernels.launches().items()}
+                served = server.kernel_launches_since_ready()
                 print(f"serve: kernel launches since ready "
                       f"{json.dumps(served, sort_keys=True)}",
                       file=sys.stderr)

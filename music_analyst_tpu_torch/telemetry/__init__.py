@@ -1,17 +1,21 @@
 """Unified run telemetry: spans, counters, histograms, a JSONL event log.
 
-Counterpart of ``music_analyst_tpu/telemetry/``.  Usage:
+Counterpart of ``music_analyst_tpu/telemetry/``.  Usage (every engine
+follows this shape):
 
     from music_analyst_tpu_torch.telemetry import get_telemetry
 
     tel = get_telemetry()
-    with tel.run_scope("serve", None):
+    with tel.run_scope("wordcount", output_dir):      # owns the sinks
         with tel.span("ingest") as sp:
             ...
             sp.set(bytes=n_bytes)
         tel.count("songs_ingested", n)
 
-The run manifest (``telemetry/introspect.py``) is not ported yet.
+Artifacts (when a sink directory resolves — ``--telemetry-dir`` or the
+engine's output dir): ``telemetry.jsonl`` (append-only, one event per
+line) and ``run_manifest.json`` (device, kernel-build, version and
+counter digest; ``telemetry/introspect.py``).
 """
 
 from music_analyst_tpu_torch.telemetry.core import (
@@ -22,6 +26,11 @@ from music_analyst_tpu_torch.telemetry.core import (
     configure,
     get_telemetry,
 )
+from music_analyst_tpu_torch.telemetry.introspect import (
+    collect_device_info,
+    git_describe,
+    write_run_manifest,
+)
 
 __all__ = [
     "DEFAULT_BUCKETS",
@@ -30,4 +39,7 @@ __all__ = [
     "Telemetry",
     "configure",
     "get_telemetry",
+    "collect_device_info",
+    "git_describe",
+    "write_run_manifest",
 ]

@@ -9,9 +9,8 @@ HTTP retries, …), and the registry fans the stream out to two sinks —
 
 * an append-only JSONL event log (``<dir>/telemetry.jsonl``, one event
   per line, both clocks on every line), and
-* (JAX package only, for now) a run manifest written when the owning
-  scope exits.  The port has no ``telemetry/introspect.py`` yet, so its
-  run scopes write the JSONL log and no manifest.
+* a run manifest written when the owning scope exits
+  (``<dir>/run_manifest.json`` — see ``telemetry/introspect.py``).
 
 Counterpart of ``music_analyst_tpu/telemetry/core.py``; the JAX module's
 ``jax.monitoring`` harvest (``record_jax_event``) has no counterpart:
@@ -219,6 +218,7 @@ class Telemetry:
         self.spans: List[Span] = []
         self.span_aggregates: Dict[str, List[float]] = {}  # name -> [n, total, max]
         self.context: Dict[str, Any] = {}  # annotate() → manifest fields
+        self.pipelines: Dict[str, Any] = {}  # record_pipeline() → manifest
         self.events = 0
         self._sink = None
         self._sink_path: Optional[str] = None
@@ -392,6 +392,19 @@ class Telemetry:
         with self._lock:
             self.context.update(context)
 
+    def record_pipeline(self, name: str, summary: Dict[str, Any]) -> None:
+        """Store a prefetch pipeline's end-of-run stats (depth, per-stage
+        stall/backpressure seconds, queue-depth high-water marks) under its
+        pipeline name — the run manifest's ``pipeline`` section."""
+        if not self.enabled:
+            return
+        with self._lock:
+            self.pipelines[name] = summary
+
+    def pipeline_summary(self) -> Dict[str, Any]:
+        with self._lock:
+            return dict(self.pipelines)
+
     # ----------------------------------------------------------- readouts
 
     def compile_stats(self) -> Dict[str, Any]:
@@ -404,6 +417,21 @@ class Telemetry:
 
         stats = build_stats()
         return {"count": stats["count"], "seconds": round(stats["seconds"], 6)}
+
+    def top_spans(self, n: int = 3) -> List[Dict[str, Any]]:
+        with self._lock:
+            ranked = sorted(
+                self.span_aggregates.items(), key=lambda kv: -kv[1][1]
+            )[:n]
+        return [
+            {
+                "name": name,
+                "count": int(count),
+                "total_s": round(total, 6),
+                "max_s": round(peak, 6),
+            }
+            for name, (count, total, peak) in ranked
+        ]
 
     # ---------------------------------------------------------- run scope
 
@@ -419,7 +447,7 @@ class Telemetry:
         The owner resets per-run state, opens the JSONL sink (explicit
         ``--telemetry-dir`` wins over the engine's ``output_dir``), emits
         ``run_start``/``run_end`` events (the latter carrying the wall
-        time); no run manifest is written yet.  Nested scopes (the joint pipeline calling the wordcount and
+        time), and writes the run manifest on exit.  Nested scopes (the joint pipeline calling the wordcount and
         sentiment engines, the sweep looping over analyses) degrade to a
         plain ``engine:<name>`` span under the owner.
         """
@@ -450,11 +478,28 @@ class Telemetry:
         finally:
             if owner:
                 wall = time.monotonic() - (self._run_started_mono or 0.0)
+                # Per-stage collective table: guarded, since the port's
+                # profiling/collectives.py is not written yet (multi-card
+                # work); until it is, the import fails and this is a no-op.
+                try:
+                    from music_analyst_tpu_torch.profiling.collectives import (
+                        emit_stage_table,
+                    )
+
+                    emit_stage_table()
+                except Exception:
+                    pass
                 with self._lock:
                     counters = dict(self.counters)
                     gauges = dict(self.gauges)
                 self.event("run_end", engine=engine, counters=counters,
                            gauges=gauges, wall_seconds=round(wall, 6))
+                if directory:
+                    from music_analyst_tpu_torch.telemetry.introspect import (
+                        write_run_manifest,
+                    )
+
+                    write_run_manifest(self, directory, wall_seconds=wall)
                 self.close_sink()
             with self._lock:
                 self._run_depth = max(0, self._run_depth - 1)

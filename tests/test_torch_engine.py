@@ -192,9 +192,6 @@ _NO_OP_FLAGS = [
 _UNPORTED_FLAGS = [
     (["--weight-quant", "int8"], "on-device model family"),
     (["--devices", "2"], "not yet ported"),
-    (["--trace-dir", "t"], "not yet ported"),
-    (["--telemetry-dir", "t"], "not yet ported"),
-    (["--profile-dir", "t"], "not yet ported"),
     (["--watchdog-timeout", "5"], "not yet ported"),
     (["--watchdog-timeout", "soon"], "number of seconds"),
     (["--inject-faults", "ingest.read:error@1"], "not yet ported"),
@@ -208,6 +205,26 @@ def test_sentiment_cli_accepts_no_op_flags(fixture_csv, tmp_path, flags):
     assert json.loads(_totals(tmp_path)) == {
         "Positive": 3, "Neutral": 4, "Negative": 1,
     }
+
+
+# Ported since: each writes its artifact into the directory it names.
+_PORTED_DIR_FLAGS = {
+    "--trace-dir": "torch_trace.json",
+    "--telemetry-dir": "run_manifest.json",
+    "--profile-dir": "trace_spans.json",
+}
+
+
+@pytest.mark.parametrize("flag", sorted(_PORTED_DIR_FLAGS))
+def test_sentiment_cli_accepts_ported_dir_flags(fixture_csv, tmp_path, flag):
+    target = tmp_path / "flag_dir"
+    assert port_main(["sentiment", str(fixture_csv), "--mock", "--device",
+                      "cpu", "--output-dir", str(tmp_path / "out"), flag,
+                      str(target)]) == 0
+    assert json.loads(_totals(tmp_path / "out")) == {
+        "Positive": 3, "Neutral": 4, "Negative": 1,
+    }
+    assert (target / _PORTED_DIR_FLAGS[flag]).exists()
 
 
 @pytest.mark.parametrize("flags,message", _UNPORTED_FLAGS,

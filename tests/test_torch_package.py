@@ -194,3 +194,30 @@ def test_serve_entry_points_raise_without_cuda(monkeypatch):
             call()
     assert ModelResidency(model="mock", mock=True,
                           device="cpu").acquire().device.type == "cpu"
+
+
+def test_scan_covers_the_manifest_and_router_slice():
+    scanned = {str(p.relative_to(ROOT)) for p in _port_files()}
+    for rel in ("telemetry/introspect.py", "profiling/__init__.py",
+                "profiling/trace.py", "profiling/diff.py",
+                "observability/report.py", "observability/monitor.py",
+                "serving/router.py"):
+        assert f"music_analyst_tpu_torch/{rel}" in scanned
+
+
+def test_router_and_tools_entry_points_raise_without_cuda(monkeypatch,
+                                                          tmp_path):
+    """``serve --replicas N`` and ``run_router`` refuse a missing card
+    before any worker spawns; the host-only tools need none."""
+    from music_analyst_tpu_torch.cli.main import main
+    from music_analyst_tpu_torch.serving.router import run_router
+
+    _no_cuda(monkeypatch)
+    for call in (lambda: main(["serve", "--stdio", "--mock",
+                               "--replicas", "2"]),
+                 lambda: run_router(mock=True, stdio=True, replicas=2)):
+        with pytest.raises(RuntimeError, match="CUDA was requested"):
+            call()
+    manifest = tmp_path / "m.json"
+    manifest.write_text('{"schema": 1, "wall_seconds": 1.0}')
+    assert main(["profile-diff", str(manifest), str(manifest)]) == 0

@@ -267,10 +267,7 @@ def test_cli_stdio_mock_matches_sentiment_cli(fixture_csv, tmp_path,
     assert [r["label"] for r in replies] == labels
 
 
-@pytest.mark.parametrize("flags", [
-    ["--replicas", "2"], ["--tp", "2"], ["--telemetry-dir", "t"],
-    ["--profile-dir", "t"],
-], ids=" ".join)
+@pytest.mark.parametrize("flags", [["--tp", "2"]], ids=" ".join)
 def test_cli_serve_refuses_unported(flags, capsys):
     with pytest.raises(SystemExit):
         port_main(["serve", "--stdio", "--device", "cpu", "--mock", *flags])
