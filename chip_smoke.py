@@ -91,8 +91,8 @@
    counts sum to the per-song counts, ranked by count, one row group per
    song with tokens).  After step 5 (whose bf16 generate phase runs once
    now), Llama-3-8B with weights drawn on the card and quantized kernel by
-   kernel: ``weight_quant`` int8 in generate mode (24 songs, 8 continuous
-   slots) and score mode (16), int4 in generate mode (16), dynamic int8 in
+   kernel: ``weight_quant`` int8 in generate mode (16 songs, 8 continuous
+   slots) and score mode (16), int4 in generate mode (8), dynamic int8 in
    score mode (16), paged attention once per layer per decode step; a
    decoder layer rebuilt in f32 on the card and on the CPU from the same
    codes must agree; stored bytes, init and run peak memory (the init
@@ -148,6 +148,31 @@
    itself, 1 with its wall doubled).  Every worker a router spawned is
    gone when its phase ends.
 
+10. Drives training, the flash loss, MoE and ``sweep``, after step 9.
+   Kernel 2 against its plain version at Llama-3-8B's no-cache shapes (q
+   [8, 512, 32, 128], kv [8, 512, 8, 128], bf16), causal with lengths and
+   causal with two packed documents per row (attention across the
+   documents must break the limit), timed beside SDPA (GQA, causal) and
+   its bound.  The loss (``engines/train.py:causal_lm_loss``) on the full
+   32-layer ``llama3_8b`` (random bf16 weights) through flash against
+   dense on the same weights, B = 8, S = 513, unpacked and packed; flash
+   launches once per layer per forward.  The trainer at ``llama3_8b``'s
+   full width with 4 layers (f32 masters and AdamW moments): 5 steps (lr
+   1e-4) on one seeded batch and 3 packed batches, each through
+   ``prefetch_batches``; every loss finite, the fifth below the first,
+   ``train_steps`` counting 8; the trained model's loss through flash
+   against dense (4 launches); ``save_train_state`` then
+   ``restore_train_state`` in a temporary directory must give back the
+   masters, moments and step bit for bit; step wall time by CUDA events,
+   tokens/s, peak memory, and one more step split into loading the
+   masters, forward, backward and optimizer, each under
+   ``torch.profiler``.  MoE at ``llama3_8b`` width (2 layers, 8 experts,
+   top-2): sparse dispatch at lossless capacity against dense (last
+   prompt logits and label scores over 8 prompts), the drops at capacity
+   1.25, int8 experts against the float model.  ``sweep --devices 1,2``
+   as a process on step 6's CSV: one point, one ``skipping np=2`` line,
+   the summary and the point's metrics.
+
 Prints the card's name and power limit, a ``{"quant_gemm": [...]}`` line,
 a ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
 {...}}``.  Exits non-zero, printing no
@@ -157,6 +182,7 @@ report goes to ``chiprun_out/chip_smoke.json``.
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import os
@@ -1759,7 +1785,8 @@ QUANT_LOGIT_SPREAD = 0.1
 # not catch it, since a random model's logits vary little from song to
 # song), each layer projection with one scale or weight row dropped.
 # The int8 generate run was 64 songs; cut to 24 (three waves of 8 slots)
-# to fit the serve phases in the script's time.
+# to fit the serve phases in the script's time, then to 16 and int4's to
+# 8 to fit the training phases.
 LLAMA_WQ_SONGS = 24        # weight_quant int8, generate mode (three waves)
 LLAMA_WQ_INT4_SONGS = 16   # weight_quant int4, generate mode (two waves)
 LLAMA_Q_SCORE_SONGS = 16   # weight_quant int8 and dynamic int8, score mode
@@ -2102,8 +2129,8 @@ def llama_layer_check(torch, dev, clf) -> dict:
 
 def llama_quant_path(torch, dev, card) -> dict:
     """Full-width Llama-3-8B with random weights drawn on the card and
-    quantized kernel by kernel: weight_quant int8 (generate, 24 songs on
-    8 continuous slots; score, 16), weight_quant int4 (generate, 16) and
+    quantized kernel by kernel: weight_quant int8 (generate, 16 songs on
+    8 continuous slots; score, 16), weight_quant int4 (generate, 8) and
     dynamic int8 (score, 16), each through ``run_sentiment`` once."""
     import dataclasses
 
@@ -3218,6 +3245,624 @@ def manifest_tools_path(torch, card, dataset, run_dirs, trace_dir) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Step 10: training at full width, the flash loss, MoE, sweep
+# ---------------------------------------------------------------------------
+
+TRAIN_B, TRAIN_S = 8, 513        # token rows: 512 inputs and 512 targets
+TRAIN_LAYERS = 4                 # llama3_8b width, depth cut to fit 80 GB
+TRAIN_LR = 1e-4
+TRAIN_FIXED_STEPS, TRAIN_PACKED_STEPS = 5, 3
+#  - flash at Llama's shapes: the bf16 elementwise bound above (one
+#    rounding of an f32 result), at q [8, 512, 32, 128], kv [8, 512, 8, 128].
+#  - the loss through flash against dense on the same bf16 weights: the two
+#    paths round attention differently (flash keeps p in f32, dense casts
+#    the probabilities to bf16), through 32 layers.  The mean next-token
+#    cross-entropy agrees to FLASH_LOSS_REL_TOL relative (3.2e-5 and 2.9e-5
+#    measured on an H100, unpacked and packed; below one nat, to
+#    FLASH_LOSS_REL_TOL nats: 7.6e-5 measured after training), and the
+#    logits of every scored position to LLAMA_LOGIT_REL_TOL of their scale
+#    (2.0% and 1.9% measured).  A non-causal kernel (unpacked) and one that
+#    attends across documents (packed) must break both: measured 5.8e-4
+#    and 3.8e-4 relative on the loss, logits off by 1.4 times their scale.
+FLASH_LOSS_REL_TOL = 2e-4
+#  - MoE sparse at lossless capacity against dense, bf16: dense combines
+#    the experts in bf16, sparse in f32; the last-position logits agree to
+#    LOGIT_REL_TOL of their scale.  int8 experts and projections against
+#    the float model: MOE_INT8_REL_TOL of the logit scale (2.0% measured
+#    on an H100: a dynamic int8 product is ~1% off per layer on random
+#    weights).  Each expert's int8 product taken with its neighbour's
+#    weights must break it (7.6% measured).  Weight scales swapped between
+#    experts cannot: at random 8B weights every expert's per-channel
+#    maximum over 4096 draws is nearly the same, so the swap stays within
+#    int8's own error; the expert product's bit-for-bit check
+#    (check_expert_product) holds those.
+MOE_INT8_REL_TOL = 5e-2
+MOE_PROMPTS = 8
+
+
+def llama_token_batch(np, seed, packed=False):
+    """A seeded ``[TRAIN_B, TRAIN_S]`` int32 batch over the 8B vocab with
+    lengths (and, ``packed``, two or three documents per row)."""
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(1, 128_256, (TRAIN_B, TRAIN_S)).astype(np.int32)
+    if not packed:
+        lengths = np.full(TRAIN_B, TRAIN_S, np.int32)
+        lengths[TRAIN_B // 2:] = rng.integers(TRAIN_S // 2, TRAIN_S,
+                                              TRAIN_B - TRAIN_B // 2)
+        return ids, lengths
+    seg = np.zeros((TRAIN_B, TRAIN_S), np.int32)
+    for b in range(TRAIN_B):
+        cuts = np.sort(rng.choice(np.arange(32, TRAIN_S - 32),
+                                  1 + b % 2, replace=False))
+        bounds = [0, *cuts, TRAIN_S - 8 * (b % 3)]
+        for doc, (lo, hi) in enumerate(zip(bounds[:-1], bounds[1:]), 1):
+            seg[b, lo:hi] = doc
+    return ids, (seg > 0).sum(axis=1).astype(np.int32), seg
+
+
+def check_flash_llama(torch, dev) -> dict:
+    """Kernel 2 against its plain version at Llama-3-8B's no-cache shapes
+    (q [8, 512, 32, 128], kv [8, 512, 8, 128], bf16): causal with lengths,
+    and causal with two packed documents per row; then its time beside the
+    plain version, SDPA (GQA, causal) and the bound."""
+    import torch.nn.functional as F
+
+    from music_analyst_tpu_torch.ops.flash_attention import (
+        flash_attention,
+        flash_attention_reference,
+    )
+
+    B, S, H, Hkv, D = 8, 512, 32, 8, 128
+    gen = torch.Generator().manual_seed(21)
+    q = torch.randn(B, S, H, D, generator=gen).to(dev, torch.bfloat16)
+    k, v = (torch.randn(B, S, Hkv, D, generator=gen).to(dev, torch.bfloat16)
+            for _ in range(2))
+    lengths = torch.tensor([S, S, S, S, 400, 300, 129, 17], dtype=torch.int32,
+                           device=dev)
+    seg = torch.ones(B, S, dtype=torch.int32, device=dev)
+    for b in range(B):
+        seg[b, 64 + 48 * b:] = 2
+    cases = {"causal_lengths": dict(causal=True, lengths=lengths),
+             "causal_two_documents": dict(causal=True, q_segment_ids=seg)}
+    out = {}
+    with torch.no_grad():
+        for name, kw in cases.items():
+            got = flash_attention(q, k, v, **kw)
+            ref = flash_attention_reference(q.float(), k.float(), v.float(),
+                                            **kw)
+            out[name] = check_flash_output(torch, f"llama {name}", got, ref)
+            if name == "causal_two_documents":
+                # The limit must catch attention across the documents.
+                crossed = flash_attention(q, k, v, causal=True)
+                if flash_within(crossed, ref):
+                    fail("flash llama: limits pass attention across "
+                         "documents")
+            del got, ref
+        max_err = max(out.values())
+        kernel_ms = time_ms(torch, lambda: flash_attention(q, k, v,
+                                                           causal=True), 20)
+        plain_ms = time_ms(torch, lambda: flash_attention_reference(
+            q, k, v, causal=True), 3)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        library_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True), 20)
+    # q and o once each, k and v once each; causal: S(S+1)/2 pairs.
+    bytes_moved = 2 * B * S * H * D * 2 + 2 * B * S * Hkv * D * 2
+    flops = 4.0 * B * H * D * S * (S + 1) / 2
+    b_ms, b_by = bound(bytes_moved, flops, PEAK_BF16_FLOPS)
+    timing = dict(shape=f"q bf16 [{B},{S},{H},{D}], kv [{B},{S},{Hkv},{D}], "
+                        "causal", ms=kernel_ms, plain_ms=plain_ms,
+                  library_ms=library_ms, bound_ms=b_ms, bound_by=b_by,
+                  bytes=bytes_moved, flops=flops, max_abs_err=max_err,
+                  errors=out)
+    log(f"flash at Llama shapes: {json.dumps(timing)}")
+    del q, k, v, qt, kt, vt
+    torch.cuda.empty_cache()
+    return timing
+
+
+def _meta_llama(torch, cfg, dev):
+    from music_analyst_tpu_torch.models.llama import LlamaModel
+
+    with torch.device("meta"):
+        model = LlamaModel(cfg)
+    return model.to_empty(device=dev)
+
+
+def _shared_llama(torch, model, **over):
+    """A second Llama over ``model``'s own weight tensors (no copy), with
+    config fields changed (attention impl, MoE dispatch)."""
+    import dataclasses
+
+    from music_analyst_tpu_torch.models.llama import LlamaModel
+
+    with torch.device("meta"):
+        twin = LlamaModel(dataclasses.replace(model.config, **over))
+    twin.load_state_dict(model.state_dict(), assign=True)
+    return twin
+
+
+@contextlib.contextmanager
+def _broken_flash(**force):
+    """Llama's flash attention with keyword arguments forced: causal=False
+    (a non-causal kernel) or q_segment_ids=None (attention across
+    documents).  The model's layers call it through ``models.layers``."""
+    from music_analyst_tpu_torch.models import layers
+
+    real = layers.flash_attention
+    layers.flash_attention = lambda q, k, v, **kw: real(q, k, v,
+                                                        **{**kw, **force})
+    try:
+        yield
+    finally:
+        layers.flash_attention = real
+
+
+def _loss_and_logits(torch, model, ids, lengths, seg):
+    """``causal_lm_loss`` of the batch, and the logits it scored
+    (recorded at ``lm_head``), the padding's set to 0."""
+    from music_analyst_tpu_torch.engines.train import causal_lm_loss
+
+    seen = []
+    hook = model.lm_head.register_forward_hook(
+        lambda module, args, out: seen.append(out))
+    try:
+        loss = float(causal_lm_loss(model, ids, lengths, segment_ids=seg))
+    finally:
+        hook.remove()
+    (logits,) = seen
+    S = logits.shape[1]
+    valid = torch.arange(S, device=ids.device)[None, :] < lengths[:, None] - 1
+    if seg is not None:
+        valid &= seg[:, :-1] > 0
+    return loss, logits * valid[..., None]
+
+
+def _loss_agreement(torch, got, want) -> dict:
+    """How far ``got`` = (loss, logits) is from ``want``, against
+    FLASH_LOSS_REL_TOL (relative to the loss, or to one nat below it) and
+    LLAMA_LOGIT_REL_TOL."""
+    scale = float(want[1].abs().max())
+    logit_diff = float((got[1] - want[1]).abs().max())
+    rel = abs(got[0] - want[0]) / max(abs(want[0]), 1.0)
+    return dict(loss=got[0], rel_diff=rel, logit_max_abs=logit_diff,
+                logit_scale=scale,
+                within=bool(rel <= FLASH_LOSS_REL_TOL
+                            and logit_diff <= LLAMA_LOGIT_REL_TOL * scale))
+
+
+def flash_loss_path(torch, dev, card) -> dict:
+    """The loss forward through the flash kernel on the full 32-layer
+    llama3_8b (random bf16 weights), against the dense path on the same
+    weights, B = 8, S = 513, unpacked and packed: the loss and the logits
+    of every scored position; the flash launches are counted (one per
+    layer per forward).  A non-causal kernel (unpacked) and attention
+    across documents (packed) must break the limits."""
+    import numpy as np
+
+    from music_analyst_tpu_torch import kernels
+    from music_analyst_tpu_torch.models.llama import LlamaConfig, init_random_
+
+    cfg = LlamaConfig.llama3_8b()
+    t0 = time.perf_counter()
+    dense = _meta_llama(torch, cfg, dev)
+    init_random_(dense, 0)
+    flash = _shared_llama(torch, dense, attn_impl="flash")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    out = {"init_s": init_s, "layers": cfg.n_layers}
+    batches = {"unpacked": llama_token_batch(np, 31) + (None,),
+               "packed": llama_token_batch(np, 32, packed=True)}
+    broken = {"unpacked": dict(causal=False),
+              "packed": dict(q_segment_ids=None)}
+    with torch.no_grad():
+        for name, (ids, lengths, seg) in batches.items():
+            args = [torch.as_tensor(a, device=dev) for a in (ids, lengths)]
+            if seg is not None:
+                seg = torch.as_tensor(seg, device=dev)
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            got = _loss_and_logits(torch, flash, *args, seg)
+            flash_s = time.perf_counter() - t0
+            launches = kernels.launches()
+            want = _loss_and_logits(torch, dense, *args, seg)
+            if not (np.isfinite(got[0]) and np.isfinite(want[0])):
+                fail(f"flash loss {name}: non-finite ({got[0]}, {want[0]})")
+            agree = _loss_agreement(torch, got, want)
+            del got
+            with _broken_flash(**broken[name]):
+                wrong = _loss_agreement(torch, _loss_and_logits(
+                    torch, flash, *args, seg), want)
+            out[name] = dict(agree, dense_loss=want[0], launches=launches,
+                             flash_forward_s=flash_s,
+                             broken={"forced": list(broken[name]), **wrong})
+            if not agree["within"]:
+                fail(f"flash loss {name}: flash vs dense {agree}")
+            if wrong["within"]:
+                fail(f"flash loss {name}: the limits pass a kernel with "
+                     f"{broken[name]}: {wrong}")
+            if launches["flash_attention"] != cfg.n_layers:
+                fail(f"flash loss {name}: flash_attention launched "
+                     f"{launches['flash_attention']} times, expected "
+                     f"{cfg.n_layers}")
+            del want
+    log(f"llama3_8b loss, flash vs dense on {card}: {json.dumps(out)}")
+    del dense, flash
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def traced_device_ms(prof, path) -> float:
+    """The device's busy time in ms in a finished profile's trace (written
+    to ``path``): the union of its kernels, copies and memsets on any
+    stream, whichever host thread launched them."""
+    prof.export_chrome_trace(path)
+    with open(path) as fh:
+        spans = sorted((e["ts"], e["ts"] + e["dur"])
+                       for e in json.load(fh)["traceEvents"]
+                       if e.get("ph") == "X" and e.get("cat") in (
+                           "kernel", "gpu_memcpy", "gpu_memset"))
+    busy_us, end = 0.0, float("-inf")
+    for lo, hi in spans:
+        busy_us += max(0.0, hi - max(lo, end))
+        end = max(end, hi)
+    return busy_us / 1e3
+
+
+def train_split(torch, model, opt, state, batch) -> dict:
+    """One more step of ``state`` on ``batch`` through ``make_train_step``
+    with a phase hook: CUDA events around each phase (loading the masters,
+    the forward, the backward, the optimizer) on the stream, with no
+    synchronize between them, and ``torch.profiler`` around the whole
+    step.  The device's idle time in the step (the host's share) is the
+    step's event time less the device activity in the profiler's trace.
+    (The trace's per-range device times miss the backward, whose kernels
+    the autograd engine's thread launches, so phases are timed by events.)"""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from music_analyst_tpu_torch.engines import train as engine
+
+    phases = {}
+
+    @contextlib.contextmanager
+    def phase(name):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        with record_function(f"train.{name}"):
+            start.record()
+            yield
+            end.record()
+        phases[name] = (start, end, time.perf_counter() - t0)
+
+    step = engine.make_train_step(model, opt, phase=phase)
+    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=activities):      # the tracer's first start-up
+        torch.ones(1, device=batch[0].device).add_(1)
+        torch.cuda.synchronize()
+    torch.cuda.synchronize()
+    begin = torch.cuda.Event(enable_timing=True)
+    finish = torch.cuda.Event(enable_timing=True)
+    with profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        begin.record()
+        state, loss = step(state, *batch)
+        finish.record()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    step_ms = begin.elapsed_time(finish)
+    busy_ms = traced_device_ms(prof, os.path.join(WORK, "train_step.json"))
+    result = {name: dict(device_ms=start.elapsed_time(end),
+                         host_enqueue_ms=host_s * 1e3)
+              for name, (start, end, host_s) in phases.items()}
+    result.update(step_ms=step_ms, step_wall_ms=wall_ms,
+                  device_busy_ms=busy_ms, device_idle_ms=step_ms - busy_ms,
+                  idle_share=(step_ms - busy_ms) / step_ms,
+                  loss=float(loss))
+    return result
+
+
+def train_path(torch, dev, card) -> dict:
+    """The trainer at llama3_8b's full width with TRAIN_LAYERS layers: 5
+    AdamW steps on one fixed batch, then 3 packed batches, each batch
+    through ``prefetch_batches``; then an evaluation of the loss through
+    the flash kernel, a checkpoint round trip and a phase split."""
+    import dataclasses
+    import tempfile
+
+    import numpy as np
+
+    from music_analyst_tpu_torch import kernels
+    from music_analyst_tpu_torch.engines import train as engine
+    from music_analyst_tpu_torch.engines.checkpoint import (
+        restore_train_state,
+        save_train_state,
+    )
+    from music_analyst_tpu_torch.models.llama import LlamaConfig
+    from music_analyst_tpu_torch.telemetry import get_telemetry
+
+    cfg = dataclasses.replace(LlamaConfig.llama3_8b(), n_layers=TRAIN_LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = _meta_llama(torch, cfg, dev)
+    opt = engine.make_optimizer(TRAIN_LR)
+    state = engine.init_train_state(model, opt, seed=0)
+    step = engine.make_train_step(model, opt)
+    torch.cuda.synchronize()
+    out = {"init_s": time.perf_counter() - t0,
+           "params": sum(p.numel() for p in state.params.values())}
+    fixed = llama_token_batch(np, 41)
+    batches = ([fixed] * TRAIN_FIXED_STEPS
+               + [llama_token_batch(np, 50 + i, packed=True)
+                  for i in range(TRAIN_PACKED_STEPS)])
+    tel = get_telemetry()
+    steps_before = tel.counters.get("train_steps", 0)
+    bytes_before = tel.counters.get("train_pipeline.h2d_bytes", 0)
+    losses, step_ms = [], []
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    for batch in engine.prefetch_batches(batches, device=dev):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, loss = step(state, *batch)
+        end.record()
+        losses.append(loss)
+        step_ms.append((start, end))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    losses = [float(x) for x in losses]
+    step_ms = [s.elapsed_time(e) for s, e in step_ms]
+    steps = tel.counters.get("train_steps", 0) - steps_before
+    if not all(np.isfinite(losses)):
+        fail(f"trainer: non-finite loss {losses}")
+    if not losses[TRAIN_FIXED_STEPS - 1] < losses[0]:
+        fail(f"trainer: loss did not fall over {TRAIN_FIXED_STEPS} steps on "
+             f"one batch: {losses[:TRAIN_FIXED_STEPS]}")
+    if steps != len(batches) or int(state.step) != len(batches):
+        fail(f"trainer: train_steps counted {steps}, state.step "
+             f"{int(state.step)}, expected {len(batches)}")
+    tokens = TRAIN_B * (TRAIN_S - 1)
+    steady = step_ms[1:]
+    out.update(
+        losses=losses, step_ms=step_ms,
+        step_ms_mean=sum(steady) / len(steady),
+        tokens_per_s=tokens / (sum(steady) / len(steady) / 1e3),
+        wall_s=wall, train_steps=steps,
+        h2d_bytes=tel.counters.get("train_pipeline.h2d_bytes", 0)
+        - bytes_before,
+        training_launches=kernels.launches(),
+        peak_memory_bytes=torch.cuda.max_memory_allocated())
+    # Evaluation through the flash kernel on the trained weights.
+    engine.load_params_(model, state.params)
+    flash = _shared_llama(torch, model, attn_impl="flash")
+    ids, lengths = (torch.as_tensor(a, device=dev) for a in fixed)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    with torch.no_grad():
+        got = _loss_and_logits(torch, flash, ids, lengths, None)
+        out["eval_launches"] = kernels.launches()
+        want = _loss_and_logits(torch, model, ids, lengths, None)
+    if out["eval_launches"]["flash_attention"] != TRAIN_LAYERS:
+        fail(f"trainer eval: flash launched {out['eval_launches']}")
+    out["eval"] = dict(_loss_agreement(torch, got, want), dense_loss=want[0])
+    if not out["eval"]["within"]:
+        fail(f"trainer eval: flash vs dense {out['eval']}")
+    del flash, got, want
+    # Checkpoint round trip, in a temporary directory.
+    tmp = tempfile.mkdtemp(prefix="train_state_")
+    try:
+        out["checkpoint_disk_free_bytes"] = shutil.disk_usage(tmp).free
+        t0 = time.perf_counter()
+        save_train_state(state, tmp)
+        out["checkpoint_save_s"] = time.perf_counter() - t0
+        out["checkpoint_bytes"] = os.path.getsize(
+            os.path.join(tmp, "train_state.pt"))
+        t0 = time.perf_counter()
+        restored = restore_train_state(tmp, device=dev)
+        torch.cuda.synchronize()
+        out["checkpoint_restore_s"] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if int(restored.step) != int(state.step):
+        fail(f"checkpoint: step {int(restored.step)} != {int(state.step)}")
+    for name, master in state.params.items():
+        back = restored.params[name]
+        moments = state.opt_state.state[master]
+        back_m = restored.opt_state.state[back]
+        if not (torch.equal(back, master)
+                and torch.equal(back_m["exp_avg"], moments["exp_avg"])
+                and torch.equal(back_m["exp_avg_sq"], moments["exp_avg_sq"])):
+            fail(f"checkpoint: {name} did not round-trip")
+    del restored
+    torch.cuda.empty_cache()
+    out["split"] = train_split(torch, model, opt, state, (ids, lengths))
+    log(f"trainer llama3_8b width x {TRAIN_LAYERS} layers on {card}: "
+        f"{json.dumps(out)}")
+    del model, state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+@contextlib.contextmanager
+def _int8_experts_rolled():
+    """The MoE layers' int8 expert product with each expert's weights (codes
+    and scales) taken from the expert before it."""
+    from music_analyst_tpu_torch.models import moe
+
+    real = moe.quant_batched_matmul
+    moe.quant_batched_matmul = lambda x, w: real(x, w.roll(1, dims=0))
+    try:
+        yield
+    finally:
+        moe.quant_batched_matmul = real
+
+
+def check_expert_product(torch, dev) -> dict:
+    """``quant_batched_matmul`` at the 8B MoE's expert shape (8 experts,
+    256 rows, 4096 → 14336) against its plain version, bit for bit, each
+    expert's weights at their own magnitude (2^e), so that scales taken
+    from another expert show; weight scales swapped between neighbouring
+    experts must break it."""
+    from music_analyst_tpu_torch.ops.quant import (
+        quant_batched_matmul,
+        quant_batched_matmul_plain,
+    )
+
+    E, C, K, N = 8, 256, 4096, 14336
+    gen = torch.Generator(device=dev).manual_seed(61)
+    x = torch.randn(E, C, K, generator=gen, device=dev).bfloat16()
+    w = torch.randn(E, K, N, generator=gen, device=dev)
+    w = (w * 0.02 * 2.0 ** torch.arange(E, device=dev)[:, None, None]
+         ).bfloat16()
+    with torch.no_grad():
+        got = quant_batched_matmul(x, w)
+        want = quant_batched_matmul_plain(x, w)
+        amax = w.float().abs().amax(dim=1, keepdim=True)           # [E,1,N]
+        swapped = got * (amax.roll(1, dims=0) / amax)
+    out = dict(shape=f"x bf16 [{E},{C},{K}], w [{E},{K},{N}]",
+               max_abs_err=float((got - want).abs().max()),
+               swapped_max_rel=float(((swapped - want).abs()
+                                      / want.abs().max()).max()))
+    if not torch.equal(got, want):
+        fail(f"int8 expert product on the card vs plain: {out}")
+    if torch.equal(swapped, want):
+        fail("int8 expert product: the check passes swapped weight scales")
+    del x, w, got, want, swapped
+    torch.cuda.empty_cache()
+    return out
+
+
+def moe_path(torch, dev, card) -> dict:
+    """MoE at llama3_8b width (2 layers, 8 experts, top-2, bf16): last
+    prompt logits and label scores over MOE_PROMPTS prompts with sparse
+    dispatch at lossless capacity against dense; the drops at capacity
+    1.25; int8 experts against the float model."""
+    import dataclasses
+
+    from music_analyst_tpu_torch.data.csv_io import iter_songs
+    from music_analyst_tpu_torch.models.llama import (
+        LlamaConfig,
+        LlamaZeroShotClassifier,
+    )
+
+    cfg = dataclasses.replace(LlamaConfig.llama3_8b(), n_layers=2,
+                              n_experts=8, moe_top_k=2,
+                              moe_capacity_factor=8.0)
+    texts = [t for _, _, t in iter_songs(os.path.join(WORK, "songs_16384.csv"),
+                                         limit=MOE_PROMPTS)]
+    out = {}
+
+    def run(clf):
+        ids, lens = clf._encode_prompts(texts)
+        ids = torch.as_tensor(ids, device=dev).long()
+        lens = torch.as_tensor(lens, device=dev).long()
+        S = ids.shape[1]
+        pos = torch.arange(S, device=dev).expand(len(texts), S)
+        mask = (torch.arange(S, device=dev)[None, None, None, :]
+                < lens[:, None, None, None])
+        mask = mask & (torch.arange(S, device=dev)[None, :]
+                       <= torch.arange(S, device=dev)[:, None])
+        with torch.no_grad():
+            logits, _ = clf.model(ids, pos, mask, last_position=lens - 1)
+            # Assignments the prompt forward dropped past capacity.
+            drops = sum(int(layer.feed_forward_moe.last_dropped)
+                        for layer in clf.model.layers)
+            scores = clf.score_labels(ids, lens)
+        torch.cuda.synchronize()
+        return logits[:, 0].float(), scores.float(), S, drops
+
+    t0 = time.perf_counter()
+    clf = LlamaZeroShotClassifier(config=cfg, device=dev, seed=0,
+                                  max_prompt_len=1024)
+    torch.cuda.synchronize()
+    out["init_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sparse, sparse_scores, S, out["sparse_lossless_drops"] = run(clf)
+    out["sparse_s"] = time.perf_counter() - t0
+    out["prompt_len"] = S
+    for layer in clf.model.layers:
+        layer.feed_forward_moe.dispatch = "dense"
+    t0 = time.perf_counter()
+    dense, dense_scores, _, _ = run(clf)
+    out["dense_s"] = time.perf_counter() - t0
+    scale = float(dense.abs().max())
+    diff = float((sparse - dense).abs().max())
+    out.update(logit_scale=scale, sparse_vs_dense_max_abs=diff,
+               score_max_abs=float((sparse_scores - dense_scores).abs().max()),
+               argmax_agree=int((sparse.argmax(-1) == dense.argmax(-1)).sum()))
+    if not (torch.isfinite(sparse).all() and torch.isfinite(dense).all()):
+        fail("moe: non-finite logits")
+    if out["sparse_lossless_drops"] or diff > LOGIT_REL_TOL * scale:
+        fail(f"moe: sparse at lossless capacity vs dense: {out}")
+    for layer in clf.model.layers:
+        layer.feed_forward_moe.dispatch = "sparse"
+        layer.feed_forward_moe.capacity_factor = 1.25
+    capped, _, _, out["capacity_1_25_drops"] = run(clf)
+    out["capacity_1_25_max_abs"] = float((capped - dense).abs().max())
+    out["assignments"] = 2 * MOE_PROMPTS * S * cfg.n_layers
+    del clf
+    gc.collect()
+    torch.cuda.empty_cache()
+    # The same seed draws the same weights into the int8 model.
+    q_cfg = dataclasses.replace(cfg, quant="int8")
+    clf = LlamaZeroShotClassifier(config=q_cfg, device=dev, seed=0,
+                                  max_prompt_len=1024)
+    quant, _, _, _ = run(clf)
+    out["int8_vs_float_max_abs"] = float((quant - sparse).abs().max())
+    out["int8_argmax_agree"] = int((quant.argmax(-1)
+                                    == sparse.argmax(-1)).sum())
+    with _int8_experts_rolled():
+        rolled, _, _, _ = run(clf)
+    out["int8_experts_rolled_max_abs"] = float((rolled - sparse).abs().max())
+    if (not torch.isfinite(quant).all()
+            or out["int8_vs_float_max_abs"] > MOE_INT8_REL_TOL * scale):
+        fail(f"moe int8: {out}")
+    if out["int8_experts_rolled_max_abs"] <= MOE_INT8_REL_TOL * scale:
+        fail(f"moe int8: the limit passes each expert's product taken with "
+             f"its neighbour's weights: {out}")
+    del clf
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["expert_product"] = check_expert_product(torch, dev)
+    log(f"moe llama3_8b width, 2 layers x 8 experts on {card}: "
+        f"{json.dumps(out)}")
+    return out
+
+
+def sweep_path(dataset, card) -> dict:
+    """``sweep --devices 1,2`` as a process on the analyze CSV: one point,
+    one ``skipping np=2`` line, the summary and the point's metrics."""
+    out_dir = os.path.join(WORK, "sweep")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    t0 = time.perf_counter()
+    proc = _cli(["sweep", dataset, "--devices", "1,2", "--output-dir",
+                 out_dir, "--no-corpus-cache"])
+    wall = time.perf_counter() - t0
+    if proc.returncode:
+        fail(f"sweep exited {proc.returncode}: {proc.stderr[-2000:]}")
+    skips = [ln for ln in proc.stdout.splitlines()
+             if ln.startswith("skipping np=")]
+    if skips != ["skipping np=2: only 1 devices"]:
+        fail(f"sweep: expected one skip line, got {skips}")
+    with open(os.path.join(out_dir, "sweep_summary.json")) as fh:
+        summary = json.load(fh)
+    with open(os.path.join(out_dir, "performance_metrics_np1.json")) as fh:
+        metrics = json.load(fh)
+    if ([r["devices"] for r in summary["runs"]] != [1]
+            or metrics.get("device_platform") != "gpu"
+            or metrics.get("total_songs") != ANALYZE_SONGS):
+        fail(f"sweep: summary {summary}, metrics {metrics}")
+    out = dict(process_wall_s=wall, summary=summary,
+               total_songs=metrics["total_songs"])
+    log(f"sweep on {card}: {json.dumps(out)}")
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -3319,6 +3964,16 @@ def main() -> int:
         report["router_distilbert"]["trace_dir"])
     report["slice9_s"] = time.perf_counter() - t0
     log(f"router and manifest phases: {report['slice9_s']:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    report["flash_llama"] = check_flash_llama(torch, dev)
+    report["flash_loss"] = flash_loss_path(torch, dev, card)
+    report["train"] = train_path(torch, dev, card)
+    report["moe"] = moe_path(torch, dev, card)
+    report["sweep"] = sweep_path(report["analyze"]["dataset"], card)
+    report["slice10_s"] = time.perf_counter() - t0
+    log(f"training, flash loss, MoE and sweep phases: "
+        f"{report['slice10_s']:.1f} s")
     report["host_python_ms"]["end"] = python_ms()
     log(f"host probe (ms of a fixed Python loop): "
         f"{json.dumps(report['host_python_ms'])}")
@@ -3326,7 +3981,8 @@ def main() -> int:
 
     timing = report["timing"]
     errs = dict(report["flash_max_abs_err"],
-                distilbert_main_shape=timing["flash_attention"]["max_abs_err"])
+                distilbert_main_shape=timing["flash_attention"]["max_abs_err"],
+                llama_shapes=report["flash_llama"]["max_abs_err"])
     kernels_line = {"kernels": [
         dict(name="flash_attention", route="cuda",
              source="music_analyst_tpu_torch/csrc/flash_attention.cu",
@@ -3337,6 +3993,13 @@ def main() -> int:
              serve_launches=mp["serve"]["launches"]["flash_attention"],
              router_launches=report["router_distilbert"]["flash_launches"],
              profile_dir_trace_events=report["manifests"]["flash_events"],
+             loss_launches=sum(report["flash_loss"][name]["launches"][
+                 "flash_attention"] for name in ("unpacked", "packed")),
+             train_eval_launches=report["train"]["eval_launches"][
+                 "flash_attention"],
+             llama_shape={key: report["flash_llama"][key] for key in
+                          ("shape", "ms", "plain_ms", "bound_ms", "bound_by",
+                           "library_ms", "max_abs_err")},
              **{f"{name}_launches": report["distilbert_quant"][name][
                  "launches"]["flash_attention"]
                 for name in ("int8_dynamic", "wq_int8", "wq_int4")},
@@ -3385,7 +4048,9 @@ def main() -> int:
         f"router --mock "
         f"{report['router_mock']['requests_per_s']:.1f} req/s, router "
         f"distilbert {report['router_distilbert']['requests_per_s']:.1f} "
-        f"req/s; total {report['seconds']:.1f} s")
+        f"req/s; train step {report['train']['step_ms_mean']:.1f} ms "
+        f"({report['train']['tokens_per_s']:.0f} tokens/s); "
+        f"total {report['seconds']:.1f} s")
     print(json.dumps({"quant_gemm": report["quant_gemm"]}))
     print(json.dumps(kernels_line))
     print(card)

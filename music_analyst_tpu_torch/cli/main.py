@@ -4,11 +4,13 @@ Counterpart of ``music_analyst_tpu/cli/main.py`` for the subcommands
 ported so far — ``analyze`` (with ``--with-sentiment``, the joint
 pipeline), ``sentiment`` (``--weight-quant``, ``--model ollama[:tag]``),
 ``wordcount-per-song``, ``split``, ``serve`` (``--replicas N`` puts the
-replica router in front of N worker processes; ``--tp 1``), and the
-host-only tools ``profile-diff``, ``telemetry-report``, ``trace-report``
-and ``monitor`` — with the JAX flags, defaults and exit codes, plus
-``--device {cuda,cpu}`` on ``analyze``, ``sentiment``,
-``wordcount-per-song`` and ``serve`` (the counterpart of
+replica router in front of N worker processes; ``--tp 1``), ``sweep``
+(the word count over device counts), ``validate`` (label agreement with
+a ``transformers`` oracle on a checkpoint), and the host-only tools
+``profile-diff``, ``telemetry-report``, ``trace-report`` and ``monitor``
+— with the JAX flags, defaults and exit codes, plus ``--device
+{cuda,cpu}`` on ``analyze``, ``sentiment``, ``wordcount-per-song``,
+``serve``, ``sweep`` and ``validate`` (the counterpart of
 ``JAX_PLATFORMS``; default ``cuda``, which fails rather than falling back
 when no card is present).
 
@@ -17,16 +19,17 @@ Every run-scoped subcommand writes ``telemetry.jsonl`` and
 ``--no-telemetry`` turns both off), flies with the flight recorder, and
 takes ``--profile-dir`` (a ``torch.profiler`` trace plus
 ``trace_spans.json``); ``analyze`` and ``sentiment`` also take
-``--trace-dir``.  Not ported yet: ``validate`` and ``sweep``; ``--tp``
-above 1, ``--devices`` above 1, and ``--inject-faults`` or a non-zero
-``--watchdog-timeout`` outside ``serve``, which pass at their no-op
-values and are usage errors naming the flag at any other.
+``--trace-dir``.  Not ported yet: ``--tp`` above 1, ``--devices`` above 1
+(``sweep`` skips or refuses such points), and ``--inject-faults`` or a
+non-zero ``--watchdog-timeout`` outside ``serve``, which pass at their
+no-op values and are usage errors naming the flag at any other.
 """
 
 from __future__ import annotations
 
 import argparse
 import math
+import sys
 from typing import List, Optional
 
 _NOT_PORTED = "is not yet ported to music_analyst_tpu_torch"
@@ -64,6 +67,22 @@ def _chunk_songs_arg(text: str):
             f"expected an integer >= 0 or 'auto', got {value}"
         )
     return value
+
+
+def _add_corpus_cache_flags(p: argparse.ArgumentParser) -> None:
+    """Persistent-ingest-cache and streaming flags, shared by analyze and
+    sweep."""
+    p.add_argument("--corpus-cache-dir", default=None,
+                   help="Persistent corpus-cache directory (default "
+                        "$MUSICAAL_CORPUS_CACHE or ~/.cache/musicaal_corpus)")
+    p.add_argument("--no-corpus-cache", action="store_true",
+                   help="Disable the persistent corpus cache (always "
+                        "re-ingest)")
+    p.add_argument("--chunk-songs", type=_chunk_songs_arg, default=None,
+                   help="Songs per streamed device chunk for the word "
+                        "histogram: 'auto' (default — stream only on "
+                        "large corpora), 0 = whole-corpus put, or an "
+                        "explicit count (bounds host+device memory)")
 
 
 def _add_device_flag(p: argparse.ArgumentParser) -> None:
@@ -123,7 +142,7 @@ def _check_run_flags(parser: argparse.ArgumentParser,
         if seconds != 0:
             parser.error(f"--watchdog-timeout {_NOT_PORTED} (only 0 runs)")
     devices = getattr(args, "devices", None)
-    if devices is not None and devices != 1:
+    if args.command != "sweep" and devices is not None and devices != 1:
         parser.error(f"--devices {devices} {_NOT_PORTED} (one device only)")
 
 
@@ -162,17 +181,7 @@ def _add_analyze(sub: argparse._SubParsersAction) -> None:
                    help="Sentiment batches staged ahead of the device in "
                         "the tokenize→transfer pipeline (default 2, or "
                         "$MUSICAAL_PREFETCH_DEPTH; 0 = no overlap)")
-    p.add_argument("--corpus-cache-dir", default=None,
-                   help="Persistent corpus-cache directory (default "
-                        "$MUSICAAL_CORPUS_CACHE or ~/.cache/musicaal_corpus)")
-    p.add_argument("--no-corpus-cache", action="store_true",
-                   help="Disable the persistent corpus cache (always "
-                        "re-ingest)")
-    p.add_argument("--chunk-songs", type=_chunk_songs_arg, default=None,
-                   help="Songs per streamed device chunk for the word "
-                        "histogram: 'auto' (default — stream only on "
-                        "large corpora), 0 = whole-corpus put, or an "
-                        "explicit count (bounds host+device memory)")
+    _add_corpus_cache_flags(p)
     _add_device_flag(p)
     _add_run_flags(p)
 
@@ -241,6 +250,87 @@ def _add_split(sub: argparse._SubParsersAction) -> None:
     p.add_argument("--no-header", action="store_true")
     p.add_argument("--force", action="store_true")
     _add_run_flags(p, devices=False)
+
+
+def _add_validate(sub: argparse._SubParsersAction) -> None:
+    p = sub.add_parser(
+        "validate",
+        help="certify real weights: label agreement vs a transformers "
+             "torch oracle on a dataset slice (engines/validate.py)",
+    )
+    p.add_argument("dataset")
+    p.add_argument("--model", default="distilbert",
+                   help="distilbert[-*] or llama[3*]; the checkpoint comes "
+                        "from MUSICAAL_DISTILBERT_CKPT / MUSICAAL_LLAMA_CKPT")
+    p.add_argument("--limit", type=int, default=64,
+                   help="Rows in the validation slice (0 = whole dataset)")
+    p.add_argument("--output-dir", default=None,
+                   help="Also write weight_validation.json here")
+    p.add_argument("--min-agreement", type=float, default=None,
+                   help="Exit non-zero when agreement falls below this "
+                        "fraction (CI gate)")
+    p.add_argument("--weight-quant", choices=("none", "int8", "int4"),
+                   default="none",
+                   help="Validate the weight-quantized model against the "
+                        "float torch oracle (quantization quality gate)")
+    _add_device_flag(p)
+    _add_run_flags(p, devices=False)
+
+
+def _add_sweep(sub: argparse._SubParsersAction) -> None:
+    p = sub.add_parser(
+        "sweep",
+        help="scaling sweep over device counts (run_performance.sh analogue)",
+    )
+    p.add_argument("dataset")
+    p.add_argument("--devices", type=_int_list, default=None,
+                   help="Comma-separated device counts (default: 1,2,4,8 "
+                        "capped at the cards present; 1 with --device cpu)")
+    p.add_argument("--output-dir", default="output")
+    p.add_argument("--ingest", choices=("auto", "native", "python"),
+                   default="auto")
+    _add_corpus_cache_flags(p)
+    _add_device_flag(p)
+    _add_run_flags(p, devices=False)
+
+
+def _run_validate(args: argparse.Namespace) -> int:
+    from music_analyst_tpu_torch.engines.validate import run_validation
+
+    report = run_validation(
+        args.dataset,
+        model=args.model,
+        limit=args.limit,
+        output_dir=args.output_dir,
+        weight_quant=args.weight_quant,
+        device=args.device,
+    )
+    if (args.min_agreement is not None
+            and report["agreement"] < args.min_agreement):
+        print(f"FAIL: agreement {report['agreement']} < "
+              f"{args.min_agreement}", file=sys.stderr)
+        return 1
+    return 0
+
+
+def _run_sweep(args: argparse.Namespace) -> int:
+    from music_analyst_tpu_torch.engines.sweep import run_sweep
+
+    summary = run_sweep(
+        args.dataset,
+        device_counts=args.devices,
+        output_dir=args.output_dir,
+        ingest_backend=args.ingest,
+        quiet=False,
+        corpus_cache_dir=args.corpus_cache_dir,
+        use_corpus_cache=not args.no_corpus_cache,
+        chunk_songs=args.chunk_songs,
+        device=args.device,
+    )
+    for run in summary["runs"]:
+        print(f"np={run['devices']}: {run['wall_seconds']}s "
+              f"(speedup {run['speedup_vs_first']}x)")
+    return 0
 
 
 def _add_serve(sub: argparse._SubParsersAction) -> None:
@@ -669,6 +759,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     _add_wordcount_per_song(sub)
     _add_split(sub)
     _add_serve(sub)
+    _add_sweep(sub)
+    _add_validate(sub)
     _add_profile_diff(sub)
     _add_telemetry_report(sub)
     _add_trace_report(sub)
@@ -729,5 +821,9 @@ def _dispatch(parser: argparse.ArgumentParser,
         return _run_split(args)
     if args.command == "serve":
         return _run_serve(parser, args)
+    if args.command == "sweep":
+        return _run_sweep(args)
+    if args.command == "validate":
+        return _run_validate(args)
     parser.error(f"unknown command {args.command!r}")
     return 2

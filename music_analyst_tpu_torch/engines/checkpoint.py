@@ -1,8 +1,15 @@
-"""Streaming weight-quantized inference loader.
+"""Train-state checkpoints and the streaming weight-quantized inference
+loader.
 
-Counterpart of ``load_quantized_params`` / ``last_load_stats`` in
-``music_analyst_tpu/engines/checkpoint.py`` (training-state save and
-restore are not ported yet).  HF torch tensors are read one layer-sized
+Counterpart of ``music_analyst_tpu/engines/checkpoint.py``.
+:func:`save_train_state` / :func:`restore_train_state` keep a train state
+(``engines/train.py``: f32 master params, both AdamW moments, the step) in
+torch format, one file ``train_state.pt`` in the checkpoint directory,
+written atomically.  The JAX package writes orbax checkpoints, which only
+JAX can read; the port neither reads nor writes that format, so a state
+moves between the packages only as parameters (``params_from_jax``).
+
+``load_quantized_params`` / ``last_load_stats``: HF torch tensors are read one layer-sized
 unit at a time (the model families' ``iter_hf_param_units``), quantized on
 the host, and copied to the device through the bounded
 ``runtime/prefetch.py`` pipeline: the copy of unit *k* overlaps the
@@ -16,6 +23,7 @@ never touches ``torch.load``.
 from __future__ import annotations
 
 import math
+import os
 import threading
 import time
 from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
@@ -23,7 +31,9 @@ from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
 import numpy as np
 import torch
 
+from music_analyst_tpu_torch.device import DeviceLike, resolve_device
 from music_analyst_tpu_torch.engines import wq_cache
+from music_analyst_tpu_torch.engines.train import AdamW, TrainState
 from music_analyst_tpu_torch.ops.quant import (
     WQ_DEFAULT_GROUP,
     QuantizedParam,
@@ -35,6 +45,61 @@ from music_analyst_tpu_torch.runtime.prefetch import (
     Stage,
     resolve_prefetch_depth,
 )
+from music_analyst_tpu_torch.utils.atomic import atomic_write
+
+TRAIN_STATE_FILE = "train_state.pt"
+
+
+def save_train_state(state: TrainState, path: str) -> str:
+    """Save ``state`` into the directory ``path`` (absolute or
+    cwd-relative; created if missing); returns its absolute path.  The
+    file is staged and renamed into place, so a crash leaves the previous
+    checkpoint whole."""
+    path = os.path.abspath(path)
+    with atomic_write(os.path.join(path, TRAIN_STATE_FILE), "wb",
+                      encoding=None) as fh:
+        torch.save({"params": state.params,
+                    "opt_state": state.opt_state.state_dict(),
+                    "step": int(state.step)}, fh)
+    return path
+
+
+def restore_train_state(path: str, like: Optional[TrainState] = None,
+                        device: DeviceLike = "cuda") -> TrainState:
+    """Restore the state saved in ``path``.  With ``like``, the saved
+    values are copied into ``like``'s tensors and optimizer (its devices
+    and structure; the names must match) and ``like`` is returned with the
+    saved step; otherwise a new state is built on ``device``."""
+    path = os.path.join(os.path.abspath(path), TRAIN_STATE_FILE)
+    saved = torch.load(path, map_location="cpu", weights_only=True,
+                       mmap=True)
+    opt_saved = saved["opt_state"]
+    if like is not None:
+        if list(saved["params"]) != list(like.params):
+            raise ValueError(
+                f"{path} holds other parameters than the state to restore "
+                "into"
+            )
+        with torch.no_grad():
+            for name, value in saved["params"].items():
+                like.params[name].copy_(value)
+        params, opt = like.params, like.opt_state
+        dev = like.step.device
+    else:
+        dev = resolve_device(device)
+        params = {name: value.detach().to(dev, copy=True)
+                  for name, value in saved["params"].items()}
+        group = opt_saved["param_groups"][0]
+        opt = AdamW(group["lr"], group["weight_decay"], *group["betas"],
+                    group["eps"]).init(params.values())
+    # The fused update runs only on the card: keep this optimizer's own
+    # choice, take every other saved setting and the moments.
+    for saved_group, group in zip(opt_saved["param_groups"],
+                                  opt.param_groups):
+        saved_group["fused"] = group["fused"]
+    opt.load_state_dict(opt_saved)
+    step = torch.tensor(saved["step"], dtype=torch.int32, device=dev)
+    return TrainState(params=params, opt_state=opt, step=step)
 
 _LOAD_LOCK = threading.Lock()
 _LAST_LOAD_STATS: Dict[str, Any] = {}

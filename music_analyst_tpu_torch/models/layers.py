@@ -369,8 +369,9 @@ class MultiHeadAttention(nn.Module):
     and an optional KV cache.
 
     ``attn_impl="flash"`` runs the flash-attention kernel
-    (``ops/flash_attention.py``) with masking from ``lengths`` and
-    ``segment_ids``; ``"dense"`` takes a boolean ``mask`` array and
+    (``ops/flash_attention.py``) without a cache, masking by ``lengths``,
+    ``segment_ids`` and, with ``flash_causal``, causally (Llama's
+    no-cache path); ``"dense"`` takes a boolean ``mask`` array and
     materialises the logits.  With a ``cache`` the new K/V rows are written
     first and attention runs over the whole cache (dense), or, for a cache
     that has an ``attend`` method (``ops/paged_attention.PagedAttnView``),
@@ -391,6 +392,7 @@ class MultiHeadAttention(nn.Module):
         max_positions: int = 4096,
         quant: str = "none",
         weight_quant: str = "none",
+        flash_causal: bool = False,
     ) -> None:
         super().__init__()
         if attn_impl not in ("dense", "flash"):
@@ -399,6 +401,7 @@ class MultiHeadAttention(nn.Module):
         self.n_kv_heads = n_kv_heads or n_heads
         self.head_dim = head_dim or dim // n_heads
         self.attn_impl = attn_impl
+        self.flash_causal = flash_causal
         self.use_rope = use_rope
         self.rope_theta = rope_theta
         self.max_positions = max_positions
@@ -452,7 +455,10 @@ class MultiHeadAttention(nn.Module):
                     "mask=None with lengths= (padding) and/or segment_ids=, "
                     "or use attn_impl='dense'"
                 )
-            out = flash_attention(q, k, v, lengths=lengths,
+            # The kernel reads q/k/v as dense [B, S, H, D] rows.
+            out = flash_attention(q.contiguous(), k.contiguous(),
+                                  v.contiguous(), lengths=lengths,
+                                  causal=self.flash_causal,
                                   q_segment_ids=segment_ids)
         else:
             if segment_ids is not None:

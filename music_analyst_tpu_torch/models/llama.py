@@ -26,8 +26,15 @@ projections) and ``weight_quant`` int8 / int4 (stored projection and
 ``lm_head`` kernels, ``models/layers.py:WqLinear``).  Under
 ``weight_quant`` random weights are drawn and quantized one kernel at a
 time, and a checkpoint streams through quantize-on-load and the
-quantized-checkpoint cache, so the float tree never exists whole.  Not yet
-ported: MoE, the flash prefill and meshes.
+quantized-checkpoint cache, so the float tree never exists whole.
+
+``n_experts > 0`` replaces each block's SwiGLU with the routed experts of
+``models/moe.py`` (``feed_forward_moe``).  ``attn_impl="flash"`` runs the
+flash kernel on the no-cache path (the training loss and evaluation
+forwards, ``engines/train.py``): attention there is causal with ``lengths``
+and packed-document ``segment_ids``, and the mask array is not read.  The
+kernel is forward only, as in JAX; the cache paths attend as before.  Not
+yet ported: meshes.
 """
 
 from __future__ import annotations
@@ -55,6 +62,7 @@ from music_analyst_tpu_torch.models.layers import (
     param_slots,
     use_float_slots_,
 )
+from music_analyst_tpu_torch.models.moe import MoESwiGLU
 from music_analyst_tpu_torch.models.tokenization import (
     ByteTokenizer,
     resolve_llama_tokenizer,
@@ -88,9 +96,15 @@ class LlamaConfig:
     rope_theta: float = 500_000.0
     max_seq_len: int = 8192
     dtype: str = "bfloat16"
-    # Options of the JAX config that are not ported yet: a value other than
-    # the default raises in LlamaModel.
+    # > 0 replaces the dense SwiGLU with a routed mixture of experts
+    # (models/moe.py): top-k, "sparse" (capacity-bounded) or "dense"
+    # (all-experts oracle) dispatch, buffer slots per expert scaled by the
+    # capacity factor.
     n_experts: int = 0
+    moe_top_k: int = 2
+    moe_dispatch: str = "sparse"
+    moe_capacity_factor: float = 1.25
+    # "flash" runs the flash kernel on the no-cache path (forward only).
     attn_impl: str = "dense"
     # "int8" = dynamic-quant attention/MLP projections (ops/quant.py).
     quant: str = "none"
@@ -145,44 +159,59 @@ PRESETS = {
 }
 
 
-def _check_ported(cfg: LlamaConfig) -> None:
-    for what, on in (
-        ("MoE (n_experts > 0)", cfg.n_experts > 0),
-        ("the flash prefill (attn_impl='flash')", cfg.attn_impl != "dense"),
-    ):
-        if on:
-            raise NotImplementedError(
-                f"Llama {what} is not yet ported to music_analyst_tpu_torch"
-            )
-
-
 class LlamaBlock(nn.Module):
     def __init__(self, cfg: LlamaConfig) -> None:
         super().__init__()
         dtype = cfg.torch_dtype
+        self.flash = cfg.attn_impl == "flash"
+        self.moe = cfg.n_experts > 0
         self.attention = MultiHeadAttention(
-            cfg.dim, cfg.n_heads, attn_impl="dense", use_bias=False,
+            cfg.dim, cfg.n_heads, attn_impl=cfg.attn_impl, use_bias=False,
             dtype=dtype, n_kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim,
             use_rope=True, rope_theta=cfg.rope_theta,
             max_positions=cfg.max_seq_len, quant=cfg.quant,
-            weight_quant=cfg.weight_quant,
+            weight_quant=cfg.weight_quant, flash_causal=True,
         )
         self.attention_norm = RMSNorm(cfg.dim)
         self.ffn_norm = RMSNorm(cfg.dim)
-        self.feed_forward = SwiGLU(cfg.dim, cfg.hidden_dim, dtype=dtype,
-                                   quant=cfg.quant,
-                                   weight_quant=cfg.weight_quant)
+        if self.moe:
+            # quant composes: the expert products, where the MoE FLOPs
+            # are, run the per-expert int8 product.
+            self.feed_forward_moe = MoESwiGLU(
+                cfg.dim, cfg.n_experts, cfg.hidden_dim, top_k=cfg.moe_top_k,
+                dtype=dtype, dispatch=cfg.moe_dispatch,
+                capacity_factor=cfg.moe_capacity_factor, quant=cfg.quant)
+        else:
+            self.feed_forward = SwiGLU(cfg.dim, cfg.hidden_dim, dtype=dtype,
+                                       quant=cfg.quant,
+                                       weight_quant=cfg.weight_quant)
 
-    def forward(self, x, mask, positions, cache=None):
+    def forward(self, x, mask, positions, cache=None, lengths=None,
+                segment_ids=None):
+        if segment_ids is not None and (cache is not None or not self.flash):
+            # Refuse rather than attend across documents: the dense impl
+            # takes packing as `causal & same-segment` in the mask array,
+            # and the cache paths have no packed documents.
+            raise ValueError(
+                "segment_ids is consumed by the flash prefill path only; "
+                "fold the segment mask into `mask` for the dense impl"
+            )
         h = self.attention_norm(x)
         new_cache = None
         if cache is not None:
             attn_out, new_cache = self.attention(
                 h, mask=mask, positions=positions, cache=cache)
         else:
-            attn_out = self.attention(h, mask=mask, positions=positions)
+            # Flash: causal + lengths (+ segment ids) describe the masking,
+            # so the (causal & padding) mask array stays out.
+            attn_out = self.attention(
+                h, mask=None if self.flash else mask, positions=positions,
+                lengths=lengths if self.flash else None,
+                segment_ids=segment_ids)
         x = x + attn_out
-        x = x + self.feed_forward(self.ffn_norm(x))
+        h = self.ffn_norm(x)
+        ffn = self.feed_forward_moe if self.moe else self.feed_forward
+        x = x + ffn(h)
         return x, new_cache
 
 
@@ -192,11 +221,15 @@ class LlamaModel(nn.Module):
     ``KVCache`` or ``PagedAttnView``) returns the advanced caches too.
     ``last_position [B]`` keeps one position per row before the vocab
     projection (``[B, 1, V]``): prefill callers read only the last prompt
-    logits, and ``[B, S, V]`` in f32 is the largest tensor of the model."""
+    logits, and ``[B, S, V]`` in f32 is the largest tensor of the model.
+
+    With ``attn_impl="flash"`` and no caches, ``mask`` is not applied:
+    attention is causal, keys are masked by ``lengths [B]`` and, for packed
+    documents, by ``segment_ids [B, S]`` (pair them with positions that
+    restart at each document).  ``segment_ids`` is refused elsewhere."""
 
     def __init__(self, cfg: LlamaConfig) -> None:
         super().__init__()
-        _check_ported(cfg)
         self.config = cfg
         self.tok_embeddings = nn.Embedding(cfg.vocab_size, cfg.dim,
                                            dtype=cfg.torch_dtype)
@@ -211,12 +244,13 @@ class LlamaModel(nn.Module):
                                      dtype=torch.float32)
 
     def forward(self, token_ids, positions, mask, caches=None,
-                last_position=None):
+                last_position=None, lengths=None, segment_ids=None):
         x = self.tok_embeddings(token_ids.long())
         new_caches = []
         for i, layer in enumerate(self.layers):
             x, new_cache = layer(x, mask, positions,
-                                 caches[i] if caches is not None else None)
+                                 caches[i] if caches is not None else None,
+                                 lengths=lengths, segment_ids=segment_ids)
             if new_cache is not None:
                 new_caches.append(new_cache)
         x = self.norm(x)
@@ -241,8 +275,10 @@ def init_caches(cfg: LlamaConfig, batch: int, max_len: int,
 def init_random_(model: LlamaModel, seed: int) -> None:
     """Seeded random weights with the Flax initializers' distributions,
     drawn on the parameters' own device from one generator: embeddings
-    N(0, 1/dim); projections ``lecun_normal`` (normal truncated at two
-    standard deviations, std sqrt(1/fan_in) / 0.8796); RMSNorm scales 1.
+    N(0, 1/dim); projections, the MoE router and expert stacks
+    ``lecun_normal`` (normal truncated at two standard deviations, std
+    sqrt(1/fan_in) / 0.8796, with Flax's fan-in: ``in`` of an ``nn.Linear``
+    weight, ``E * in`` of an ``[E, in, out]`` stack); RMSNorm scales 1.
     Each tensor is drawn in f32 and then stored in its parameter's dtype,
     or quantized into a ``WqLinear``'s codes, one at a time, so no f32
     (nor, under ``weight_quant``, float) copy of the whole model exists."""
@@ -257,7 +293,8 @@ def init_random_(model: LlamaModel, seed: int) -> None:
             value.normal_(0.0, shape[1] ** -0.5, generator=gen)
         else:
             nn.init.trunc_normal_(value, 0.0, 1.0, -2.0, 2.0, generator=gen)
-            fan_in = shape[1]               # nn.Linear weights: [out, in]
+            # nn.Linear weights are [out, in]; expert stacks [E, in, out].
+            fan_in = shape[1] if len(shape) == 2 else math.prod(shape[:-1])
             value.mul_(math.sqrt(1.0 / fan_in) / 0.87962566103423978)
         if isinstance(owner, WqLinear):
             owner.quantize_from_(value)
@@ -287,6 +324,13 @@ def params_from_jax(tree: Mapping) -> Dict[str, object]:
                        n_contract=2 if proj == "o_proj" else 1)
         out[f"{dst}.attention_norm.weight"] = f32(src["attention_norm"]["scale"])
         out[f"{dst}.ffn_norm.weight"] = f32(src["ffn_norm"]["scale"])
+        if "feed_forward_moe" in src:
+            moe = src["feed_forward_moe"]
+            for stack in ("gate_experts", "up_experts", "down_experts"):
+                out[f"{dst}.feed_forward_moe.{stack}"] = f32(moe[stack])
+            put_kernel(out, f"{dst}.feed_forward_moe.router",
+                       moe["router"]["kernel"])
+            continue
         for lin in ("gate_proj", "up_proj", "down_proj"):
             put_kernel(out, f"{dst}.feed_forward.{lin}",
                        src["feed_forward"][lin]["kernel"])
@@ -300,6 +344,18 @@ def param_shapes(cfg: LlamaConfig) -> Dict:
         return torch.empty(shape, device="meta")
 
     D, H, Hkv, Dh = cfg.dim, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    F, E = cfg.hidden_dim, cfg.n_experts
+
+    def ffn():
+        if E > 0:
+            return {"feed_forward_moe": {
+                "gate_experts": leaf(E, D, F), "up_experts": leaf(E, D, F),
+                "down_experts": leaf(E, F, D),
+                "router": {"kernel": leaf(D, E)}}}
+        return {"feed_forward": {"gate_proj": {"kernel": leaf(D, F)},
+                                 "up_proj": {"kernel": leaf(D, F)},
+                                 "down_proj": {"kernel": leaf(F, D)}}}
+
     tree: Dict = {"tok_embeddings": {"embedding": leaf(cfg.vocab_size, D)}}
     for i in range(cfg.n_layers):
         tree[f"layer_{i}"] = {
@@ -309,10 +365,7 @@ def param_shapes(cfg: LlamaConfig) -> Dict:
                           "o_proj": {"kernel": leaf(H, Dh, D)}},
             "attention_norm": {"scale": leaf(D)},
             "ffn_norm": {"scale": leaf(D)},
-            "feed_forward": {
-                "gate_proj": {"kernel": leaf(D, cfg.hidden_dim)},
-                "up_proj": {"kernel": leaf(D, cfg.hidden_dim)},
-                "down_proj": {"kernel": leaf(cfg.hidden_dim, D)}},
+            **ffn(),
         }
     tree["norm"] = {"scale": leaf(D)}
     tree["lm_head"] = {"kernel": leaf(D, cfg.vocab_size)}
@@ -526,7 +579,6 @@ class LlamaZeroShotClassifier(ClassifierBackend):
         self._slot_schedulers: dict = {}
         self.device = resolve_device(device)
         self.config = config or LlamaConfig.tiny()
-        _check_ported(self.config)
         self.max_prompt_len = max_prompt_len
         self.tokenizer = resolve_llama_tokenizer(self.config.vocab_size)
         if self.tokenizer.vocab_size > self.config.vocab_size:

@@ -14,7 +14,10 @@ zeros.  ``return_residuals=True`` returns ``(o_unnormalized f32 [B,S,H,D],
 m [B,H,S], l [B,H,S])`` for cross-shard combination.
 
 :func:`flash_attention` launches the kernel for CUDA tensors and runs
-:func:`flash_attention_reference` only for CPU tensors.  The kernel has no
+:func:`flash_attention_reference` only for CPU tensors.  It is forward
+only, as the Pallas kernel is (``pallas_call`` has no transpose rule): the
+forward runs in grad mode, and a backward through it raises on either
+device, rather than hand q, k and v no gradient on the card.  The kernel has no
 block-size arguments: it tiles by 64 rows (bf16: 128 query rows per block,
 64-row K/V tiles through TMA, QK^T and PV on wgmma; f32: CUDA cores) and
 masks ragged edges itself.
@@ -148,8 +151,32 @@ def flash_attention(
 
     CUDA tensors launch ``csrc/flash_attention.cu`` (q/k/v contiguous, one
     of float32/bfloat16, head dim 64 or 128) or raise; CPU tensors
-    run :func:`flash_attention_reference`.
+    run :func:`flash_attention_reference`.  Forward only: a backward
+    through the result raises ``NotImplementedError``.
     """
+    return _ForwardOnly.apply(q, k, v, lengths, causal, q_offset, kv_offset,
+                              return_residuals, q_segment_ids, kv_segment_ids)
+
+
+class _ForwardOnly(torch.autograd.Function):
+    """The kernel (or, on the CPU, its plain version) as an autograd node
+    whose backward raises, as differentiating the Pallas kernel does."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, *args):
+        return _flash_attention(q, k, v, *args)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise NotImplementedError(
+            "flash_attention has no backward (the JAX package's Pallas "
+            "kernel cannot be differentiated either); use "
+            "attn_impl='dense' to train"
+        )
+
+
+def _flash_attention(q, k, v, lengths, causal, q_offset, kv_offset,
+                     return_residuals, q_segment_ids, kv_segment_ids):
     if q.device.type == "cpu":
         return flash_attention_reference(
             q, k, v, lengths=lengths, causal=causal, q_offset=q_offset,

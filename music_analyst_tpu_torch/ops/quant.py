@@ -1,8 +1,8 @@
 """Quantized inference: int8 KV pages, dynamic w8a8 matmuls, and stored
 int8 / packed int4 weights.
 
-Counterpart of ``music_analyst_tpu/ops/quant.py`` (all of it but the MoE
-``quant_batched_matmul``).
+Counterpart of ``music_analyst_tpu/ops/quant.py``, the MoE experts'
+``quant_batched_matmul`` included.
 
 * **KV pages** (``quantize_kv_page``): symmetric int8 per (page, row); one
   f32 scale covers one token's ``(n_kv_heads, head_dim)`` block, so a
@@ -210,6 +210,45 @@ def quant_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``x @ w`` via dynamic int8: x ``[..., K]`` float, w ``[K, N]``
     float.  Returns f32 ``[..., N]``."""
     return _quant_forward(x, w)
+
+
+def _quantize_batched(x: torch.Tensor, w: torch.Tensor):
+    """The codes and scales of :func:`quant_batched_matmul`: activations
+    per ``(e, row)`` (``s_x [E, C, 1]``), weights per ``(e, out-channel)``
+    (``s_w [E, 1, N]``), weight codes ``[E, K, N]`` K-contiguous."""
+    x32 = x.float()
+    s_x = _symmetric_scale(x32, -1)                        # [E, C, 1]
+    qx = torch.round(x32 / s_x).to(torch.int8)
+    wt32 = w.transpose(1, 2).float()                       # [E, N, K]
+    s_w = _symmetric_scale(wt32, -1)                       # [E, N, 1]
+    qw = torch.round(wt32 / s_w).to(torch.int8).contiguous()
+    return qx, s_x, qw.transpose(1, 2), s_w.transpose(1, 2)
+
+
+def quant_batched_matmul_plain(x: torch.Tensor, w: torch.Tensor
+                               ) -> torch.Tensor:
+    """Plain version of :func:`quant_batched_matmul`: the same codes, the
+    integer products in float64 (exact), on any device."""
+    qx, s_x, qw, s_w = _quantize_batched(x, w)
+    acc = torch.bmm(qx.double(), qw.double()).to(torch.int32)
+    return acc.float() * s_x * s_w
+
+
+def quant_batched_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Per-expert ``x[e] @ w[e]`` through dynamic int8: x ``[E, C, K]``,
+    w ``[E, K, N]`` float → f32 ``[E, C, N]``.
+
+    Counterpart of JAX ``ops/quant.py:quant_batched_matmul`` (the MoE
+    expert products).  Scales as :func:`quant_matmul`'s, kept per expert;
+    int32 accumulation, so the two packages agree code for code on the
+    same activations.  A CUDA operand runs one ``torch._int_mm`` per
+    expert (the weight codes K-contiguous); a CPU one the plain version."""
+    if not x.is_cuda:
+        return quant_batched_matmul_plain(x, w)
+    qx, s_x, qw, s_w = _quantize_batched(x, w)
+    acc = torch.stack([int8_matmul(qx[e], qw[e])
+                       for e in range(qx.shape[0])])
+    return acc.float() * s_x * s_w
 
 
 def quant_linear(x, weight, bias=None, out_dtype=None):

@@ -14,6 +14,8 @@ elementwise half-ulp bound as the paged kernel; both agree bit for bit
 between two launches on the same inputs.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -722,3 +724,138 @@ def test_threaded_scheduler_and_slot_cache_on_card(dev):
                        threaded=True)
     assert len(slots) == len(_SERVE_PROMPTS)
     assert kernels.launches()["paged_attention"] == before
+
+
+# --------------------------------------------------------------------------
+# Training, the Llama flash no-cache path and MoE on the card.  Tolerances:
+# flash at D = 128 as the bf16 bound above; the train step in f32 on the
+# card against the CPU within 1e-4 relative on each loss (f32 sums in
+# another order); per-expert int8 products exact against the CPU (the same
+# codes, int32 sums, the same f32 epilogue).
+# --------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("mode", ["lengths", "segments"])
+def test_flash_d128_causal_gqa(dev, mode):
+    """Llama's no-cache shapes in miniature: causal, 32/8 heads' ratio,
+    with lengths or with packed documents."""
+    q, k, v = _qkv(dev, torch.bfloat16, 2, 300, 300, 8, 2, 128, seed=7)
+    kw = dict(causal=True)
+    if mode == "lengths":
+        kw["lengths"] = torch.tensor([300, 151], device=dev)
+    else:
+        seg = torch.ones(2, 300, dtype=torch.int32, device=dev)
+        seg[0, 70:], seg[1, 129:] = 2, 2
+        seg[1, 250:] = 0
+        kw["q_segment_ids"] = seg
+    got = flash_attention(q, k, v, **kw)
+    want = flash_attention_reference(q.float(), k.float(), v.float(), **kw)
+    assert _within_bf16_bound(got, want)
+
+
+def test_flash_refuses_autograd_on_the_card(dev):
+    q, k, v = _qkv(dev, torch.bfloat16, 1, 64, 64, 4, 2, 128)
+    before = kernels.launches()["flash_attention"]
+    out = flash_attention(q.requires_grad_(), k, v, causal=True)
+    assert kernels.launches()["flash_attention"] == before + 1
+    with pytest.raises(NotImplementedError, match="no backward"):
+        out.float().sum().backward()
+    assert q.grad is None
+    with torch.no_grad():
+        assert torch.equal(flash_attention(q, k, v, causal=True), out)
+
+
+def _tiny_llama(dev, **over):
+    from music_analyst_tpu_torch.models.llama import LlamaConfig, LlamaModel
+
+    cfg = LlamaConfig.tiny(dim=256, n_heads=2, n_kv_heads=1, hidden_dim=384,
+                           **over)
+    return LlamaModel(cfg).to(dev)
+
+
+def test_train_steps_on_the_card_match_the_cpu(dev):
+    from music_analyst_tpu_torch.engines import train
+
+    rng = np.random.default_rng(0)
+    ids = rng.integers(1, 512, (4, 65)).astype(np.int32)
+    lengths = np.array([65, 40, 65, 9], np.int32)
+    # Weights drawn once on the CPU (a card's generator draws others).
+    weights = _tiny_llama("cpu", dtype="float32")
+    train.init_train_state(weights, train.make_optimizer(), seed=0)
+    losses = {}
+    for where in ("cpu", dev):
+        model = _tiny_llama(where, dtype="float32")
+        model.load_state_dict(weights.state_dict())
+        opt = train.make_optimizer(1e-3)
+        state = train.init_train_state(model, opt, seed=None)
+        step = train.make_train_step(model, opt)
+        got = []
+        for batch in train.prefetch_batches([(ids, lengths)] * 2,
+                                            device=where):
+            state, loss = step(state, *batch)
+            got.append(float(loss))
+        losses[str(where)] = got
+        assert int(state.step) == 2
+    np.testing.assert_allclose(losses[str(dev)], losses["cpu"], rtol=1e-4)
+
+
+def test_bf16_train_step_and_flash_eval_on_the_card(dev):
+    from music_analyst_tpu_torch.engines import train
+    from music_analyst_tpu_torch.models.llama import LlamaModel
+
+    model = _tiny_llama(dev)
+    opt = train.make_optimizer(1e-3)
+    state = train.init_train_state(model, opt, seed=1)
+    step = train.make_train_step(model, opt)
+    rng = np.random.default_rng(1)
+    ids = torch.tensor(rng.integers(1, 512, (4, 129)), device=dev)
+    lengths = torch.tensor([129, 100, 129, 30], device=dev)
+    first = None
+    for _ in range(4):
+        state, loss = step(state, ids, lengths)
+        first = float(loss) if first is None else first
+    assert float(loss) < first
+    assert all(p.dtype == torch.float32 for p in state.params.values())
+    train.load_params_(model, state.params)
+    flash = LlamaModel(dataclasses.replace(model.config,
+                                           attn_impl="flash")).to(dev)
+    flash.load_state_dict(model.state_dict())
+    before = kernels.launches()["flash_attention"]
+    with torch.no_grad():
+        a = float(train.causal_lm_loss(flash, ids, lengths))
+        b = float(train.causal_lm_loss(model, ids, lengths))
+    assert kernels.launches()["flash_attention"] == before + 2  # 2 layers
+    assert abs(a - b) <= 1e-2 * abs(b)
+
+
+def test_quant_batched_matmul_on_the_card_equals_the_cpu(dev):
+    from music_analyst_tpu_torch.ops.quant import (
+        quant_batched_matmul,
+        quant_batched_matmul_plain,
+    )
+
+    gen = torch.Generator().manual_seed(3)
+    x = torch.randn(4, 40, 256, generator=gen)
+    w = torch.randn(4, 256, 96, generator=gen)
+    got = quant_batched_matmul(x.to(dev, torch.bfloat16),
+                               w.to(dev, torch.bfloat16))
+    want = quant_batched_matmul_plain(x.bfloat16(), w.bfloat16())
+    assert torch.equal(got.cpu(), want)
+
+
+def test_moe_sparse_equals_dense_on_the_card(dev):
+    from music_analyst_tpu_torch.models.moe import MoESwiGLU
+
+    moe = MoESwiGLU(256, 4, 384, dtype=torch.float32, dispatch="sparse",
+                    capacity_factor=4.0)
+    with torch.no_grad():
+        gen = torch.Generator().manual_seed(4)
+        for p in moe.parameters():
+            p.copy_(torch.randn(p.shape, generator=gen) * 0.05)
+    moe = moe.to(dev)
+    x = torch.randn(2, 33, 256, generator=gen).to(dev)
+    with torch.no_grad():
+        sparse = moe(x)
+        moe.dispatch = "dense"
+        dense = moe(x)
+    torch.testing.assert_close(sparse, dense, rtol=1e-4, atol=1e-4)

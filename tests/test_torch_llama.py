@@ -227,10 +227,13 @@ def test_unported_and_refused_configurations(monkeypatch):
     assert tl.LlamaZeroShotClassifier.from_pretrained_or_random(
         "llama3-tiny", weight_quant="int8", device="cpu"
     ).config.weight_quant == "int8"
-    for cfg in (tl.LlamaConfig.tiny(n_experts=4),
-                tl.LlamaConfig.tiny(attn_impl="flash")):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            tl.LlamaModel(cfg)
+    # MoE and the flash no-cache path are ported
+    # (tests/test_torch_moe.py, tests/test_torch_llama_flash.py); MoE with
+    # stored quantized weights is refused, as in JAX.
+    assert tl.LlamaModel(tl.LlamaConfig.tiny(n_experts=4)).layers[0].moe
+    assert tl.LlamaModel(tl.LlamaConfig.tiny(attn_impl="flash")).layers[0].flash
+    with pytest.raises(ValueError, match="MoE expert stacks"):
+        tl.LlamaConfig.tiny(n_experts=4, weight_quant="int8")
     with pytest.raises(NotImplementedError, match="not yet ported"):
         tl.LlamaZeroShotClassifier(mesh=object(), device="cpu")
     with pytest.raises(ValueError, match="unknown llama preset"):
