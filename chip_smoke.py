@@ -132,9 +132,12 @@
    single replica's of this run, labels and word counts exact, the scan
    launched by the workers (each counts its own, read from the router's
    run manifest).  (b) ``serve --replicas 2 --socket --model distilbert``
-   as a process (full width, each worker draws seed 0 on the card) over
-   4,096 requests at max_batch 256: labels held against the seed-0 model
-   drawn here, the workers' flash launches summed, ``monitor --once``
+   as a process (full width; each worker loads, through
+   ``$MUSICAAL_DISTILBERT_CKPT``, a seeded checkpoint written here whose
+   head splits the labels about 25/50/25) over 4,096 requests at
+   max_batch 256: labels held against the same checkpoint loaded here
+   (replies rotated by one request must fail that check), the workers'
+   flash launches summed, ``monitor --once``
    attached to the router, then a second stream with one worker SIGKILLed
    halfway (every request answered; the manifest's ``serving.router``
    records the transition; the supervised respawn comes back before the
@@ -172,6 +175,31 @@
    1.25, int8 experts against the float model.  ``sweep --devices 1,2``
    as a process on step 6's CSV: one point, one ``skipping np=2`` line,
    the summary and the point's metrics.
+
+11. Drives the fault seams, the watchdog and the native WordPiece path,
+   after step 10; each drill is held against the same run without faults
+   in this call.  (a) ``run_analysis`` on step 6's CSV with
+   ``ingest.read:error@1;collective.psum:error@1`` (CSVs equal the
+   oracle's, one trip and one recovery each); ``analyze`` as a process
+   with a persistent ``collective.psum:error`` (non-zero exit, taxonomy
+   ``fault_injected`` in its flight record, one failover retry, no
+   ``degraded`` stamp, no CSV, metrics or temporary file written);
+   full-width DistilBERT ``run_sentiment`` over the 16,384 songs with
+   ``h2d.transfer:error@2;prefetch.stage:error@3`` (labels and totals
+   equal, flash six times a batch); the ``sentiment --mock`` CLI with
+   ``--watchdog-timeout 1 --inject-faults prefetch.stage:delay=3s@2``
+   (files byte-identical, one ``stage_stall`` trip naming the stage and
+   its ``flight_record.json``, the scan once a batch); a ``weight_quant``
+   int8 load of step 9's checkpoint with
+   ``checkpoint.load:error@2;h2d.transfer:error@3`` (every code and scale
+   equal bit for bit).  (b) A WordPiece vocabulary (at most 30,522
+   entries) built from the corpus, then full-width DistilBERT
+   ``run_sentiment`` under ``$MUSICAAL_BERT_VOCAB`` over the 16,384 songs
+   with the native tokenizer and with the Python one: the ids of every
+   batch equal (and of the edge rows, encoded apart), the native run's
+   manifest counting every song on the native path, labels identical;
+   each run's first 8,192-song batch times its tokenizer, and each run's
+   songs/s is reported.
 
 Prints the card's name and power limit, a ``{"quant_gemm": [...]}`` line,
 a ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
@@ -858,9 +886,12 @@ def analyze_cli(dataset, out_dir, flags):
     return metrics, proc.stdout, wall
 
 
-def read_outputs(out_dir):
-    return {name: open(os.path.join(out_dir, name), "rb").read()
-            for name in ("word_counts.csv", "top_artists.csv")}
+def read_outputs(out_dir, names=("word_counts.csv", "top_artists.csv")):
+    out = {}
+    for name in names:
+        with open(os.path.join(out_dir, name), "rb") as fh:
+            out[name] = fh.read()
+    return out
 
 
 def oracle_outputs(corpus, out_dir):
@@ -2990,14 +3021,18 @@ def router_mock_path(torch, card, single, single_replies) -> dict:
 
 def router_distilbert_path(torch, dev, card, dataset, single) -> dict:
     """(b) ``serve --replicas 2 --socket --model distilbert`` as a process:
-    full-width DistilBERT in each worker (random init from seed 0, bf16,
-    flash), 4,096 requests at max_batch 256.  Labels are held against the
-    parent's reference model drawn from the same seed (equal except within
-    SERVE_FLIP_REL of the scale of a decision boundary); the workers'
-    flash launches summed; ``monitor --once`` attaches to the router; then
-    a second stream with one worker SIGKILLed halfway: every request must
-    be answered, and the manifest's ``serving.router`` must record the
-    worker's health transition."""
+    full-width DistilBERT in each worker (bf16, flash), loaded through
+    ``$MUSICAAL_DISTILBERT_CKPT`` from a seeded checkpoint written here
+    whose head splits the labels (random weights alone label every song
+    ``Positive``, so swapped replies would pass), 4,096 requests at
+    max_batch 256.  Labels are held against the parent's reference model
+    loaded from the same file (equal except within SERVE_FLIP_REL of the
+    scale of a decision boundary), and the same check must fail on the
+    replies rotated by one request; the workers' flash launches summed;
+    ``monitor --once`` attaches to the router; then a second stream with
+    one worker SIGKILLed halfway: every request must be answered, and the
+    manifest's ``serving.router`` must record the worker's health
+    transition."""
     import math
     import signal
 
@@ -3012,10 +3047,12 @@ def router_distilbert_path(torch, dev, card, dataset, single) -> dict:
 
     n = SERVE_DISTILBERT_REQUESTS
     texts = [t for _, _, t in iter_songs(dataset, limit=n)]
-    # The reference: the workers' model, drawn here from the same seed.
+    checkpoint = distilbert_split_checkpoint(
+        torch, dev, texts, os.path.join(WORK, "router_distilbert.bin"))
+    # The reference: the workers' model, loaded here from the same file.
     clf = DistilBertClassifier.from_pretrained_or_random(
-        "distilbert", config=DistilBertConfig(attn_impl="flash"), seed=0,
-        device=dev)
+        "distilbert", config=DistilBertConfig(attn_impl="flash"),
+        checkpoint_path=checkpoint["path"], device=dev)
     ids, lens = clf.tokenizer.encode_batch(texts, clf.max_len)
     ref = clf.forward_logits(*to_device(
         [np.asarray(ids, np.int64), np.asarray(lens)], dev)).float().cpu()
@@ -3031,14 +3068,22 @@ def router_distilbert_path(torch, dev, card, dataset, single) -> dict:
             for t, g, k in zip(texts, gap, ref.argmax(dim=-1))]
     near = (torch.minimum(gap, (gap - boundary).abs())
             < SERVE_FLIP_REL * scale).tolist()
+    counts = {l: want.count(l) for l in DistilBertClassifier._CLASS_LABELS
+              + ("Neutral",)}
+    if min(counts.values()) < n // 10:
+        fail(f"router distilbert: the reference labels do not split: "
+             f"{counts}")
+
+    def mismatches(replies):
+        return [i for i, r in enumerate(replies)
+                if r["label"] != want[i] and not near[i]]
 
     def check(replies, what):
         if not all(r.get("ok") for r in replies):
             bad = [r for r in replies if not r.get("ok")]
             fail(f"router distilbert ({what}): {len(bad)} requests failed, "
                  f"first {bad[0]}")
-        off = [i for i, r in enumerate(replies)
-               if r["label"] != want[i] and not near[i]]
+        off = mismatches(replies)
         if off:
             fail(f"router distilbert ({what}): {len(off)} labels differ from "
                  f"the seed-0 reference away from a boundary (first id "
@@ -3056,7 +3101,8 @@ def router_distilbert_path(torch, dev, card, dataset, single) -> dict:
          "--max-batch", str(SERVE_MAX_BATCH), "--max-queue", str(4 * n),
          "--no-response-cache", "--telemetry-dir", tel_dir],
         tmp, env_extra={"MUSICAAL_TRACE_DIR": trace_dir,
-                        "MUSICAAL_TRACE_SAMPLE": str(ROUTER_TRACE_SAMPLE)})
+                        "MUSICAAL_TRACE_SAMPLE": str(ROUTER_TRACE_SAMPLE),
+                        "MUSICAAL_DISTILBERT_CKPT": checkpoint["path"]})
     startup_s = time.perf_counter() - t_start
     import socket as socketlib
 
@@ -3082,6 +3128,13 @@ def router_distilbert_path(torch, dev, card, dataset, single) -> dict:
 
         replies, arrivals, wall = _burst(wfile, rfile, _lines(texts))
         check(replies, "measured stream")
+        # The check must catch replies handed to the wrong request.
+        rotated = len(mismatches(replies[1:] + replies[:1]))
+        log(f"router distilbert: replies rotated by one request break the "
+            f"label check on {rotated} of {n} requests")
+        if rotated == 0:
+            fail("router distilbert: the label check passes replies rotated "
+                 "by one request")
         time.sleep(1.0)          # one more stats poll of each worker
         fleet = stats()["router"]
         launches = _worker_launches(fleet, "flash_attention")
@@ -3152,8 +3205,8 @@ def router_distilbert_path(torch, dev, card, dataset, single) -> dict:
                flash_launches=sum(launches.values()),
                dispatched={k: s["dispatched"]
                            for k, s in fleet["replicas"].items()},
-               reference_labels={l: want.count(l) for l in sorted(set(want))},
-               near_boundary=int(sum(near)),
+               reference_labels=counts, near_boundary=int(sum(near)),
+               rotated_mismatches=rotated, checkpoint=checkpoint,
                kill=dict(victim=victim, wall_s=kill_wall,
                          requests_per_s=n / kill_wall, all_answered=True,
                          requeued=router.get("requeued"),
@@ -3863,6 +3916,485 @@ def sweep_path(dataset, card) -> dict:
     return out
 
 
+# ------------------------------------------ fault drills and WordPiece (step 11)
+
+# The inverse of ``models/distilbert.py:load_hf_torch_checkpoint``'s
+# renames: the port's parameter names to an HF DistilBERT state dict's.
+_HF_NAMES = (
+    ("encoder.word_embeddings.", "distilbert.embeddings.word_embeddings."),
+    ("encoder.position_embeddings.",
+     "distilbert.embeddings.position_embeddings."),
+    ("encoder.embed_layer_norm.", "distilbert.embeddings.LayerNorm."),
+    ("encoder.layers.", "distilbert.transformer.layer."),
+    (".attention.q_proj.", ".attention.q_lin."),
+    (".attention.k_proj.", ".attention.k_lin."),
+    (".attention.v_proj.", ".attention.v_lin."),
+    (".attention.o_proj.", ".attention.out_lin."),
+)
+DRILL_DELAY_S = 3.0          # the injected prefetch-stage stall ...
+DRILL_WATCHDOG_S = 1.0       # ... against this watchdog timeout
+WP_VOCAB_MAX = 30_522        # bert-base-uncased's vocabulary size
+WP_BATCH = BATCH             # the timed tokenization batch (8,192 songs)
+WP_EDGE_ROWS = [
+    "", "   ", "the ελληνικά row", "爱 love 愛", "love 🎵 rain",
+    "a\ud800b love", "naïve résumé søster ßüber", "[MASK] love [SEP]",
+    "love " * 400,
+]
+
+
+def distilbert_split_checkpoint(torch, dev, texts, path) -> dict:
+    """Write a full-width DistilBERT (seed 0, bf16 on the card) as an HF
+    torch state dict (f32 tensors) whose classifier is rescaled so that,
+    over ``texts``, the median of the logit gap sits at 0 and the median
+    confidence at the neutral threshold: the labels split about 25%
+    Negative, 50% Neutral, 25% Positive, where random weights label every
+    song ``Positive``."""
+    import math
+
+    import numpy as np
+
+    from music_analyst_tpu_torch.models.distilbert import (
+        DistilBertClassifier,
+        DistilBertConfig,
+    )
+    from music_analyst_tpu_torch.runtime.wire import to_device
+
+    clf = DistilBertClassifier.from_pretrained_or_random(
+        "distilbert", config=DistilBertConfig(attn_impl="flash"), seed=0,
+        device=dev)
+    ids, lens = clf.tokenizer.encode_batch(texts, clf.max_len)
+    logits = clf.forward_logits(*to_device(
+        [np.asarray(ids, np.int64), np.asarray(lens)], dev)).float()
+    gap = logits[:, 1] - logits[:, 0]
+    mid = float(gap.median())
+    boundary = math.log(clf.neutral_threshold / (1 - clf.neutral_threshold))
+    scale = boundary / max(float((gap - mid).abs().median()), 1e-6)
+    head = clf.model.classifier
+    with torch.no_grad():
+        head.weight.mul_(scale)
+        head.bias.mul_(scale)
+        head.bias[1] -= scale * mid / 2
+        head.bias[0] += scale * mid / 2
+    state = {}
+    for name, value in clf.model.state_dict().items():
+        for ours, theirs in _HF_NAMES:
+            name = name.replace(ours, theirs)
+        state[name] = value.detach().float().cpu()
+    torch.save(state, path)
+    del clf, logits
+    torch.cuda.empty_cache()
+    return dict(path=path, gap_median=mid, head_scale=scale,
+                bytes=os.path.getsize(path))
+
+
+def _label_rows(out_dir):
+    import csv
+
+    with open(os.path.join(out_dir, "sentiment_details.csv"), newline="",
+              encoding="utf-8") as fh:
+        rows = [(r["artist"], r["song"], r["label"])
+                for r in csv.DictReader(fh)]
+    with open(os.path.join(out_dir, "sentiment_totals.json"), "rb") as fh:
+        return rows, fh.read()
+
+
+def _armed(spec):
+    """Arm ``spec`` in this process with the retry stats zeroed."""
+    from music_analyst_tpu_torch.resilience.faults import configure_faults
+    from music_analyst_tpu_torch.resilience.policy import reset_retry_stats
+
+    configure_faults(spec)
+    reset_retry_stats()
+
+
+def _drill_counters(manifest) -> dict:
+    return {k: v for k, v in manifest.get("counters", {}).items()
+            if k.startswith(("retry.", "failover.", "faults."))}
+
+
+def fault_drills(torch, dev, card, dataset, analyze, oracle,
+                 checkpoint) -> dict:
+    """(a) The fault drills on the card, each against the same run without
+    faults in this call: ``analyze`` (in process) with a transient ingest
+    and a transient merge fault; ``analyze`` as a process with a
+    persistent merge fault (non-zero exit, ``fault_injected``, one
+    failover retry, no degrade, no output written); full-width
+    DistilBERT ``run_sentiment`` with transient H2D and stage faults; the
+    ``sentiment --mock`` CLI with a stage stalled past the watchdog; a
+    ``weight_quant`` int8 load with transient load and H2D faults."""
+    import numpy as np
+
+    from music_analyst_tpu_torch import kernels
+    from music_analyst_tpu_torch.cli.main import main as cli_main
+    from music_analyst_tpu_torch.engines.checkpoint import (
+        load_quantized_params,
+    )
+    from music_analyst_tpu_torch.engines.sentiment import run_sentiment
+    from music_analyst_tpu_torch.engines.wordcount import run_analysis
+    from music_analyst_tpu_torch.models.distilbert import (
+        DistilBertClassifier,
+        DistilBertConfig,
+        iter_hf_param_units,
+        param_shapes,
+    )
+    from music_analyst_tpu_torch.observability import watchdog
+    from music_analyst_tpu_torch.observability.report import classify_error
+    from music_analyst_tpu_torch.ops.quant import iter_tree
+    from music_analyst_tpu_torch.resilience.faults import fault_stats
+
+    report = {}
+
+    # 1. analyze, transient ingest and merge faults, in process.
+    spec = "ingest.read:error@1;collective.psum:error@1"
+    out_dir = os.path.join(WORK, "drill_analyze")
+    _armed(spec)
+    t0 = time.perf_counter()
+    try:
+        run_analysis(analyze["dataset"], output_dir=out_dir,
+                     ingest_backend="native", use_corpus_cache=False,
+                     write_split=False, quiet=True, device=dev)
+    finally:
+        _armed(None)
+    wall = time.perf_counter() - t0
+    manifest = _manifest(out_dir)
+    trips = {site: s["trips"]
+             for site, s in manifest["resilience"]["faults"].items()}
+    counters = _drill_counters(manifest)
+    if read_outputs(out_dir) != oracle:
+        fail("drill analyze: CSVs differ from the clean run's")
+    if (trips != {"ingest.read": 1, "collective.psum": 1}
+            or counters.get("retry.ingest.read.recovered") != 1
+            or counters.get("failover.wordcount.device_compute.recoveries")
+            != 1):
+        fail(f"drill analyze: trips {trips}, counters {counters}")
+    report["analyze_transient"] = dict(spec=spec, wall_s=wall, trips=trips,
+                                       counters=counters,
+                                       csvs_equal_clean=True)
+    log(f"drill analyze ({spec}) on {card}: {json.dumps(report['analyze_transient'])}")
+
+    # 2. analyze, persistent merge fault, as a process.
+    spec = "collective.psum:error"
+    out_dir = os.path.join(WORK, "drill_analyze_persistent")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    t0 = time.perf_counter()
+    proc = _cli(["analyze", analyze["dataset"], "--ingest", "native",
+                 "--no-corpus-cache", "--no-split", "--output-dir", out_dir,
+                 "--inject-faults", spec])
+    wall = time.perf_counter() - t0
+    manifest = _manifest(out_dir)
+    counters = _drill_counters(manifest)
+    with open(os.path.join(out_dir, "flight_record.json")) as fh:
+        flight = json.load(fh)
+    taxonomy = classify_error(flight.get("detail"))
+    torn = [n for n in os.listdir(out_dir)
+            if n.endswith(".csv") or ".tmp-" in n
+            or n == "performance_metrics.json"]
+    if (proc.returncode == 0 or taxonomy != "fault_injected"
+            or counters.get("failover.wordcount.device_compute.retries") != 1
+            or counters.get("failover.wordcount.device_compute.failed") != 1
+            or "degraded" in manifest or torn):
+        fail(f"drill analyze ({spec}): rc {proc.returncode}, taxonomy "
+             f"{taxonomy}, counters {counters}, degraded "
+             f"{manifest.get('degraded')}, files {torn}: "
+             f"{proc.stderr[-1500:]}")
+    report["analyze_persistent"] = dict(
+        spec=spec, rc=proc.returncode, taxonomy=taxonomy, wall_s=wall,
+        counters=counters, degraded=False, files_written=torn)
+    log(f"drill analyze ({spec}, process) on {card}: "
+        f"{json.dumps(report['analyze_persistent'])}")
+
+    # 3. Full-width DistilBERT, transient H2D and stage faults.
+    spec = "h2d.transfer:error@2;prefetch.stage:error@3"
+    clf = DistilBertClassifier.from_pretrained_or_random(
+        "distilbert", config=DistilBertConfig(attn_impl="flash"), seed=0,
+        device=dev)
+    clf.classify_batch(["warm up"] * 16)
+    runs = {}
+    for name, armed in (("clean", None), ("faulted", spec)):
+        out_dir = os.path.join(WORK, f"drill_distilbert_{name}")
+        _armed(armed)
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        try:
+            run_sentiment(dataset, backend=clf, output_dir=out_dir,
+                          batch_size=BATCH, quiet=True)
+            torch.cuda.synchronize()
+        finally:
+            _armed(None)
+        runs[name] = dict(wall_s=time.perf_counter() - t0,
+                          launches=kernels.launches()["flash_attention"],
+                          out=_label_rows(out_dir),
+                          manifest=_manifest(out_dir))
+    faulted = runs["faulted"]
+    trips = {site: s["trips"] for site, s in
+             faulted["manifest"]["resilience"]["faults"].items()}
+    counters = _drill_counters(faulted["manifest"])
+    per_run = -(-N_SONGS // BATCH) * DistilBertConfig().n_layers
+    if faulted["out"] != runs["clean"]["out"]:
+        fail("drill distilbert: labels or totals differ from the clean run")
+    if (trips != {"h2d.transfer": 1, "prefetch.stage": 1}
+            or counters.get("retry.prefetch.stage.recovered", 0) < 1
+            or faulted["launches"] != per_run
+            or runs["clean"]["launches"] != per_run):
+        fail(f"drill distilbert: trips {trips}, counters {counters}, flash "
+             f"launches {faulted['launches']} (clean "
+             f"{runs['clean']['launches']}, want {per_run})")
+    report["distilbert"] = dict(
+        spec=spec, trips=trips, counters=counters,
+        launches=faulted["launches"], clean_launches=runs["clean"]["launches"],
+        wall_s=faulted["wall_s"], clean_wall_s=runs["clean"]["wall_s"],
+        labels_equal_clean=True)
+    log(f"drill distilbert ({spec}) on {card}: {json.dumps(report['distilbert'])}")
+    del clf
+    torch.cuda.empty_cache()
+
+    # 4. The --mock CLI with a stage stalled past the watchdog, in process.
+    spec = f"prefetch.stage:delay={DRILL_DELAY_S:g}s@2"
+    out_dir = os.path.join(WORK, "drill_mock_watchdog")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    _armed(None)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        rc = cli_main(["sentiment", dataset, "--mock", "--output-dir",
+                       out_dir, "--watchdog-timeout", f"{DRILL_WATCHDOG_S:g}",
+                       "--inject-faults", spec])
+        torch.cuda.synchronize()
+        trips_seen = list(watchdog.get_watchdog().trips)
+        stage_trips = fault_stats()["prefetch.stage"]["trips"]
+    finally:
+        watchdog.stop_watchdog()
+        _armed(None)
+    wall = time.perf_counter() - t0
+    launches = kernels.launches()["keyword_scan"]
+    record_path = os.path.join(out_dir, "flight_record.json")
+    names = ("sentiment_details.csv", "sentiment_totals.json")
+    if rc != 0 or read_outputs(out_dir, names) != read_outputs(
+            os.path.join(WORK, "mock"), names):
+        fail(f"drill mock watchdog: rc {rc}, or outputs differ from the "
+             "clean --mock CLI run")
+    stalls = [t for t in trips_seen if t["taxonomy"] == "stage_stall"]
+    if (stage_trips != 1 or not stalls
+            or not stalls[0]["task"].startswith("pipeline.")
+            or not os.path.exists(record_path)
+            or launches != -(-N_SONGS // MOCK_BATCH)):
+        fail(f"drill mock watchdog: fault trips {stage_trips}, watchdog "
+             f"trips {trips_seen}, flight record "
+             f"{os.path.exists(record_path)}, scan launches {launches}")
+    with open(record_path) as fh:
+        record = json.load(fh)
+    if record.get("taxonomy") != "stage_stall":
+        fail(f"drill mock watchdog: flight record taxonomy "
+             f"{record.get('taxonomy')}")
+    report["mock_watchdog"] = dict(
+        spec=spec, watchdog_s=DRILL_WATCHDOG_S, wall_s=wall,
+        watchdog_trips=trips_seen, launches=launches,
+        flight_record=record_path, outputs_equal_clean=True)
+    log(f"drill --mock watchdog ({spec}) on {card}: "
+        f"{json.dumps(report['mock_watchdog'])}")
+
+    # 5. weight_quant int8 load, transient load and H2D faults.
+    spec = "checkpoint.load:error@2;h2d.transfer:error@3"
+    shapes = param_shapes(DistilBertConfig())
+    trees = {}
+    for name, armed in (("clean", None), ("faulted", spec)):
+        _armed(armed)
+        t0 = time.perf_counter()
+        try:
+            tree = load_quantized_params(
+                shapes, lambda: iter_hf_param_units(shapes, checkpoint,
+                                                    mmap=True),
+                "int8", device=dev)
+            torch.cuda.synchronize()
+            if armed:
+                trips = {site: s["trips"] for site, s in fault_stats().items()}
+        finally:
+            _armed(None)
+        leaves = {}
+        for path, leaf in iter_tree(tree):
+            if hasattr(leaf, "scheme"):
+                leaves[path + "/q"], leaves[path + "/scale"] = leaf.q, leaf.scale
+            else:
+                leaves[path] = leaf
+        trees[name] = (leaves, time.perf_counter() - t0)
+    clean, faulted = trees["clean"][0], trees["faulted"][0]
+    same = sorted(clean) == sorted(faulted) and all(
+        clean[k].dtype == faulted[k].dtype and clean[k].device.type == "cuda"
+        and torch.equal(clean[k], faulted[k]) for k in clean)
+    if not same or trips != {"checkpoint.load": 1, "h2d.transfer": 1}:
+        fail(f"drill weight_quant load: trees equal {same}, trips {trips}")
+    report["wq_load"] = dict(spec=spec, trips=trips, leaves=len(clean),
+                             load_s=trees["faulted"][1],
+                             clean_load_s=trees["clean"][1],
+                             bit_identical=True)
+    log(f"drill weight_quant int8 load ({spec}) on {card}: "
+        f"{json.dumps(report['wq_load'])}")
+    del trees, clean, faulted
+    torch.cuda.empty_cache()
+    return report
+
+
+def wordpiece_vocab(texts, path) -> dict:
+    """A WordPiece vocabulary of at most ``WP_VOCAB_MAX`` entries: the
+    specials, punctuation and digits, every one-, two- and three-letter
+    piece (each letter and pair also as a ``##`` continuation), and every
+    other word of the corpus whole, so the rest split into pieces."""
+    import itertools
+    import string
+
+    from music_analyst_tpu_torch.models.tokenization import bert_basic_tokenize
+
+    letters = string.ascii_lowercase
+    words = sorted({w for t in texts[:512] for w in bert_basic_tokenize(t)})
+    entries = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]"]
+    entries += list(string.punctuation) + list(string.digits)
+    for n in (1, 2, 3):
+        grams = ["".join(p) for p in itertools.product(letters, repeat=n)]
+        entries += grams + (["##" + g for g in grams] if n < 3 else [])
+    known = set(entries)
+    entries += [w for w in words[::2] if w not in known]
+    if len(entries) > WP_VOCAB_MAX:
+        fail(f"wordpiece vocab: {len(entries)} entries")
+    with open(path, "w", encoding="utf-8") as fh:
+        fh.write("\n".join(entries) + "\n")
+    return dict(path=path, entries=len(entries), corpus_words=len(words),
+                whole_words=len(words[::2]))
+
+
+class _RecordingTokenizer:
+    """A tokenizer whose ``encode_batch`` calls are timed and kept."""
+
+    def __init__(self, tokenizer) -> None:
+        self.tokenizer = tokenizer
+        self.calls = []
+
+    def __getattr__(self, name):
+        return getattr(self.tokenizer, name)
+
+    def encode_batch(self, texts, max_len):
+        t0 = time.perf_counter()
+        out = self.tokenizer.encode_batch(texts, max_len)
+        self.calls.append((len(texts), time.perf_counter() - t0, out))
+        return out
+
+
+def wordpiece_path(torch, dev, card, dataset, checkpoint) -> dict:
+    """(b) The native WordPiece fast path: a vocabulary built from the
+    corpus, then full-width DistilBERT (step 9's checkpoint, whose labels
+    split) ``run_sentiment`` over the 16,384 songs under
+    ``$MUSICAAL_BERT_VOCAB`` with the native tokenizer and with the Python
+    one.  Every batch each run tokenized is kept: the native ids must
+    equal the Python ids on every song (and on the edge rows, encoded
+    apart), the native run's manifest must show every song on the native
+    path, the labels must be identical; each run's first 8,192-song batch
+    is its tokenizer's timed batch (in the pipeline's tokenize stage), and
+    each run's songs/s is reported."""
+    import numpy as np
+
+    from music_analyst_tpu_torch import kernels
+    from music_analyst_tpu_torch.data import native
+    from music_analyst_tpu_torch.data.csv_io import iter_songs
+    from music_analyst_tpu_torch.engines.sentiment import run_sentiment
+    from music_analyst_tpu_torch.models.distilbert import (
+        DistilBertClassifier,
+        DistilBertConfig,
+    )
+    from music_analyst_tpu_torch.models.tokenization import (
+        NativeWordPieceTokenizer,
+        WordPieceTokenizer,
+    )
+    from music_analyst_tpu_torch.telemetry import get_telemetry
+
+    texts = [t for _, _, t in iter_songs(dataset)]
+    t0 = time.perf_counter()
+    vocab = wordpiece_vocab(texts, os.path.join(WORK, "wordpiece_vocab.txt"))
+    vocab["build_s"] = time.perf_counter() - t0
+    py = WordPieceTokenizer(vocab["path"])
+    os.environ["MUSICAAL_BERT_VOCAB"] = vocab["path"]
+    try:
+        clf = DistilBertClassifier.from_pretrained_or_random(
+            "distilbert", config=DistilBertConfig(attn_impl="flash"),
+            checkpoint_path=checkpoint, device=dev)
+    finally:
+        del os.environ["MUSICAAL_BERT_VOCAB"]
+    nat = clf.tokenizer
+    if not isinstance(nat, NativeWordPieceTokenizer) or nat._handle is None:
+        fail(f"wordpiece: $MUSICAAL_BERT_VOCAB gave {type(nat)} (library: "
+             f"{'on' if native.available() else native.unavailable_reason()})")
+
+    # The edge rows, encoded apart: the Greek, CJK, emoji and surrogate
+    # rows go to Python, the rest stay native.
+    tel = get_telemetry()
+    with tel.run_scope("wordpiece_edges", None):
+        got = nat.encode_batch(WP_EDGE_ROWS, 128)
+        edge_counters = {k: v for k, v in tel.counters.items()
+                         if k.startswith("tokenizer.wordpiece.")}
+    want = py.encode_batch(WP_EDGE_ROWS, 128)
+    python_edge = 4
+    if (not all(np.array_equal(g, w) for g, w in zip(got, want))
+            or edge_counters != {
+                "tokenizer.wordpiece.native_rows":
+                    len(WP_EDGE_ROWS) - python_edge,
+                "tokenizer.wordpiece.python_rows": python_edge}):
+        fail(f"wordpiece: edge rows differ or counters {edge_counters}")
+
+    clf.classify_batch(texts[:16])
+    runs = {}
+    for name, tok in (("native", nat), ("python", py)):
+        clf.tokenizer = recording = _RecordingTokenizer(tok)
+        out_dir = os.path.join(WORK, f"wordpiece_{name}")
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        result = run_sentiment(dataset, backend=clf, output_dir=out_dir,
+                               batch_size=BATCH, quiet=True)
+        torch.cuda.synchronize()
+        runs[name] = dict(wall_s=time.perf_counter() - t0,
+                          songs_per_s=result.songs_per_second,
+                          launches=kernels.launches()["flash_attention"],
+                          out=_label_rows(out_dir), calls=recording.calls,
+                          counters=_manifest(out_dir)["counters"])
+    ids = {name: [np.concatenate([c[2][i] for c in r["calls"]])
+                  for i in (0, 1)] for name, r in runs.items()}
+    if not (ids["native"][0].shape[0] == len(texts) and all(
+            np.array_equal(a, b) for a, b in zip(ids["native"],
+                                                 ids["python"]))):
+        bad = int((ids["native"][0] != ids["python"][0]).any(axis=1).sum())
+        fail(f"wordpiece: native ids differ from Python's on {bad} songs")
+    counters = {k: v for k, v in runs["native"]["counters"].items()
+                if k.startswith("tokenizer.wordpiece.")}
+    if counters != {"tokenizer.wordpiece.native_rows": len(texts),
+                    "tokenizer.wordpiece.python_rows": 0}:
+        fail(f"wordpiece: the native run's row counters are {counters}")
+    if runs["native"]["out"] != runs["python"]["out"]:
+        fail("wordpiece: labels differ between the native and Python runs")
+    if min(r["launches"] for r in runs.values()) == 0:
+        fail(f"wordpiece: flash launches {[r['launches'] for r in runs.values()]}")
+    batch = {name: r["calls"][0] for name, r in runs.items()}
+    if batch["native"][0] != WP_BATCH or batch["python"][0] != WP_BATCH:
+        fail(f"wordpiece: first batches of {batch['native'][0]} and "
+             f"{batch['python'][0]} songs")
+    totals = json.loads(runs["native"]["out"][1])
+    del clf
+    torch.cuda.empty_cache()
+    out = dict(
+        vocab={k: v for k, v in vocab.items() if k != "path"},
+        songs=len(texts), edge_rows=len(WP_EDGE_ROWS),
+        edge_counters=edge_counters, counters=counters,
+        unk_ids=int((ids["native"][0] == py.unk_id).sum()), ids_equal=True,
+        native_threads=max(4, os.cpu_count() or 1),
+        batch=dict(songs=WP_BATCH, native_s=batch["native"][1],
+                   python_s=batch["python"][1],
+                   native_songs_per_s=WP_BATCH / batch["native"][1],
+                   python_songs_per_s=WP_BATCH / batch["python"][1],
+                   speedup=batch["python"][1] / batch["native"][1]),
+        run_sentiment={name: {k: r[k] for k in ("wall_s", "songs_per_s",
+                                                 "launches")}
+                       for name, r in runs.items()},
+        totals=totals, labels_equal=True)
+    log(f"wordpiece on {card}: {json.dumps(out)}")
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -3974,6 +4506,16 @@ def main() -> int:
     report["slice10_s"] = time.perf_counter() - t0
     log(f"training, flash loss, MoE and sweep phases: "
         f"{report['slice10_s']:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    report["fault_drills"] = fault_drills(
+        torch, dev, card, dataset, report["analyze"], oracle,
+        report["router_distilbert"]["checkpoint"]["path"])
+    report["wordpiece"] = wordpiece_path(
+        torch, dev, card, dataset,
+        report["router_distilbert"]["checkpoint"]["path"])
+    report["slice11_s"] = time.perf_counter() - t0
+    log(f"fault drills and WordPiece phases: {report['slice11_s']:.1f} s")
     report["host_python_ms"]["end"] = python_ms()
     log(f"host probe (ms of a fixed Python loop): "
         f"{json.dumps(report['host_python_ms'])}")
@@ -3997,6 +4539,10 @@ def main() -> int:
                  "flash_attention"] for name in ("unpacked", "packed")),
              train_eval_launches=report["train"]["eval_launches"][
                  "flash_attention"],
+             fault_drill_launches=report["fault_drills"]["distilbert"][
+                 "launches"],
+             wordpiece_launches=report["wordpiece"]["run_sentiment"][
+                 "native"]["launches"],
              llama_shape={key: report["flash_llama"][key] for key in
                           ("shape", "ms", "plain_ms", "bound_ms", "bound_by",
                            "library_ms", "max_abs_err")},
@@ -4013,6 +4559,8 @@ def main() -> int:
              joint_launches=report["joint"]["mock"]["launches"]["keyword_scan"],
              serve_launches=report["serve_mock"]["launches"]["keyword_scan"],
              router_launches=report["router_mock"]["scan_launches"],
+             fault_drill_launches=report["fault_drills"]["mock_watchdog"][
+                 "launches"],
              max_abs_err=0.0,
              **{key: timing["keyword_scan"][key] for key in
                 ("shape", "ms", "ms_l2_flushed", "event_ms", "plain_ms",
@@ -4049,7 +4597,10 @@ def main() -> int:
         f"{report['router_mock']['requests_per_s']:.1f} req/s, router "
         f"distilbert {report['router_distilbert']['requests_per_s']:.1f} "
         f"req/s; train step {report['train']['step_ms_mean']:.1f} ms "
-        f"({report['train']['tokens_per_s']:.0f} tokens/s); "
+        f"({report['train']['tokens_per_s']:.0f} tokens/s); WordPiece "
+        f"native {report['wordpiece']['batch']['native_songs_per_s']:.0f} "
+        f"vs Python {report['wordpiece']['batch']['python_songs_per_s']:.0f} "
+        f"songs/s; "
         f"total {report['seconds']:.1f} s")
     print(json.dumps({"quant_gemm": report["quant_gemm"]}))
     print(json.dumps(kernels_line))

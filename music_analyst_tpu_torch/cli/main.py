@@ -19,16 +19,17 @@ Every run-scoped subcommand writes ``telemetry.jsonl`` and
 ``--no-telemetry`` turns both off), flies with the flight recorder, and
 takes ``--profile-dir`` (a ``torch.profiler`` trace plus
 ``trace_spans.json``); ``analyze`` and ``sentiment`` also take
-``--trace-dir``.  Not ported yet: ``--tp`` above 1, ``--devices`` above 1
-(``sweep`` skips or refuses such points), and ``--inject-faults`` or a
-non-zero ``--watchdog-timeout`` outside ``serve``, which pass at their
-no-op values and are usage errors naming the flag at any other.
+``--trace-dir``.  Every run-scoped subcommand also takes
+``--watchdog-timeout`` (the heartbeat watchdog that classifies a stall)
+and ``--inject-faults`` (seeded fault injection at the named seams); a
+malformed value of either is a usage error, as in JAX.  Not ported yet:
+``--tp`` above 1 and ``--devices`` above 1 (``sweep`` skips or refuses
+such points), which are usage errors naming the flag.
 """
 
 from __future__ import annotations
 
 import argparse
-import math
 import sys
 from typing import List, Optional
 
@@ -93,8 +94,7 @@ def _add_device_flag(p: argparse.ArgumentParser) -> None:
 def _add_run_flags(p: argparse.ArgumentParser, devices: bool = True) -> None:
     """The JAX run-scoped flags (``_add_telemetry_flags``, and
     ``--trace-dir``/``--devices`` where the subcommand has them).
-    :func:`_check_run_flags` admits only the no-op values of the ones not
-    ported yet."""
+    :func:`_check_run_flags` refuses the values not ported yet."""
     p.add_argument("--telemetry-dir", default=None,
                    help="Write telemetry.jsonl + run_manifest.json here "
                         "(default: the run's output dir)")
@@ -106,11 +106,15 @@ def _add_run_flags(p: argparse.ArgumentParser, devices: bool = True) -> None:
                         "(trace_spans.json) into this dir "
                         "(profiling/trace.py)")
     p.add_argument("--watchdog-timeout", default=None,
-                   help="Heartbeat watchdog seconds (serve); elsewhere only "
-                        "0 (disabled) runs in the port")
+                   help="Heartbeat watchdog: classify a stage/device/host "
+                        "scope silent this many seconds (stage_stall, "
+                        "device_stall, ...) and dump flight_record.json "
+                        "(default $MUSICAAL_WATCHDOG_S or 0 = off)")
     p.add_argument("--inject-faults", default=None, metavar="SPEC",
-                   help="Deterministic fault injection (serve only in the "
-                        "port; see resilience/faults.py)")
+                   help="Deterministic fault injection at named seams, "
+                        "e.g. 'ingest.read:error@1;h2d.transfer:delay=2s@3' "
+                        "(default $MUSICAAL_FAULTS; grammar in "
+                        "resilience/faults.py)")
     if devices:
         p.add_argument("--trace-dir", default=None,
                        help="Capture a torch.profiler trace into this dir "
@@ -121,26 +125,10 @@ def _add_run_flags(p: argparse.ArgumentParser, devices: bool = True) -> None:
 
 def _check_run_flags(parser: argparse.ArgumentParser,
                      args: argparse.Namespace) -> None:
-    # ``serve`` has its fault seams and watchdog scopes; the other
-    # subcommands do not yet.
-    serve = args.command == "serve"
     # One profiler session per process: torch.profiler cannot nest.
     if getattr(args, "trace_dir", None) and args.profile_dir:
         parser.error("--trace-dir and --profile-dir each capture a device "
                      "trace; give one of them")
-    if getattr(args, "inject_faults", None) is not None and not serve:
-        parser.error(f"--inject-faults {_NOT_PORTED}")
-    if args.watchdog_timeout is not None and not serve:
-        try:
-            seconds = float(args.watchdog_timeout)
-        except ValueError:
-            parser.error("watchdog timeout must be a number of seconds >= 0, "
-                         f"got {args.watchdog_timeout!r}")
-        if not math.isfinite(seconds) or seconds < 0:
-            parser.error(f"watchdog timeout must be finite and >= 0, "
-                         f"got {seconds}")
-        if seconds != 0:
-            parser.error(f"--watchdog-timeout {_NOT_PORTED} (only 0 runs)")
     devices = getattr(args, "devices", None)
     if args.command != "sweep" and devices is not None and devices != 1:
         parser.error(f"--devices {devices} {_NOT_PORTED} (one device only)")
@@ -645,14 +633,6 @@ def _run_wordcount_per_song(args: argparse.Namespace) -> int:
 def _run_serve(parser: argparse.ArgumentParser,
                args: argparse.Namespace) -> int:
     from music_analyst_tpu_torch.device import resolve_device
-    from music_analyst_tpu_torch.observability.watchdog import (
-        resolve_watchdog_timeout,
-        start_watchdog,
-    )
-    from music_analyst_tpu_torch.resilience.faults import (
-        configure_faults,
-        resolve_fault_spec,
-    )
     from music_analyst_tpu_torch.serving.batcher import (
         resolve_replicas,
         resolve_tp,
@@ -676,12 +656,6 @@ def _run_serve(parser: argparse.ArgumentParser,
     if tp > 1:
         parser.error(f"--tp {tp} {_NOT_PORTED}")
     resolve_device(args.device)
-    # The watchdog is opt-in (--watchdog-timeout / $MUSICAAL_WATCHDOG_S).
-    try:
-        start_watchdog(resolve_watchdog_timeout(args.watchdog_timeout))
-        configure_faults(resolve_fault_spec(args.inject_faults))
-    except ValueError as exc:
-        parser.error(str(exc))
     try:
         common = dict(
             model=args.model,
@@ -797,13 +771,32 @@ def main(argv: Optional[List[str]] = None) -> int:
     from music_analyst_tpu_torch.observability.flight import (
         install_flight_recorder,
     )
+    from music_analyst_tpu_torch.observability.watchdog import (
+        resolve_watchdog_timeout,
+        start_watchdog,
+    )
     from music_analyst_tpu_torch.profiling.trace import profile_run
+    from music_analyst_tpu_torch.resilience.faults import (
+        configure_faults,
+        resolve_fault_spec,
+    )
     from music_analyst_tpu_torch.telemetry import configure
 
     configure(enabled=not args.no_telemetry, directory=args.telemetry_dir)
     # Every run-scoped subcommand flies with the recorder installed: an
     # unhandled exception or SIGTERM leaves flight_record.json behind.
+    # The watchdog is opt-in (--watchdog-timeout / $MUSICAAL_WATCHDOG_S).
     install_flight_recorder()
+    try:
+        start_watchdog(resolve_watchdog_timeout(args.watchdog_timeout))
+    except ValueError as exc:
+        parser.error(str(exc))
+    # Fault injection is explicit chaos tooling: a malformed spec (flag
+    # OR env) is a hard usage error, never a silent no-op.
+    try:
+        configure_faults(resolve_fault_spec(args.inject_faults))
+    except ValueError as exc:
+        parser.error(str(exc))
     with profile_run(args.profile_dir,
                      device=getattr(args, "device", "cpu")):
         return _dispatch(parser, args)

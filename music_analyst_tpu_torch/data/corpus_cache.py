@@ -21,8 +21,9 @@ package loads in the other.
   caller re-ingests.  The cache never fails a run.
 
 :func:`cache_stats` keeps the process's counts, mirrored into the run's
-``corpus_cache.*`` telemetry counters as in JAX.  The JAX package's
-publish retry and fault-injection seam are not ported.
+``corpus_cache.*`` telemetry counters as in JAX.  The publish rename
+runs under a short retry policy whose first statement is the
+``corpus_cache.publish`` fault seam, as in JAX.
 """
 
 from __future__ import annotations
@@ -36,6 +37,14 @@ import uuid
 from typing import Any, Dict, List, Optional
 
 import numpy as np
+
+from music_analyst_tpu_torch.resilience.faults import fault_point
+from music_analyst_tpu_torch.resilience.policy import RetryPolicy
+
+# Publish is one rename; transient filesystem errors (and injected
+# corpus_cache.publish faults) get a couple of fast re-attempts before the
+# store is abandoned.  Short sleeps: the caller is blocking an ingest.
+_PUBLISH_RETRY = RetryPolicy(base_s=0.02, cap_s=0.2)
 
 SCHEMA_VERSION = 1
 
@@ -207,8 +216,15 @@ def store(
             with open(os.path.join(tmp, _META_NAME), "w",
                       encoding="utf-8") as fh:
                 json.dump(meta, fh)
-            try:
+
+            def _publish() -> None:
+                fault_point("corpus_cache.publish", key=key)
                 os.rename(tmp, final)
+
+            try:
+                _PUBLISH_RETRY.call(
+                    _publish, site="corpus_cache.publish"
+                )
             except OSError:
                 # Lost the publish race — the winner's entry is equivalent
                 # (content-addressed), so dropping ours is correct.

@@ -14,8 +14,9 @@ as dense id arrays:
 Backends: ``python`` (reference-exact oracle, this module) and ``native``
 (multithreaded C++, ``data/native.py``); ``auto`` prefers native and
 parses in Python when the library cannot be built — a host path with
-identical ids.  The JAX package's ingest retry and fault-injection seam
-are not ported.
+identical ids.  The whole ingest is idempotent, so it runs under one
+retry policy whose first statement is the ``ingest.read`` fault seam, as
+in JAX.
 """
 
 from __future__ import annotations
@@ -28,6 +29,13 @@ import numpy as np
 from music_analyst_tpu_torch.data.csv_io import iter_dataset_fields
 from music_analyst_tpu_torch.data.tokenizer import tokenize_ascii
 from music_analyst_tpu_torch.data.vocab import Vocab
+from music_analyst_tpu_torch.resilience.faults import fault_point
+from music_analyst_tpu_torch.resilience.policy import RetryPolicy
+
+# Transient read failures (injected ingest.read faults, OS-level I/O
+# hiccups) get re-attempted; the whole ingest is idempotent, so the retry
+# wraps the full backend dispatch rather than just the open().
+_INGEST_RETRY = RetryPolicy(base_s=0.05, cap_s=1.0)
 
 
 @dataclasses.dataclass
@@ -152,35 +160,42 @@ def ingest_dataset(
     """
     if backend not in ("auto", "python", "native"):
         raise ValueError(f"unknown ingest backend: {backend}")
-    if backend in ("auto", "native"):
-        from music_analyst_tpu_torch.data import native
 
-        if native.available():
-            return native.ingest_native(
-                path,
-                limit=limit,
-                num_threads=num_threads,
-                capture_records=capture_records,
-                cache_dir=cache_dir,
-            )
-        if backend == "native":
-            raise RuntimeError(
-                "native ingest requested but the C++ library is "
-                f"unavailable ({native.unavailable_reason()})"
-            )
-    from music_analyst_tpu_torch.data import corpus_cache
+    def _ingest_once() -> IngestResult:
+        fault_point("ingest.read", path=path, backend=backend)
+        if backend in ("auto", "native"):
+            from music_analyst_tpu_torch.data import native
 
-    if cache_dir:
-        cached = corpus_cache.load(
-            cache_dir, path, limit, capture_records, "python"
+            if native.available():
+                return native.ingest_native(
+                    path,
+                    limit=limit,
+                    num_threads=num_threads,
+                    capture_records=capture_records,
+                    cache_dir=cache_dir,
+                )
+            if backend == "native":
+                raise RuntimeError(
+                    "native ingest requested but the C++ library is "
+                    f"unavailable ({native.unavailable_reason()})"
+                )
+        from music_analyst_tpu_torch.data import corpus_cache
+
+        if cache_dir:
+            cached = corpus_cache.load(
+                cache_dir, path, limit, capture_records, "python"
+            )
+            if cached is not None:
+                return cached
+        with open(path, "rb") as fh:
+            data = fh.read()
+        result = ingest_python(
+            data, limit=limit, capture_records=capture_records
         )
-        if cached is not None:
-            return cached
-    with open(path, "rb") as fh:
-        data = fh.read()
-    result = ingest_python(data, limit=limit, capture_records=capture_records)
-    if cache_dir:
-        corpus_cache.store(
-            cache_dir, path, limit, capture_records, "python", result
-        )
-    return result
+        if cache_dir:
+            corpus_cache.store(
+                cache_dir, path, limit, capture_records, "python", result
+            )
+        return result
+
+    return _INGEST_RETRY.call(_ingest_once, site="ingest.read")

@@ -2,9 +2,11 @@
 
 The port's own copy of the bindings it needs from
 ``music_analyst_tpu/data/native.py``: batch hash tokenization, the
-multithreaded corpus ingest (:func:`ingest_native`, with record capture),
-the dataset column split (:func:`split_columns_native`) and the
-record-exact byte ranges (:func:`record_range`).  The library is compiled
+Latin fast path of WordPiece (:func:`wp_create`, :func:`wp_encode_batch`,
+:func:`wp_destroy`), the multithreaded corpus ingest
+(:func:`ingest_native`, with record capture), the dataset column split
+(:func:`split_columns_native`) and the record-exact byte ranges
+(:func:`record_range`).  The library is compiled
 with the host C++ compiler at first use into ``build/torch_kernels/`` (file
 name keyed by a hash of the source), apart from the JAX package's build.
 Where no compiler is found or the build fails, :func:`available` is False:
@@ -93,6 +95,16 @@ def _bind(lib: ctypes.CDLL) -> None:
         "man_split_columns": (_i, [_cp, _cp, _cp, _cp, _cp, _i]),
         # path, n_procs, p, threads, out int64[3]
         "man_record_ranges": (_ll, [_cp, _i, _i, _i, _vp]),
+        # vocab blob (newline-separated entries), blob bytes,
+        # max_word_chars, char class table uint8[N], N (the table's
+        # codepoint bound), replacement blob, replacement offsets int32[N+1]
+        "man_wp_create": (_vp, [_cp, _ll, _i, _vp, _i, _cp, _vp]),
+        "man_wp_destroy": (None, [_vp]),
+        # vocab handle, blob, offsets int64[n+1], n_rows, max_len,
+        # threads, out ids, out lens, out handled uint8[n]
+        "man_wp_encode_batch": (None, [
+            _vp, _cp, _vp, _ll, _i, _i, _vp, _vp, _vp,
+        ]),
     }
     for name, (restype, argtypes) in signatures.items():
         fn = getattr(lib, name)
@@ -165,6 +177,67 @@ def hash_tokenize_batch(
         pad_id, reserved, num_threads, out.ctypes.data, lens.ctypes.data,
     )
     return out, lens
+
+
+def wp_create(
+    vocab_path: str, char_table, max_word_chars: int = 100
+) -> Optional[int]:
+    """Build a native WordPiece vocab handle; None when the library is
+    unavailable or the vocab lacks [CLS]/[SEP] (the Python tokenizer
+    raises on those).
+
+    ``char_table`` is ``(classes, repl_blob, offsets)`` from
+    ``models/tokenization.py:_wp_char_table`` — the Python-owned Unicode
+    semantics the kernel executes.
+    """
+    lib = load()
+    if lib is None:
+        return None
+    with open(vocab_path, "rb") as fh:
+        blob = fh.read()
+    classes, repl_blob, offsets = char_table
+    classes = np.ascontiguousarray(classes, dtype=np.uint8)
+    offsets = np.ascontiguousarray(offsets, dtype=np.int32)
+    handle = lib.man_wp_create(
+        blob, len(blob), max_word_chars, classes.ctypes.data,
+        int(classes.size), repl_blob, offsets.ctypes.data,
+    )
+    return handle or None
+
+
+def wp_destroy(handle: int) -> None:
+    lib = load()
+    if lib is not None and handle:
+        lib.man_wp_destroy(handle)
+
+
+def wp_encode_batch(handle: int, texts: Sequence[str], max_len: int,
+                    num_threads: int = 0):
+    """C++ Latin-fast-path WordPiece; returns ``(ids, lens, handled)``.
+
+    Rows with ``handled == 0`` — a codepoint past the char table
+    (>= U+0370: Greek/Cyrillic/CJK/emoji), invalid UTF-8, or a degenerate
+    ``max_len`` — must be re-encoded by the Python tokenizer.  Accented
+    Latin rows are handled natively (the table covers < U+0370).
+    ``num_threads`` 0 takes one thread per hardware thread."""
+    lib = _require()
+    # surrogatepass, not replace: a lone surrogate must reach the kernel
+    # as the invalid UTF-8 it is, so the row is flagged unhandled and the
+    # Python path (which drops it as a C*-category char) keeps the
+    # identical-output contract; "replace" would tokenize a synthetic '?'.
+    encoded = [t.encode("utf-8", errors="surrogatepass") for t in texts]
+    offsets = np.zeros(len(encoded) + 1, dtype=np.int64)
+    np.cumsum([len(e) for e in encoded], out=offsets[1:])
+    blob = b"".join(encoded)
+    n = len(encoded)
+    out = np.empty((n, max_len), dtype=np.int32)
+    lens = np.empty(n, dtype=np.int32)
+    handled = np.empty(n, dtype=np.uint8)
+    lib.man_wp_encode_batch(
+        handle, blob, offsets.ctypes.data, n, max_len, num_threads,
+        out.ctypes.data, lens.ctypes.data, handled.ctypes.data,
+    )
+    return out, lens, handled
 
 
 def split_columns_native(

@@ -17,7 +17,9 @@ quantization of unit *k+1*, and the float tree never exists whole
 (``last_load_stats()["peak_host_staging_bytes"]`` is the measured peak of
 float bytes staged at once).  Quantized leaves are persisted through the
 content-addressed ``engines/wq_cache.py``, so a warm load reads codes and
-never touches ``torch.load``.
+never touches ``torch.load``.  The quantize stage opens with the
+``checkpoint.load`` fault seam and the copy stage with ``h2d.transfer``;
+the prefetch stage retry re-runs a failed unit, as in JAX.
 """
 
 from __future__ import annotations
@@ -40,6 +42,7 @@ from music_analyst_tpu_torch.ops.quant import (
     quantize_array,
     wq_rule_for_path,
 )
+from music_analyst_tpu_torch.resilience.faults import fault_point
 from music_analyst_tpu_torch.runtime.prefetch import (
     PrefetchPipeline,
     Stage,
@@ -192,6 +195,10 @@ def load_quantized_params(
 
     def stage_quantize(item):
         unit_name, leaves = item
+        # First statement on purpose: an injected checkpoint.load trip
+        # raises before any staging or writer side effect, so the prefetch
+        # stage retry re-runs the unit from scratch.
+        fault_point("checkpoint.load", unit=unit_name)
         float_bytes = sum(_leaf_bytes(leaf) for _, leaf in leaves)
         with _LOAD_LOCK:
             staged["now"] += float_bytes
@@ -214,6 +221,7 @@ def load_quantized_params(
 
     def stage_h2d(item):
         unit_name, leaves = item
+        fault_point("h2d.transfer", unit=unit_name)
         return unit_name, [(path, _to_device(leaf, device))
                            for path, leaf in leaves]
 

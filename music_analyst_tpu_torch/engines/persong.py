@@ -13,7 +13,9 @@ Words get dense first-seen ids and fold into a flat count list; the
 global ranking is one stable sort on ``-count``.  Tokenization runs on a
 multi-worker stage of the prefetch pipeline with results folded in
 submission order.  Host-only: no device work.  The run scope, spans and
-counters are JAX's (``persong``); its watchdog hooks are not ported yet.
+counters are JAX's (``persong``), and so are the watchdog hooks: the fold
+runs inside the ``persong.fold`` scope (kind ``host``) and beats once per
+chunk, so a wedged fold or writer classifies as ``host_stall``.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ from typing import Dict, Iterable, Iterator, List, Optional, Sequence, Tuple
 
 from music_analyst_tpu_torch.data.csv_io import sniff_delimiter
 from music_analyst_tpu_torch.data.tokenizer import tokenize_latin1
+from music_analyst_tpu_torch.observability import watchdog
 from music_analyst_tpu_torch.runtime import PrefetchPipeline, Stage
 from music_analyst_tpu_torch.telemetry import get_telemetry
 
@@ -161,6 +164,22 @@ def _persong_stream(src, per_song_path, global_path, encoding, delimiter,
         with open(per_song_path, "w", encoding="utf-8", newline="") as ps_fh:
             by_song = csv.writer(ps_fh)
             by_song.writerow(["artist", "song", "word", "count"])
+
+            def fold(chunk_result: List[_SongCounts]) -> None:
+                nonlocal total_rows
+                # Per-chunk heartbeat: a healthy fold beats often; a wedged
+                # writer or reader goes silent and the enclosing watch
+                # classifies it as host_stall.
+                watchdog.beat("persong.fold")
+                for song_counts in chunk_result:
+                    total_rows += 1
+                    if song_counts is None:
+                        continue
+                    artist, song, items = song_counts
+                    for word, count in items:
+                        histogram.add(word, count)
+                        by_song.writerow([artist, song, word, count])
+
             # _tokenize_chunk records its own "tokenize" spans, so the
             # stage does not (record_spans=False).
             pipe = PrefetchPipeline(
@@ -172,16 +191,9 @@ def _persong_stream(src, per_song_path, global_path, encoding, delimiter,
             # reader's file goes away.
             with contextlib.closing(
                 pipe.run(_iter_chunks(reader, chunk_rows))
-            ) as results:
+            ) as results, watchdog.watch("persong.fold", kind="host"):
                 for chunk_result in results:
-                    for song_counts in chunk_result:
-                        total_rows += 1
-                        if song_counts is None:
-                            continue
-                        artist, song, items = song_counts
-                        for word, count in items:
-                            histogram.add(word, count)
-                            by_song.writerow([artist, song, word, count])
+                    fold(chunk_result)
     with tel.span("write", rows=total_rows), \
             open(global_path, "w", encoding="utf-8", newline="") as g_fh:
         ranked = csv.writer(g_fh)

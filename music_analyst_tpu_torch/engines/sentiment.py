@@ -16,8 +16,13 @@ HTTP path, whose per-song request latency is written as measured).
 Telemetry is JAX's: the ``sentiment`` run scope, the ``backend_init``,
 ``ingest``, ``compute`` and ``write`` spans (the backend loads through
 ``serving/residency.py``, as in JAX), the ``rows_classified`` counter and
-the pipeline's stage accounting.  Failover and the watchdog are not part
-of the port yet.
+the pipeline's stage accounting.  Resilience as in JAX: the ``h2d`` stage
+opens with the ``h2d.transfer`` fault seam (the prefetch stage retry
+re-runs the whole stage), and ``collect`` runs inside the
+``sentiment.collect`` watchdog scope (kind ``device``) and
+:func:`run_with_failover`, whose re-init reloads the backend through the
+residency (when this engine built it) and re-submits the batch.  There is
+no degrade: a second failure raises.
 """
 
 from __future__ import annotations
@@ -32,6 +37,9 @@ from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
 from music_analyst_tpu_torch.data.csv_io import iter_songs
 from music_analyst_tpu_torch.device import DeviceLike
+from music_analyst_tpu_torch.observability import watchdog
+from music_analyst_tpu_torch.resilience.failover import run_with_failover
+from music_analyst_tpu_torch.resilience.faults import fault_point
 from music_analyst_tpu_torch.runtime import (
     PrefetchPipeline,
     Stage,
@@ -315,12 +323,37 @@ def _run_sentiment_impl(
 
     def h2d_stage(item):
         rows_batch, prepared = item
+        # Injected h2d.transfer faults recover via the prefetch stage
+        # retry (the whole stage body re-runs; launch is idempotent).
+        fault_point("h2d.transfer", rows=len(rows_batch))
         t0 = time.perf_counter()
         handle = clf_launch(clf_transfer(prepared))
         # Snapshot measured latencies now: a synchronous backend (Ollama)
         # classifies inside launch and overwrites them on the next batch.
         measured = getattr(clf, "last_latencies", None)
         return rows_batch, handle, t0, list(measured) if measured else None
+
+    def collect(rows_batch, handle):
+        # collect() is the edge that blocks on the card; the watchdog
+        # classifies a hang there as device_stall.  On a classified device
+        # loss the batch is re-submitted once — through a freshly loaded
+        # backend when this engine owns its construction — before the
+        # failure propagates.
+        state = {"handle": handle}
+
+        def _collect():
+            with watchdog.watch("sentiment.collect", kind="device"):
+                return clf.collect(state["handle"])
+
+        def _reinit():
+            nonlocal clf
+            if backend is None:
+                clf = residency.reload()
+            state["handle"] = clf.submit([text for _, _, text in rows_batch])
+
+        return run_with_failover(
+            _collect, site="sentiment.collect", reinit=_reinit
+        )
 
     def batches(source):
         batch: List[Tuple[str, str, str]] = []
@@ -355,7 +388,7 @@ def _run_sentiment_impl(
         with contextlib.closing(pipe.run(batches(source))) as results:
             for rows_batch, handle, t_submit, measured in results:
                 with tel.span("compute", rows=len(rows_batch)):
-                    labels = clf.collect(handle)
+                    labels = collect(rows_batch, handle)
                 # Submit→collect wall time per batch, amortized per song,
                 # unless the backend measured each song.
                 elapsed = time.perf_counter() - t_submit

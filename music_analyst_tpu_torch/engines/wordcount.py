@@ -17,11 +17,12 @@ same stages (cf. the reference call stack, SURVEY.md §3.1):
 
 Telemetry as in JAX: the ``wordcount`` run scope, a span per stage, the
 ``songs_ingested`` / ``words_counted`` counters, and profiler annotations
-around the histograms.  Left out for now: the watchdog and
-``run_with_failover`` (the XLA compile cache needs no port).  The JAX
-engine's
-degrade to a host ``np.bincount`` when the device is lost is deliberately
-not ported: a failure on the card raises.
+around the histograms.  Resilience as in JAX: ``device_compute`` runs
+inside the ``wordcount.device_compute`` watchdog scope (kind ``device``)
+and :func:`run_with_failover`, which on a classified device loss rebuilds
+the default mesh once and re-runs the histograms.  The JAX engine's
+degrade to a host ``np.bincount`` when the retry fails too is
+deliberately not ported: a second failure on the card raises.
 """
 
 from __future__ import annotations
@@ -52,6 +53,7 @@ from music_analyst_tpu_torch.metrics.perf import (
     write_performance_metrics,
 )
 from music_analyst_tpu_torch.metrics.timer import StageTimer
+from music_analyst_tpu_torch.observability import watchdog
 from music_analyst_tpu_torch.ops.histogram import (
     resolve_chunk_songs,
     sharded_histogram,
@@ -60,6 +62,7 @@ from music_analyst_tpu_torch.ops.histogram import (
 )
 from music_analyst_tpu_torch.parallel.mesh import data_parallel_mesh
 from music_analyst_tpu_torch.profiling.trace import annotate
+from music_analyst_tpu_torch.resilience.failover import run_with_failover
 from music_analyst_tpu_torch.telemetry import get_telemetry
 
 COUNT_MODES = ("host-shard", "device-ids")
@@ -159,7 +162,8 @@ def run_analysis(
     """
     if count_mode not in COUNT_MODES:
         raise ValueError(f"unknown count mode {count_mode!r}")
-    if mesh is None:
+    default_mesh = mesh is None
+    if default_mesh:
         mesh = data_parallel_mesh(device=device)
     cache_dir = resolve_cache_dir(corpus_cache_dir, use_corpus_cache)
     tel = get_telemetry()
@@ -172,14 +176,14 @@ def run_analysis(
             tel, timer, dataset_path, output_dir, split_dir, word_limit,
             artist_limit, limit, mesh, write_split, ingest_backend,
             count_mode, quiet, corpus, ingest_seconds, cache_dir,
-            chunk_songs,
+            chunk_songs, default_mesh,
         )
 
 
 def _run_analysis_instrumented(
     tel, timer, dataset_path, output_dir, split_dir, word_limit,
     artist_limit, limit, mesh, write_split, ingest_backend, count_mode,
-    quiet, corpus, ingest_seconds, cache_dir, chunk_songs,
+    quiet, corpus, ingest_seconds, cache_dir, chunk_songs, default_mesh,
 ) -> AnalysisResult:
     with timer.stage("split"):
         if write_split:
@@ -209,9 +213,24 @@ def _run_analysis_instrumented(
     tel.count("words_counted", corpus.token_count)
     tel.annotate(mesh_shape=mesh.shape, count_mode=count_mode,
                  chunk_songs=chunk)
-    with timer.stage("device_compute"):
-        word_counts, artist_counts, per_chip_compute = _device_counts(
-            corpus, mesh, count_mode, chunk
+
+    def _reinit_mesh():
+        # The port caches no compiled programs or histogram state; the
+        # re-init rebuilds the default mesh, which re-resolves the device
+        # and touches its context.  A caller-supplied mesh is left alone.
+        nonlocal mesh
+        if default_mesh:
+            mesh = data_parallel_mesh(device=mesh.devices[0])
+
+    with timer.stage("device_compute"), watchdog.watch(
+        "wordcount.device_compute", kind="device"
+    ):
+        # Classified device loss (device_stall / injected transient) gets
+        # one re-init-and-retry; a second failure raises (no degrade).
+        word_counts, artist_counts, per_chip_compute = run_with_failover(
+            lambda: _device_counts(corpus, mesh, count_mode, chunk),
+            site="wordcount.device_compute",
+            reinit=_reinit_mesh,
         )
     if per_chip_compute is None:
         per_chip_compute = [timer.seconds["device_compute"]] * mesh.size

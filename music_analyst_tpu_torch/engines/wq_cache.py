@@ -22,8 +22,9 @@ other to the same codes (the default directory is shared):
 Resolution: an explicit ``cache_dir`` wins, then ``$MUSICAAL_WQ_CACHE`` (a
 directory, or ``0``/``off``/``false``/``no`` to disable), then
 ``~/.cache/musicaal_wq``.  Each stats bump is mirrored into the run's
-``wq_cache.*`` telemetry counters, as in JAX.  Not ported: the JAX
-package's fault-injection seam and its publish retries.
+``wq_cache.*`` telemetry counters, as in JAX.  The publish rename runs
+under a short retry policy whose first statement is the
+``corpus_cache.publish`` fault seam (the site JAX names for both caches).
 """
 
 from __future__ import annotations
@@ -40,6 +41,12 @@ import numpy as np
 import torch
 
 from music_analyst_tpu_torch.ops.quant import QuantizedParam
+from music_analyst_tpu_torch.resilience.faults import fault_point
+from music_analyst_tpu_torch.resilience.policy import RetryPolicy
+
+# Publish is a single rename; transient filesystem hiccups get a couple of
+# fast retries before the store degrades to uncached (never fails the load).
+_PUBLISH_RETRY = RetryPolicy(base_s=0.02, cap_s=0.2)
 
 SCHEMA_VERSION = 1
 
@@ -197,9 +204,15 @@ class WqCacheWriter:
             with open(os.path.join(self._tmp, _META_NAME), "w",
                       encoding="utf-8") as fh:
                 json.dump(meta, fh)
-            os.rename(self._tmp, self._final)
+
+            def _publish() -> None:
+                fault_point("corpus_cache.publish", key=self._final)
+                os.rename(self._tmp, self._final)
+
+            _PUBLISH_RETRY.call(_publish, site="corpus_cache.publish")
         except Exception:
-            # Benign race: another writer published first.
+            # Benign race: another writer published first (or an injected
+            # fault exhausted its retries: the store degrades, never raises).
             self.abort()
             return os.path.isdir(self._final)
         _bump("stores")

@@ -5,8 +5,10 @@ Counterpart of ``music_analyst_tpu/models/ollama.py``: the same endpoint
 prompt template and 4,000-character truncation as the on-card Llama
 (``models/llama.py``), a 120 s timeout, and first-word label
 normalisation, with the reference's empty-response crash fixed.  Transient
-failures are retried (``resilience/policy.py``); a 4xx answer other than
-408/429 is a verdict and is not.  It has no device work.
+failures are retried (``resilience/policy.py``, whose sleeps are clamped
+by the armed retry deadline and the active watchdog timeout), each
+attempt opening with the ``ollama.request`` fault seam; a 4xx answer
+other than 408/429 is a verdict and is not.  It has no device work.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ from music_analyst_tpu_torch.models.llama import (
     LYRICS_TRUNCATION,
     PROMPT_TEMPLATE,
 )
+from music_analyst_tpu_torch.resilience.faults import fault_point
 from music_analyst_tpu_torch.resilience.policy import (
     RetryPolicy,
     classify_retryable,
@@ -93,6 +96,7 @@ class OllamaClassifier(ClassifierBackend):
         }
 
         def request() -> Tuple[str, float]:
+            fault_point("ollama.request", model=self.model)
             start = time.perf_counter()
             response = requests.post(
                 f"{self.endpoint}/api/generate",

@@ -2,7 +2,9 @@
 
 Counterpart of ``music_analyst_tpu/models/tokenization.py`` (the port keeps
 its own copy).  Encoder: a real WordPiece vocab (``vocab.txt`` via path or
-``$MUSICAAL_BERT_VOCAB``) gives exact DistilBERT tokenization; otherwise
+``$MUSICAAL_BERT_VOCAB``) gives exact DistilBERT tokenization, with Latin
+rows encoded by the host C++ library (:class:`NativeWordPieceTokenizer`);
+otherwise
 :class:`HashWordTokenizer` hashes words into the id space.  Hash ids are
 bit-identical to the JAX package's, so both packages feed their models the
 same ids.  Decoder: a local HF tokenizer directory
@@ -17,6 +19,8 @@ import unicodedata
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
+
+from music_analyst_tpu_torch.telemetry import get_telemetry
 
 _CJK_RANGES = (
     (0x4E00, 0x9FFF), (0x3400, 0x4DBF), (0x20000, 0x2A6DF),
@@ -278,13 +282,117 @@ class WordPieceTokenizer:
         return batch, lengths
 
 
+# Codepoints below this bound are classified/normalized by a table the
+# Python side builds from unicodedata and hands to the native kernel:
+# ASCII + Latin-1 Supplement + Latin Extended-A/B + IPA + combining
+# diacriticals — every Western-language lyric.  Greek and beyond (0x370+)
+# go to the Python path per row: lowercasing there can be context-
+# dependent (final sigma), which a per-char table cannot express.
+_WP_TABLE_MAX = 0x370
+
+
+def _wp_char_table():
+    """``(classes, repl_blob, offsets)`` for the native WordPiece kernel.
+
+    ``classes[cp]``: 0=drop (C* controls), 1=whitespace, 2=punctuation,
+    3=word char.  ``repl`` is the per-char normalization BERT applies
+    inside a token — lowercase, NFD, strip combining marks — as UTF-8
+    bytes (empty for a bare combining mark, multi-byte where the
+    lowercased base keeps a non-ASCII char like ``ø``).  Derived from the
+    same unicodedata calls ``bert_basic_tokenize`` makes, so the native
+    path cannot drift from the Python semantics.
+    """
+    classes = np.zeros(_WP_TABLE_MAX, np.uint8)
+    repls = []
+    for cp in range(_WP_TABLE_MAX):
+        ch = chr(cp)
+        cat = unicodedata.category(ch)
+        if ch in " \t\n\r" or cat == "Zs":
+            classes[cp] = 1
+            repls.append(b"")
+        elif cp == 0 or cat.startswith("C"):
+            classes[cp] = 0
+            repls.append(b"")
+        elif _is_bert_punctuation(ch):
+            classes[cp] = 2
+            repls.append(ch.encode("utf-8"))
+        else:
+            classes[cp] = 3
+            norm = "".join(
+                c for c in unicodedata.normalize("NFD", ch.lower())
+                if unicodedata.category(c) != "Mn"
+            )
+            repls.append(norm.encode("utf-8"))
+    offsets = np.zeros(_WP_TABLE_MAX + 1, np.int32)
+    np.cumsum([len(r) for r in repls], out=offsets[1:])
+    return classes, b"".join(repls), offsets
+
+
+class NativeWordPieceTokenizer(WordPieceTokenizer):
+    """C++-accelerated batch WordPiece with identical output.
+
+    Latin-script rows (every Western-language lyric, accents included)
+    encode in the threaded host kernel
+    (``native/ingest.cpp:man_wp_encode_batch``) driven by the
+    :func:`_wp_char_table` classification; rows the kernel flags
+    (codepoints >= U+0370 or invalid UTF-8) re-encode through the Python
+    path, which owns the full-Unicode BasicTokenizer semantics — JAX's
+    rule, and a host split, not a device fallback.  Python WordPiece runs
+    ~10x slower than the DistilBERT forward, so without this a
+    real-vocabulary run is tokenizer-bound.  The telemetry counters
+    ``tokenizer.wordpiece.native_rows`` / ``.python_rows`` record which
+    path each row took.
+    """
+
+    def __init__(self, vocab_path: str, max_word_chars: int = 100) -> None:
+        super().__init__(vocab_path, max_word_chars)
+        from music_analyst_tpu_torch.data import native
+
+        self._native = native
+        self._handle = (
+            native.wp_create(vocab_path, _wp_char_table(), max_word_chars)
+            if native.available() else None
+        )
+
+    def encode_batch(
+        self, texts: Sequence[str], max_len: int
+    ) -> Tuple[np.ndarray, np.ndarray]:
+        tel = get_telemetry()
+        if self._handle is None:
+            tel.count("tokenizer.wordpiece.python_rows", len(texts))
+            return super().encode_batch(texts, max_len)
+        batch, lengths, handled = self._native.wp_encode_batch(
+            self._handle, texts, max_len
+        )
+        unhandled = np.flatnonzero(handled == 0)
+        for i in unhandled:
+            row, n = self.encode(texts[i], max_len)
+            batch[i] = row
+            lengths[i] = n
+        tel.count("tokenizer.wordpiece.native_rows",
+                  len(texts) - unhandled.size)
+        tel.count("tokenizer.wordpiece.python_rows", int(unhandled.size))
+        return batch, lengths
+
+    def __del__(self):
+        try:
+            handle = getattr(self, "_handle", None)
+            if handle:
+                self._native.wp_destroy(handle)
+        except Exception:
+            # Interpreter teardown may have cleared module globals the
+            # destroy path needs; leaking at exit beats a stderr
+            # "Exception ignored" traceback in every process.
+            pass
+
+
 def resolve_bert_tokenizer(
     vocab_path: Optional[str] = None, vocab_size: int = 30522
 ):
     """Best-available encoder tokenizer (WordPiece if a vocab is supplied)."""
     path = vocab_path or os.environ.get("MUSICAAL_BERT_VOCAB")
     if path and os.path.exists(path):
-        return WordPieceTokenizer(path)
+        return NativeWordPieceTokenizer(path)
     return NativeHashTokenizer(vocab_size=vocab_size)
 
 

@@ -29,7 +29,9 @@ is XLA's), so the port computes it with torch operations on the card:
   so the port moves each stream and each chunk at its own length.
 * With one device the cross-device sum (JAX's ``psum``) is the identity;
   the host-shard path still merges its per-shard rows on the card, so its
-  measured ``merge_seconds`` keeps its meaning.
+  measured ``merge_seconds`` keeps its meaning.  Each merge point keeps
+  JAX's ``collective.psum`` fault seam, so a one-card run trips it as
+  often as JAX's one-device mesh does.
 
 Counts are exact int32 (integer atomics do not depend on their order).
 """
@@ -45,6 +47,7 @@ import numpy as np
 import torch
 
 from music_analyst_tpu_torch.parallel.mesh import DeviceMesh
+from music_analyst_tpu_torch.resilience.faults import fault_point
 
 PAD_ID = -1
 
@@ -115,6 +118,7 @@ def sharded_histogram(
     host copy is the synchronisation point).
     """
     shards = np.array_split(np.asarray(ids), mesh.shape[axis])
+    fault_point("collective.psum", op="histogram.device_ids")
     home = mesh.devices[0]
     total = None
     for device, shard in zip(mesh.devices, shards):
@@ -164,6 +168,7 @@ def sharded_histogram_hostlocal_timed(
             local[i] = np.bincount(valid, minlength=vocab_size)
         count_seconds.append(time.perf_counter() - t0)
     t0 = time.perf_counter()
+    fault_point("collective.psum", op="histogram.hostlocal_merge")
     home = mesh.devices[0]
     rows = [torch.from_numpy(local[i]).to(d) for i, d in enumerate(mesh.devices)]
     merged = torch.stack([r.to(home) for r in rows]).sum(0, dtype=torch.int32)
@@ -258,6 +263,7 @@ def sharded_histogram_streaming(
         tel.count("histogram.stream_h2d_bytes", 0)
         for start, end in spans:
             _accumulate(hist, _host_tensor(ids[start:end]))
+        fault_point("collective.psum", op="histogram.stream_merge")
         return hist[:vocab_size].numpy().copy()
     # The bytes that cross: each chunk's int32 ids, unpadded.
     tel.count("histogram.stream_h2d_bytes", 4 * (bounds[-1] - bounds[0]))
@@ -289,6 +295,7 @@ def sharded_histogram_streaming(
         consumed[slot].record(compute)
     for buf in staged:
         buf.record_stream(copier)
+    fault_point("collective.psum", op="histogram.stream_merge")
     return hist[:vocab_size].cpu().numpy()   # the synchronisation point
 
 
@@ -297,6 +304,7 @@ def sharded_total(values: np.ndarray, mesh: DeviceMesh, axis: str = "dp") -> int
     analogue of the reference's ``MPI_Reduce(SUM)``,
     ``src/parallel_spotify.c:1004-1005``)."""
     values = np.asarray(values, dtype=np.int64)
+    fault_point("collective.psum", op="histogram.scalar_total")
     home = mesh.devices[0]
     total = torch.zeros((), dtype=torch.int64, device=home)
     for device, shard in zip(mesh.devices,

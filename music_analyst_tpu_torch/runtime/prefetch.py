@@ -1,8 +1,7 @@
 """Bounded-depth staged pipeline executor (host↔device overlap).
 
 Copy of ``music_analyst_tpu/runtime/prefetch.py`` (the port keeps its
-own; the watchdog scopes, fault injection and stage retries stay out).  A
-source iterator feeds a chain of stages, each in its own thread, joined by
+own).  A source iterator feeds a chain of stages, each in its own thread, joined by
 bounded queues; the consumer iterates results **in submission order**
 while up to ``depth`` items per hop are in flight ahead of it.  ``depth``
 is the backpressure knob: a fast producer blocks instead of buffering the
@@ -12,6 +11,9 @@ Failure contract: an exception in any stage (or in the source) is carried
 down the chain and re-raised in the consumer promptly; closing the
 consumer generator early cancels the pipeline, drains the queues and joins
 every thread.  ``depth=0`` runs the same stages inline (no threads).
+Each stage body runs inside a watchdog scope (kind ``stage``) and a retry
+policy whose first statement is the ``prefetch.stage`` fault seam, on the
+threaded and the inline path alike.
 
 Accounting, as in JAX: each stage tracks items, work seconds, **stall**
 seconds (waiting for input — the upstream stage is the bottleneck),
@@ -34,7 +36,16 @@ from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, Iterable, Iterator, List, Sequence
 
+from music_analyst_tpu_torch.observability import watchdog
+from music_analyst_tpu_torch.resilience.faults import fault_point
+from music_analyst_tpu_torch.resilience.policy import RetryPolicy
 from music_analyst_tpu_torch.telemetry import get_telemetry
+
+# Stage bodies are retried on transiently-classified failures (device
+# loss, injected prefetch.stage faults) before poisoning the pipeline;
+# logic errors still fail on the first throw.  Shared by the threaded and
+# inline (depth=0) paths — both go through _timed_fn.
+_STAGE_RETRY = RetryPolicy(base_s=0.05, cap_s=1.0)
 
 DEFAULT_PREFETCH_DEPTH = 2
 
@@ -213,15 +224,26 @@ class PrefetchPipeline:
             if not self._put(q_out, item, stats):
                 return
 
-    @staticmethod
-    def _timed_fn(stage: Stage, item: Any):
-        """Run one stage fn; returns ``(duration_s, result | _Failure)``."""
+    def _timed_fn(self, stage: Stage, item: Any):
+        """Run one stage fn; returns ``(duration_s, result | _Failure)``.
+
+        The watchdog scope around the call is what turns "the run went
+        silent" into ``taxonomy: stage_stall`` naming the exact stage —
+        a no-op unless a watchdog is active.
+        """
         t0 = time.perf_counter()
         try:
-            result = stage.fn(item)
+            with watchdog.watch(f"{self.name}.{stage.name}", kind="stage"):
+                result = _STAGE_RETRY.call(
+                    self._stage_once, stage, item, site="prefetch.stage"
+                )
         except BaseException as exc:  # forwarded, re-raised in consumer
             return time.perf_counter() - t0, _Failure(exc)
         return time.perf_counter() - t0, result
+
+    def _stage_once(self, stage: Stage, item: Any) -> Any:
+        fault_point("prefetch.stage", stage=stage.name, pipeline=self.name)
+        return stage.fn(item)
 
     def _account(self, stage: Stage, stats: StageStats, dur: float) -> None:
         stats.work_s += dur

@@ -184,24 +184,34 @@ def test_weight_quant_order_of_checks_matches_jax():
             get_backend(model, mock=mock, weight_quant="int8", device="cpu")
 
 
-# JAX flags at their no-op values run; any other value is a usage error.
+# JAX flags at their no-op values run, and so do the watchdog and a
+# transient fault (retried by the prefetch stage); unported and malformed
+# values are usage errors.
 _NO_OP_FLAGS = [
     ["--weight-quant", "none"], ["--no-telemetry"], ["--devices", "1"],
     ["--watchdog-timeout", "0"], ["--watchdog-timeout", "0.0"],
+    ["--watchdog-timeout", "5"], ["--inject-faults", "h2d.transfer:error@1"],
 ]
 _UNPORTED_FLAGS = [
     (["--weight-quant", "int8"], "on-device model family"),
     (["--devices", "2"], "not yet ported"),
-    (["--watchdog-timeout", "5"], "not yet ported"),
+    (["--watchdog-timeout", "-5"], "finite and >= 0"),
     (["--watchdog-timeout", "soon"], "number of seconds"),
-    (["--inject-faults", "ingest.read:error@1"], "not yet ported"),
+    (["--inject-faults", "ingest.read:explode"], "mode must be"),
 ]
 
 
 @pytest.mark.parametrize("flags", _NO_OP_FLAGS, ids=" ".join)
 def test_sentiment_cli_accepts_no_op_flags(fixture_csv, tmp_path, flags):
-    assert port_main(["sentiment", str(fixture_csv), "--mock", "--device",
-                      "cpu", "--output-dir", str(tmp_path), *flags]) == 0
+    from music_analyst_tpu_torch.observability.watchdog import stop_watchdog
+    from music_analyst_tpu_torch.resilience.faults import configure_faults
+
+    try:
+        assert port_main(["sentiment", str(fixture_csv), "--mock", "--device",
+                          "cpu", "--output-dir", str(tmp_path), *flags]) == 0
+    finally:
+        configure_faults(None)
+        stop_watchdog()
     assert json.loads(_totals(tmp_path)) == {
         "Positive": 3, "Neutral": 4, "Negative": 1,
     }

@@ -150,7 +150,7 @@ def test_analyze_without_device_raises_without_a_card(monkeypatch,
 
 @pytest.mark.parametrize("flags,message", [
     (["--devices", "2"], "not yet ported"),
-    (["--watchdog-timeout", "3"], "not yet ported"),
+    (["--watchdog-timeout", "nan"], "finite and >= 0"),
     (["--trace-dir", "t", "--profile-dir", "p"], "give one of them"),
 ])
 def test_analyze_refuses_unported_flag_values(fixture_csv, tmp_path, capsys,
