@@ -201,6 +201,29 @@
    each run's first 8,192-song batch times its tokenizer, and each run's
    songs/s is reported.
 
+12. Drives the multi-process paths, after step 11, with every rank a
+   process on the one card over gloo (NCCL refuses two ranks on one
+   device), the kernels built before the first rank starts; a rank that
+   fails or overstays kills its peers and fails the run.  (a)
+   ``distributed_wordcount`` (``parallel/distributed.py``) on step 6's
+   57,650-song CSV at np 1, 2 and 4: the coordinator's CSVs byte-identical
+   to the single-process ``analyze`` output and the ``np.bincount``
+   oracle, every rank's totals equal, one ``per_chip`` row per process;
+   at np 2 a variant whose last rank starts one record late must break
+   the bytes; wall, songs/s, compute min/avg/max, the all-reduce seconds
+   and ``collectives.total_bytes`` per np.  (b) ``ring_attention``
+   (``ops/ring_attention.py``) over 4 ranks at Llama-3-8B's attention
+   width (H = 32, Hkv = 8, D = 128, bf16, B = 1, S = 32,768, 8,192 a
+   rank, ``use_flash``), causal and causal + five packed documents (two
+   crossing a rank boundary): kernel 2 four times a rank a call, each
+   rank's output within the bf16 limits of the whole-sequence flash
+   kernel run here and within check_flash's limits of the f32 plain
+   version on 256 sampled query rows, the ranks' gathered outputs equal;
+   a ring that takes owner = idx + step must fail.  Ms per call (the
+   slowest rank), kernel device ms per hop, transfer ms per hop and the
+   output gather timed alone, bytes per hop; kernel 2 at one full hop
+   (residual mode) beside its bound, its plain version and SDPA.
+
 Prints the card's name and power limit, a ``{"quant_gemm": [...]}`` line,
 a ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
 {...}}``.  Exits non-zero, printing no
@@ -344,10 +367,10 @@ def profiled_ms(torch, fn, iters: int, flush: bool = False) -> float:
     return total / iters
 
 
-def flash_errors(got, ref):
+def flash_errors(got, ref, rel=FLASH_BF16_REL):
     """Max abs error, and max error in units of the elementwise bound."""
     diff = (got.float() - ref).abs()
-    scaled = diff / (FLASH_BF16_REL * ref.abs() + FLASH_F32_SLACK)
+    scaled = diff / (rel * ref.abs() + FLASH_F32_SLACK)
     return float(diff.max()), float(scaled.max())
 
 
@@ -4395,6 +4418,432 @@ def wordpiece_path(torch, dev, card, dataset, checkpoint) -> dict:
     return out
 
 
+# --- step 12: multi-process runs on the one card ---------------------------
+
+DIST_NPS = (1, 2, 4)           # the reference's run_performance.sh sweep
+RING_RANKS = 4
+RING_SEQ = 32_768              # 8,192 positions a rank
+RING_HEADS, RING_KV_HEADS, RING_HEAD_DIM = 32, 8, 128   # Llama-3-8B attention
+# Five packed documents of uneven length; the second and the fourth cross
+# a rank boundary (8,192 and 24,576), the third ends on one.
+RING_DOC_BOUNDS = (0, 6_000, 13_000, 16_384, 29_000, RING_SEQ)
+RING_REPEATS = 3               # timed ring calls per case; the median is kept
+RING_WINDOW = 64               # rows per window held against the f32 plain version
+RING_WINDOWS = 4               # windows per rank: 256 sampled query rows
+RANKS_TIMEOUT_S = 300
+#  - ring output (bf16) against the whole-sequence flash kernel (bf16): each
+#    is one rounding to bf16 of an f32 result that differs from the other
+#    only in the order of its f32 sums, so the two may differ by a whole
+#    bf16 ulp: the elementwise limit is twice check_flash's, 2 x 2^-8 |ref|
+#    + 1e-5, beside check_flash's absolute limit FLASH_BF16_TOL.  Against the
+#    f32 plain version the ring output is held to check_flash's limits.
+RING_VS_FLASH_REL = 2 * FLASH_BF16_REL
+
+_WORDCOUNT_CHILD = r'''
+import json, os, sys, time
+sys.path.insert(0, os.getcwd())
+rank, n, port = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
+dataset, out, broken_out = sys.argv[4], sys.argv[5], sys.argv[6]
+import torch
+from music_analyst_tpu_torch.parallel import distributed, multihost
+from music_analyst_tpu_torch.telemetry import get_telemetry
+multihost.initialize(f"localhost:{port}", n, rank, backend="gloo", timeout_s=300)
+torch.zeros(1, device=f"cuda:{rank % torch.cuda.device_count()}")  # context first
+multihost.barrier("start")
+t0 = time.perf_counter()
+result = distributed.distributed_wordcount(dataset, out, device="cuda")
+wall = time.perf_counter() - t0
+tel = get_telemetry()
+report = dict(rank=rank, backend=multihost.backend(),
+              device=f"cuda:{rank % torch.cuda.device_count()}", result=result,
+              wall_s=wall, spans_s={k: v[1] for k, v in tel.span_aggregates.items()
+                                    if k.startswith("distributed.")},
+              collective_bytes=tel.counters.get("collectives.total_bytes", 0))
+if broken_out != "-":
+    # Broken variant: the last rank's slice starts one record late.
+    from music_analyst_tpu_torch.data.csv_io import iter_csv_records_exact
+    original = distributed._my_record_range
+    def shifted(path):
+        blob, count = original(path)
+        if rank == n - 1:
+            records = list(iter_csv_records_exact(blob))
+            blob, count = records[0] + b"".join(records[2:]), count - 1
+        return blob, count
+    distributed._my_record_range = shifted
+    distributed.distributed_wordcount(dataset, broken_out, device="cuda")
+print("RESULT " + json.dumps(report), flush=True)
+multihost.shutdown()
+'''
+
+_RING_CHILD = r'''
+import hashlib, json, os, statistics, sys, time
+sys.path.insert(0, os.getcwd())
+rank, n, port, work = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4]
+import torch
+import chip_smoke as cs
+from music_analyst_tpu_torch import kernels
+from music_analyst_tpu_torch.ops import ring_attention as ra
+from music_analyst_tpu_torch.parallel import multihost
+multihost.initialize(f"localhost:{port}", n, rank, backend="gloo", timeout_s=300)
+dev = torch.device("cuda", rank % torch.cuda.device_count())
+torch.cuda.set_device(dev)
+q, k, v, seg = cs.ring_inputs(torch, dev)
+S_loc = q.shape[1] // n
+mine = slice(rank * S_loc, (rank + 1) * S_loc)
+segments = {"causal": None, "packed": seg}
+report = dict(rank=rank, backend=multihost.backend(), device=str(dev), cases={})
+
+def call(case):
+    return ra.ring_attention(q, k, v, causal=True, use_flash=True,
+                             segment_ids=segments[case])
+
+def save(out, name):
+    torch.save(out[:, mine].cpu(), os.path.join(work, f"{name}_rank{rank}.pt"))
+
+with torch.no_grad():
+    call("causal")                       # warm-up: the kernel's library loads
+    for case in segments:
+        times, launches = [], []
+        for _ in range(cs.RING_REPEATS):
+            multihost.barrier("call")
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            out = call(case)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            launches.append(kernels.launches()["flash_attention"])
+        if not torch.isfinite(out.float()).all():
+            raise SystemExit(f"rank {rank}: non-finite ring output ({case})")
+        save(out, case)
+        digest = hashlib.sha256(out.view(torch.uint8).cpu().numpy().tobytes())
+        # The hop's transfer alone: the same bytes through one rotate and
+        # the copy onto the card, every rank at once.
+        blocks = [k[:, mine], v[:, mine]] + ([seg[:, mine]] if case == "packed" else [])
+        nbytes = sum(t.numel() * t.element_size() for t in blocks)
+        cur = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+        nxt = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+        transfer = []
+        for _ in range(cs.RING_REPEATS):
+            multihost.barrier("rotate")
+            t0 = time.perf_counter()
+            for req in ra.rotate(cur, nxt):
+                req.wait()
+            nxt.to(dev)
+            torch.cuda.synchronize()
+            transfer.append((time.perf_counter() - t0) * 1e3)
+        # The output's all-gather alone, as ring_attention stages it: this
+        # rank's shard to the host, the gather, the whole output onto the card.
+        shard = out[:, mine].contiguous().view(torch.uint8)
+        gather = []
+        for _ in range(cs.RING_REPEATS):
+            multihost.barrier("gather")
+            t0 = time.perf_counter()
+            rows = shard.cpu()
+            parts = [torch.empty_like(rows) for _ in range(n)]
+            torch.distributed.all_gather(parts, rows)
+            torch.cat(parts, dim=1).to(dev)
+            torch.cuda.synchronize()
+            gather.append((time.perf_counter() - t0) * 1e3)
+        report["cases"][case] = dict(
+            call_ms=statistics.median(times), call_ms_all=times,
+            launches=launches, sha256=digest.hexdigest(), hop_bytes=nbytes,
+            transfer_ms_per_hop=statistics.median(transfer),
+            gather_ms=statistics.median(gather))
+    # Kernel device time per hop inside the ring (the card is shared).
+    from torch.profiler import ProfilerActivity, profile
+    multihost.barrier("profile")
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        call("causal")
+        torch.cuda.synchronize()
+    flash = sum(ms for name, ms in cs.device_kernel_ms(prof).items()
+                if "flash" in name)
+    report["kernel_ms_per_hop"] = flash / n if flash else None
+    # Broken ring: after `step` rotations it takes owner = idx + step.
+    original = ra.flash_attention
+    def wrong_owner(*args, q_offset, kv_offset, **kw):
+        idx, owner = q_offset // S_loc, kv_offset // S_loc
+        return original(*args, q_offset=q_offset,
+                        kv_offset=((2 * idx - owner) % n) * S_loc, **kw)
+    ra.flash_attention = wrong_owner
+    save(call("causal"), "broken")
+    ra.flash_attention = original
+print("RESULT " + json.dumps(report), flush=True)
+multihost.shutdown()
+'''
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def run_ranks(script: str, n: int, args, tag: str) -> list:
+    """``n`` processes of ``script`` (written to ``WORK/<tag>.py``) as ranks
+    of one gloo group on a free port; returns each rank's ``RESULT`` JSON.
+    The moment one rank fails, or the deadline passes, every rank still
+    running is killed and the run fails."""
+    path = os.path.join(WORK, f"{tag}.py")
+    with open(path, "w") as fh:
+        fh.write(script)
+    port = str(_free_port())
+    logs, procs = [], []
+    try:
+        for rank in range(n):
+            logs.append(open(os.path.join(WORK, f"{tag}_rank{rank}.log"), "w+"))
+            procs.append(subprocess.Popen(
+                [sys.executable, path, str(rank), str(n), port, *args],
+                cwd=ROOT, stdout=logs[-1], stderr=subprocess.STDOUT, text=True))
+        deadline = time.perf_counter() + RANKS_TIMEOUT_S
+        while any(p.poll() is None for p in procs):
+            if (any(p.poll() not in (None, 0) for p in procs)
+                    or time.perf_counter() > deadline):
+                break
+            time.sleep(0.05)
+        for rank, p in enumerate(procs):
+            if p.poll() != 0:
+                logs[rank].seek(0)
+                fail(f"{tag}: rank {rank} of {n} exited {p.poll()} "
+                     f"(None: killed at the deadline):\n"
+                     f"{logs[rank].read()[-3000:]}")
+        results = []
+        for log_fh in logs:
+            log_fh.seek(0)
+            lines = [ln for ln in log_fh.read().splitlines()
+                     if ln.startswith("RESULT ")]
+            if len(lines) != 1:
+                fail(f"{tag}: a rank printed {len(lines)} RESULT lines")
+            results.append(json.loads(lines[0][len("RESULT "):]))
+        return results
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        for log_fh in logs:
+            log_fh.close()
+
+
+def distributed_wordcount_path(card, analyze, oracle) -> dict:
+    """The distributed word count at np 1, 2 and 4 on the one card over
+    gloo, on step 6's 57,650-song CSV: CSVs byte-identical to the
+    single-process ``analyze`` output and the ``np.bincount`` oracle,
+    every rank's totals equal, one ``per_chip`` row per process; at np 2,
+    a variant whose last rank starts one record late must break the
+    bytes."""
+    dataset = analyze["dataset"]
+    single = read_outputs(os.path.join(WORK, "analyze_auto_streaming"))
+    if single != oracle:
+        fail("distributed: the single-process analyze output differs from "
+             "the oracle")
+    report = {}
+    for n in DIST_NPS:
+        out = os.path.join(WORK, f"distributed_np{n}")
+        broken = os.path.join(WORK, f"distributed_np{n}_broken")
+        for d in (out, broken):
+            shutil.rmtree(d, ignore_errors=True)
+        t0 = time.perf_counter()
+        ranks = run_ranks(_WORDCOUNT_CHILD, n,
+                          [dataset, out, broken if n == 2 else "-"],
+                          f"wordcount_np{n}")
+        launch_s = time.perf_counter() - t0
+        if read_outputs(out) != oracle:
+            fail(f"distributed np {n}: CSVs differ from the single-process "
+                 "analyze output and the oracle")
+        want = dict(processes=n, total_songs=analyze["songs"],
+                    total_words=analyze["tokens"])
+        if any(r["result"] != want for r in ranks):
+            fail(f"distributed np {n}: rank totals {[r['result'] for r in ranks]}"
+                 f" != {want}")
+        with open(os.path.join(out, "performance_metrics.json")) as fh:
+            metrics = json.load(fh)
+        if (metrics["processes"] != n or metrics["device_platform"]
+                != "multi-controller"
+                or [c["process"] for c in metrics["per_chip"]] != list(range(n))):
+            fail(f"distributed np {n}: metrics say {json.dumps(metrics)}")
+        if n == 2 and read_outputs(broken) == oracle:
+            fail("distributed: a rank starting one record late still writes "
+                 "the oracle's bytes")
+        wall = max(r["wall_s"] for r in ranks)
+        report[f"np{n}"] = dict(
+            backend=sorted({r["backend"] for r in ranks}),
+            devices=sorted({r["device"] for r in ranks}),
+            wall_s=wall, songs_per_s=analyze["songs"] / wall,
+            compute_s=metrics["compute_time"], launch_s=launch_s,
+            all_reduce_s=max(r["spans_s"].get("distributed.all_reduce", 0.0)
+                             for r in ranks),
+            spans_s=[r["spans_s"] for r in ranks],
+            collective_bytes_per_rank=ranks[0]["collective_bytes"])
+        log(f"distributed word count np {n} on {card} "
+            f"({report[f'np{n}']['backend']}, {report[f'np{n}']['devices']}): "
+            f"{json.dumps(report[f'np{n}'])}")
+    report["broken_variant"] = ("np 2, last rank one record late: CSVs "
+                                "differ from the oracle (check failed)")
+    return report
+
+
+def ring_inputs(torch, dev):
+    """q [1, S, 32, 128], k/v [1, S, 8, 128] bf16 from a seeded generator on
+    the card (every process draws the same numbers), and the packed case's
+    segment ids [1, S] int32."""
+    gen = torch.Generator(device=dev).manual_seed(29)
+    shape = (1, RING_SEQ)
+    q = torch.randn(*shape, RING_HEADS, RING_HEAD_DIM, generator=gen,
+                    device=dev, dtype=torch.bfloat16)
+    k, v = (torch.randn(*shape, RING_KV_HEADS, RING_HEAD_DIM, generator=gen,
+                        device=dev, dtype=torch.bfloat16) for _ in range(2))
+    seg = torch.empty(shape, dtype=torch.int32, device=dev)
+    for doc, (lo, hi) in enumerate(zip(RING_DOC_BOUNDS, RING_DOC_BOUNDS[1:])):
+        seg[:, lo:hi] = doc + 1
+    return q, k, v, seg
+
+
+def ring_hop_timing(torch, q, k, v) -> dict:
+    """Kernel 2 at one full ring hop: q [1, 8192, 32, 128] against the
+    8,192 keys before it (causal with offsets, so no pair is masked),
+    residual mode; beside the plain version, SDPA without residuals and
+    the bound, on the card alone."""
+    import torch.nn.functional as F
+
+    from music_analyst_tpu_torch.ops.flash_attention import (
+        flash_attention,
+        flash_attention_reference,
+    )
+
+    S_loc = RING_SEQ // RING_RANKS
+    qh = q[:, S_loc:2 * S_loc].contiguous()
+    kh, vh = k[:, :S_loc].contiguous(), v[:, :S_loc].contiguous()
+    kw = dict(causal=True, q_offset=S_loc, kv_offset=0, return_residuals=True)
+    with torch.no_grad():
+        ms = time_ms(torch, lambda: flash_attention(qh, kh, vh, **kw), 20)
+        plain_ms = time_ms(torch, lambda: flash_attention_reference(
+            qh, kh, vh, **kw), 1)
+        torch.cuda.empty_cache()
+        qt, kt, vt = (t.transpose(1, 2) for t in (qh, kh, vh))
+        library_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, enable_gqa=True), 20)
+    H, D = RING_HEADS, RING_HEAD_DIM
+    # q, k, v read once; o (f32), m and l written once.
+    bytes_moved = (S_loc * H * D * 2 + 2 * S_loc * RING_KV_HEADS * D * 2
+                   + S_loc * H * D * 4 + 2 * S_loc * H * 4)
+    flops = 4.0 * H * D * S_loc * S_loc
+    b_ms, b_by = bound(bytes_moved, flops, PEAK_BF16_FLOPS)
+    return dict(shape=f"q bf16 [1,{S_loc},{H},{D}] vs {S_loc} keys "
+                      f"[1,{S_loc},{RING_KV_HEADS},{D}], residual mode",
+                ms=ms, plain_ms=plain_ms,
+                library_ms=library_ms, bound_ms=b_ms, bound_by=b_by,
+                bytes=bytes_moved, flops=flops)
+
+
+def ring_path(torch, dev, card) -> dict:
+    """Ring attention over 4 ranks on the one card (gloo, host-staged hops)
+    at Llama-3-8B's attention width, S = 32,768, causal and causal +
+    packed: each rank's output against the whole-sequence flash kernel
+    (bf16) and the f32 plain version on 256 sampled query rows, 4 kernel-2
+    launches a rank a call, a ring with the wrong owner must fail; then
+    the hop's kernel time beside its bound and SDPA."""
+    from music_analyst_tpu_torch.ops.flash_attention import (
+        flash_attention,
+        flash_attention_reference,
+    )
+    from music_analyst_tpu_torch.profiling.collectives import ppermute_bytes
+
+    q, k, v, seg = ring_inputs(torch, dev)
+    S_loc = RING_SEQ // RING_RANKS
+    with torch.no_grad():
+        whole = {"causal": flash_attention(q, k, v, causal=True),
+                 "packed": flash_attention(q, k, v, causal=True,
+                                           q_segment_ids=seg)}
+        whole_ms = time_ms(torch, lambda: flash_attention(q, k, v, causal=True),
+                           5)
+    torch.cuda.synchronize()
+    ranks = run_ranks(_RING_CHILD, RING_RANKS, [WORK], "ring")
+    kf, vf = k.float(), v.float()
+    gen = torch.Generator().manual_seed(31)
+    errors = {}
+    with torch.no_grad():
+        for case, segments in (("causal", None), ("packed", seg)):
+            digests = {r["cases"][case]["sha256"] for r in ranks}
+            if len(digests) != 1:
+                fail(f"ring {case}: the ranks gathered different outputs")
+            for r in ranks:
+                launches = r["cases"][case]["launches"]
+                if launches != [RING_RANKS] * RING_REPEATS:
+                    fail(f"ring {case}: rank {r['rank']} launched kernel 2 "
+                         f"{launches} times a call, not {RING_RANKS}")
+            errs = []
+            for rank in range(RING_RANKS):
+                got = torch.load(os.path.join(WORK, f"{case}_rank{rank}.pt")).to(dev)
+                lo = rank * S_loc
+                abs_err, scaled = flash_errors(
+                    got, whole[case][:, lo:lo + S_loc].float(), RING_VS_FLASH_REL)
+                if abs_err > FLASH_BF16_TOL or scaled > 1.0:
+                    fail(f"ring {case} rank {rank}: vs whole-sequence flash: "
+                         f"max abs err {abs_err}, {scaled} x the bf16 bound")
+                starts = [0, S_loc - RING_WINDOW] + torch.randint(
+                    1, S_loc - RING_WINDOW, (RING_WINDOWS - 2,),
+                    generator=gen).tolist()
+                plain = []
+                for s in starts:
+                    rows = slice(lo + s, lo + s + RING_WINDOW)
+                    seg_kw = ({} if segments is None else dict(
+                        q_segment_ids=segments[:, rows], kv_segment_ids=segments))
+                    ref = flash_attention_reference(
+                        q[:, rows].float(), kf, vf, causal=True,
+                        q_offset=lo + s, **seg_kw)
+                    plain.append(check_flash_output(
+                        torch, f"ring {case} rank {rank} rows {lo + s}",
+                        got[:, s:s + RING_WINDOW], ref))
+                errs.append(dict(vs_flash=abs_err, vs_flash_scaled=scaled,
+                                 vs_plain=max(plain)))
+            errors[case] = errs
+        failed = []
+        for rank in range(RING_RANKS):
+            got = torch.load(os.path.join(WORK, f"broken_rank{rank}.pt")).to(dev)
+            lo = rank * S_loc
+            abs_err, scaled = flash_errors(
+                got, whole["causal"][:, lo:lo + S_loc].float(), RING_VS_FLASH_REL)
+            failed.append(abs_err > FLASH_BF16_TOL or scaled > 1.0)
+        if not any(failed):
+            fail("ring: a ring that takes owner = idx + step passes the limits")
+    del whole, kf, vf
+    torch.cuda.empty_cache()
+    hop = ring_hop_timing(torch, q, k, v)
+    hop["max_abs_err"] = max(e["vs_plain"] for errs in errors.values()
+                             for e in errs)
+    del q, k, v, seg
+    torch.cuda.empty_cache()
+    kv_bytes = 2 * S_loc * RING_KV_HEADS * RING_HEAD_DIM * 2
+    report = dict(
+        shape=f"B=1, S={RING_SEQ} over {RING_RANKS} ranks, H={RING_HEADS}, "
+              f"Hkv={RING_KV_HEADS}, D={RING_HEAD_DIM}, bf16, use_flash",
+        backend=sorted({r["backend"] for r in ranks}),
+        devices=sorted({r["device"] for r in ranks}),
+        errors=errors, broken_ranks_failing=failed,
+        whole_sequence_flash_ms=whole_ms, hop=hop,
+        kernel_ms_per_hop=[r["kernel_ms_per_hop"] for r in ranks],
+        launches_per_rank=[r["cases"]["causal"]["launches"][0] for r in ranks],
+        cases={case: dict(
+            ms_per_call=max(r["cases"][case]["call_ms"] for r in ranks),
+            ms_per_call_by_rank=[r["cases"][case]["call_ms"] for r in ranks],
+            transfer_ms_per_hop=max(r["cases"][case]["transfer_ms_per_hop"]
+                                    for r in ranks),
+            output_gather_ms=max(r["cases"][case]["gather_ms"] for r in ranks),
+            bytes_per_hop=ppermute_bytes(
+                kv_bytes + (S_loc * 4 if case == "packed" else 0)),
+            measured_hop_bytes=ranks[0]["cases"][case]["hop_bytes"])
+            for case in ("causal", "packed")})
+    for case, row in report["cases"].items():
+        if row["bytes_per_hop"] != row["measured_hop_bytes"]:
+            fail(f"ring {case}: {row['measured_hop_bytes']} bytes a hop, "
+                 f"accounted {row['bytes_per_hop']}")
+    log(f"ring attention on {card}: {json.dumps(report)}")
+    return report
+
+
 def main() -> int:
     try:
         import torch
@@ -4516,6 +4965,14 @@ def main() -> int:
         report["router_distilbert"]["checkpoint"]["path"])
     report["slice11_s"] = time.perf_counter() - t0
     log(f"fault drills and WordPiece phases: {report['slice11_s']:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    report["distributed"] = distributed_wordcount_path(
+        card, report["analyze"], oracle)
+    report["ring"] = ring_path(torch, dev, card)
+    report["slice12_s"] = time.perf_counter() - t0
+    log(f"distributed word count and ring attention phases: "
+        f"{report['slice12_s']:.1f} s")
     report["host_python_ms"]["end"] = python_ms()
     log(f"host probe (ms of a fixed Python loop): "
         f"{json.dumps(report['host_python_ms'])}")
@@ -4524,7 +4981,8 @@ def main() -> int:
     timing = report["timing"]
     errs = dict(report["flash_max_abs_err"],
                 distilbert_main_shape=timing["flash_attention"]["max_abs_err"],
-                llama_shapes=report["flash_llama"]["max_abs_err"])
+                llama_shapes=report["flash_llama"]["max_abs_err"],
+                ring=report["ring"]["hop"]["max_abs_err"])
     kernels_line = {"kernels": [
         dict(name="flash_attention", route="cuda",
              source="music_analyst_tpu_torch/csrc/flash_attention.cu",
@@ -4546,6 +5004,10 @@ def main() -> int:
              llama_shape={key: report["flash_llama"][key] for key in
                           ("shape", "ms", "plain_ms", "bound_ms", "bound_by",
                            "library_ms", "max_abs_err")},
+             ring_launches_per_rank=report["ring"]["launches_per_rank"],
+             ring_hop_shape={key: report["ring"]["hop"][key] for key in
+                             ("shape", "ms", "plain_ms", "bound_ms",
+                              "bound_by", "library_ms", "max_abs_err")},
              **{f"{name}_launches": report["distilbert_quant"][name][
                  "launches"]["flash_attention"]
                 for name in ("int8_dynamic", "wq_int8", "wq_int4")},
@@ -4600,7 +5062,12 @@ def main() -> int:
         f"({report['train']['tokens_per_s']:.0f} tokens/s); WordPiece "
         f"native {report['wordpiece']['batch']['native_songs_per_s']:.0f} "
         f"vs Python {report['wordpiece']['batch']['python_songs_per_s']:.0f} "
-        f"songs/s; "
+        f"songs/s; distributed word count "
+        + ", ".join(f"{key} {row['songs_per_s']:.1f}"
+                    for key, row in report["distributed"].items()
+                    if key.startswith("np"))
+        + f" songs/s; ring S={RING_SEQ} causal "
+        f"{report['ring']['cases']['causal']['ms_per_call']:.1f} ms a call; "
         f"total {report['seconds']:.1f} s")
     print(json.dumps({"quant_gemm": report["quant_gemm"]}))
     print(json.dumps(kernels_line))

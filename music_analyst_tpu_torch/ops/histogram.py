@@ -31,7 +31,9 @@ is XLA's), so the port computes it with torch operations on the card:
   the host-shard path still merges its per-shard rows on the card, so its
   measured ``merge_seconds`` keeps its meaning.  Each merge point keeps
   JAX's ``collective.psum`` fault seam, so a one-card run trips it as
-  often as JAX's one-device mesh does.
+  often as JAX's one-device mesh does, and records the merge's bytes
+  (``profiling/collectives.py``) at JAX's four call sites.  Payloads are
+  the port's unpadded ``vocab_size`` int32 bins, not JAX's buckets.
 
 Counts are exact int32 (integer atomics do not depend on their order).
 """
@@ -47,6 +49,7 @@ import numpy as np
 import torch
 
 from music_analyst_tpu_torch.parallel.mesh import DeviceMesh
+from music_analyst_tpu_torch.profiling.collectives import record_collective
 from music_analyst_tpu_torch.resilience.faults import fault_point
 
 PAD_ID = -1
@@ -118,6 +121,11 @@ def sharded_histogram(
     host copy is the synchronisation point).
     """
     shards = np.array_split(np.asarray(ids), mesh.shape[axis])
+    # Each device's vocab_size-wide int32 histogram joins the merge.
+    record_collective(
+        "histogram.device_ids", "psum",
+        payload_bytes=vocab_size * 4, n_devices=mesh.shape[axis], axis=axis,
+    )
     fault_point("collective.psum", op="histogram.device_ids")
     home = mesh.devices[0]
     total = None
@@ -167,6 +175,10 @@ def sharded_histogram_hostlocal_timed(
         if valid.size:
             local[i] = np.bincount(valid, minlength=vocab_size)
         count_seconds.append(time.perf_counter() - t0)
+    record_collective(
+        "histogram.hostlocal_merge", "psum",
+        payload_bytes=vocab_size * 4, n_devices=shards, axis=axis,
+    )
     t0 = time.perf_counter()
     fault_point("collective.psum", op="histogram.hostlocal_merge")
     home = mesh.devices[0]
@@ -221,6 +233,13 @@ def chunk_token_bounds(offsets: np.ndarray, chunk_songs: int) -> List[int]:
     return [int(offsets[b]) for b in bounds]
 
 
+def _record_stream_merge(vocab_size: int, mesh: DeviceMesh, axis: str) -> None:
+    record_collective(
+        "histogram.stream_merge", "psum",
+        payload_bytes=vocab_size * 4, n_devices=mesh.shape[axis], axis=axis,
+    )
+
+
 def sharded_histogram_streaming(
     ids: np.ndarray,
     offsets: np.ndarray,
@@ -263,6 +282,7 @@ def sharded_histogram_streaming(
         tel.count("histogram.stream_h2d_bytes", 0)
         for start, end in spans:
             _accumulate(hist, _host_tensor(ids[start:end]))
+        _record_stream_merge(vocab_size, mesh, axis)
         fault_point("collective.psum", op="histogram.stream_merge")
         return hist[:vocab_size].numpy().copy()
     # The bytes that cross: each chunk's int32 ids, unpadded.
@@ -295,6 +315,7 @@ def sharded_histogram_streaming(
         consumed[slot].record(compute)
     for buf in staged:
         buf.record_stream(copier)
+    _record_stream_merge(vocab_size, mesh, axis)
     fault_point("collective.psum", op="histogram.stream_merge")
     return hist[:vocab_size].cpu().numpy()   # the synchronisation point
 
@@ -304,6 +325,10 @@ def sharded_total(values: np.ndarray, mesh: DeviceMesh, axis: str = "dp") -> int
     analogue of the reference's ``MPI_Reduce(SUM)``,
     ``src/parallel_spotify.c:1004-1005``)."""
     values = np.asarray(values, dtype=np.int64)
+    record_collective(
+        "histogram.scalar_total", "psum",
+        payload_bytes=8, n_devices=mesh.shape[axis], axis=axis,
+    )
     fault_point("collective.psum", op="histogram.scalar_total")
     home = mesh.devices[0]
     total = torch.zeros((), dtype=torch.int64, device=home)

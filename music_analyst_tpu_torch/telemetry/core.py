@@ -42,6 +42,8 @@ import time
 from contextlib import contextmanager
 from typing import Any, Dict, Iterator, List, Optional, Tuple
 
+from music_analyst_tpu_torch.profiling.collectives import emit_stage_table
+
 # Latency-shaped default buckets (seconds): spans from sub-ms device
 # dispatches up to the Ollama client's 120 s HTTP timeout.
 DEFAULT_BUCKETS: Tuple[float, ...] = (
@@ -478,17 +480,10 @@ class Telemetry:
         finally:
             if owner:
                 wall = time.monotonic() - (self._run_started_mono or 0.0)
-                # Per-stage collective table: guarded, since the port's
-                # profiling/collectives.py is not written yet (multi-card
-                # work); until it is, the import fails and this is a no-op.
-                try:
-                    from music_analyst_tpu_torch.profiling.collectives import (
-                        emit_stage_table,
-                    )
-
-                    emit_stage_table()
-                except Exception:
-                    pass
+                # Per-stage collective table: one event next to the
+                # per-call ``collective`` stream (and reset, so the next
+                # run starts clean).
+                emit_stage_table()
                 with self._lock:
                     counters = dict(self.counters)
                     gauges = dict(self.gauges)

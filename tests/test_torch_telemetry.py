@@ -29,10 +29,9 @@ from music_analyst_tpu_torch.telemetry import (
 # and CUDA versions where JAX writes its own.
 JAX_VERSION_KEYS = {"jax_version", "jaxlib_version"}
 PORT_VERSION_KEYS = {"torch_version", "cuda_version"}
-# Counters only JAX emits, from modules the port has not taken yet:
-# ``collectives.*`` (profiling/collectives.py, multi-card work) and
+# Counters only JAX emits, from a module the port does not take:
 # ``profiling.compiles`` (profiling/compile.py wraps jax.jit).
-JAX_ONLY_COUNTER_PREFIXES = ("collectives.", "profiling.")
+JAX_ONLY_COUNTER_PREFIXES = ("profiling.",)
 # Sections both packages write only once a subsystem has been used in the
 # process (a cache consulted, a fault tripped, a server or tracer or
 # watchdog started), so their presence depends on what ran earlier in a
