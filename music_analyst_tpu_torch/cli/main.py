@@ -22,9 +22,19 @@ takes ``--profile-dir`` (a ``torch.profiler`` trace plus
 ``--trace-dir``.  Every run-scoped subcommand also takes
 ``--watchdog-timeout`` (the heartbeat watchdog that classifies a stall)
 and ``--inject-faults`` (seeded fault injection at the named seams); a
-malformed value of either is a usage error, as in JAX.  Not ported yet:
-``--tp`` above 1 and ``--devices`` above 1 (``sweep`` skips or refuses
-such points), which are usage errors naming the flag.
+malformed value of either is a usage error, as in JAX.
+
+``analyze`` and ``sentiment`` take ``--devices N``: the command runs as
+rank 0 of a mesh of N ranks and launches ranks 1..N-1 as child processes
+with the same arguments (``parallel/launch.py:run_ranks``); the
+backend is NCCL when every rank has a card of its own and gloo when
+ranks share one or run on the CPU, and is printed and written into the
+run manifest.  Only rank 0 writes outputs and the manifest; a failed rank
+stops every rank and the command exits 1.  ``sentiment --devices N``
+with ``--mock`` or ``--model ollama`` builds no mesh and runs one
+process, as JAX does.  Not ported yet: ``--tp`` above 1, ``--devices``
+above 1 with ``--weight-quant`` (usage errors naming the flag), and
+``sweep`` over more than one device (it skips or refuses such points).
 """
 
 from __future__ import annotations
@@ -120,7 +130,8 @@ def _add_run_flags(p: argparse.ArgumentParser, devices: bool = True) -> None:
                        help="Capture a torch.profiler trace into this dir "
                             "(Chrome-trace viewable)")
         p.add_argument("--devices", type=int, default=None,
-                       help="Devices of the mesh; the port runs on one")
+                       help="Ranks of the data-parallel mesh: this process "
+                            "is rank 0 and launches the others")
 
 
 def _check_run_flags(parser: argparse.ArgumentParser,
@@ -130,8 +141,39 @@ def _check_run_flags(parser: argparse.ArgumentParser,
         parser.error("--trace-dir and --profile-dir each capture a device "
                      "trace; give one of them")
     devices = getattr(args, "devices", None)
-    if args.command != "sweep" and devices is not None and devices != 1:
-        parser.error(f"--devices {devices} {_NOT_PORTED} (one device only)")
+    if args.command == "sweep" or devices is None:
+        return
+    if devices < 1:
+        parser.error(f"--devices must be >= 1, got {devices}")
+    if devices > 1 and getattr(args, "weight_quant", "none") != "none":
+        parser.error(f"--devices {devices} with --weight-quant "
+                     f"{args.weight_quant} {_NOT_PORTED} (weight_quant "
+                     "under a mesh)")
+
+
+def _mesh_ranks(args: argparse.Namespace) -> int:
+    """Ranks this run's mesh spans (1: one process, no mesh).  Only
+    ``analyze`` and the on-device ``sentiment`` models build a mesh."""
+    devices = getattr(args, "devices", None) or 1
+    if devices == 1 or args.command not in ("analyze", "sentiment"):
+        return 1
+    if args.command == "sentiment":
+        from music_analyst_tpu_torch.engines.families import mesh_capable
+
+        if not mesh_capable(args.model, args.mock):
+            return 1
+    return devices
+
+
+def _run_mesh(args: argparse.Namespace):
+    """The mesh of a run launched over ranks (``None`` for one process)."""
+    from music_analyst_tpu_torch.parallel import multihost
+
+    if multihost.process_count() == 1:
+        return None
+    from music_analyst_tpu_torch.parallel.mesh import data_parallel_mesh
+
+    return data_parallel_mesh(multihost.process_count(), device=args.device)
 
 
 def _add_analyze(sub: argparse._SubParsersAction) -> None:
@@ -555,6 +597,9 @@ def _run_analyze(args: argparse.Namespace) -> int:
     )
     from music_analyst_tpu_torch.profiling.trace import maybe_trace
 
+    mesh = _run_mesh(args)
+    if mesh is not None:
+        common["mesh"] = mesh
     if args.with_sentiment:
         from music_analyst_tpu_torch.engines.joint import run_joint
 
@@ -595,9 +640,11 @@ def _run_sentiment(parser: argparse.ArgumentParser,
             )
     from music_analyst_tpu_torch.profiling.trace import maybe_trace
 
+    mesh = _run_mesh(args)
     with maybe_trace(args.trace_dir, device=args.device):
         run_sentiment(
             args.dataset,
+            mesh=mesh,
             model=args.model,
             mock=args.mock,
             limit=args.limit,
@@ -768,6 +815,62 @@ def main(argv: Optional[List[str]] = None) -> int:
         )
 
     _check_run_flags(parser, args)
+    from music_analyst_tpu_torch.parallel import launch
+
+    if launch.launched_rank() is not None:
+        return _run_launched_rank(parser, args)
+    n_ranks = _mesh_ranks(args)
+    if n_ranks > 1:
+        # --devices N on CUDA needs a card: run_ranks checks before rank 0
+        # joins, and stops the ranks it started.
+        argv = list(sys.argv[1:] if argv is None else argv)
+        return launch.run_ranks(
+            argv, n_ranks, args.device,
+            lambda: _report_launches(_run_scoped(parser, args)))
+    return _run_scoped(parser, args)
+
+
+def _run_launched_rank(parser: argparse.ArgumentParser,
+                       args: argparse.Namespace) -> int:
+    """A rank launched by ``run_ranks``: join its group, run the same
+    command writing nothing (no telemetry, no profile, no flight
+    record; the engines write on the coordinator only), leave."""
+    from music_analyst_tpu_torch.parallel import multihost
+    from music_analyst_tpu_torch.resilience.faults import (
+        configure_faults,
+        resolve_fault_spec,
+    )
+    from music_analyst_tpu_torch.telemetry import configure
+
+    configure(enabled=False, directory=None)
+    configure_faults(resolve_fault_spec(args.inject_faults))
+    multihost.join_from_env()
+    try:
+        return _report_launches(_dispatch(parser, args))
+    finally:
+        multihost.shutdown()
+
+
+def _report_launches(code: int) -> int:
+    """Each rank of a mesh run counts its own kernel launches; it names
+    them on stderr when its command has run, in one write with its
+    newline, since every rank shares the stream (``print`` writes the
+    newline apart, and an unbuffered stderr lets another rank's line
+    in between)."""
+    import json
+
+    from music_analyst_tpu_torch import kernels
+    from music_analyst_tpu_torch.parallel import multihost
+
+    counts = json.dumps(kernels.launches(), sort_keys=True)
+    sys.stderr.write(f"mesh: rank {multihost.process_index()} kernel "
+                     f"launches {counts}\n")
+    sys.stderr.flush()
+    return code
+
+
+def _run_scoped(parser: argparse.ArgumentParser,
+                args: argparse.Namespace) -> int:
     from music_analyst_tpu_torch.observability.flight import (
         install_flight_recorder,
     )

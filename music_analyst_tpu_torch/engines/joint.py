@@ -16,6 +16,10 @@ each other, as the reference's do; the joint run cannot.
 The ``joint`` run scope owns the telemetry sinks: the nested wordcount and
 sentiment scopes become spans under it, so the fused run writes one
 ``run_manifest.json``.
+
+On a mesh of ranks (``analyze --with-sentiment --devices N``) the word
+count and the classifier both run over it (JAX's ``run_joint``); only the
+coordinator writes.
 """
 
 from __future__ import annotations
@@ -42,6 +46,7 @@ from music_analyst_tpu_torch.metrics.perf import (
     write_performance_metrics,
 )
 from music_analyst_tpu_torch.metrics.timer import StageTimer
+from music_analyst_tpu_torch.parallel import multihost
 from music_analyst_tpu_torch.parallel.mesh import data_parallel_mesh
 from music_analyst_tpu_torch.telemetry import get_telemetry
 
@@ -125,7 +130,8 @@ def _run_joint_impl(
             quiet=quiet,
             songs=corpus.iter_records(),
             prefetch_depth=prefetch_depth,
-            device=mesh.devices[0],
+            device=mesh.device,
+            mesh=mesh if mesh.size > 1 else None,
         )
     total = timer.total("ingest", "wordcount", "sentiment")
     songs_per_second = analysis.total_songs / total if total > 0 else 0.0
@@ -144,21 +150,23 @@ def _run_joint_impl(
     # which every device spends together.
     sentiment_seconds = timer.seconds["sentiment"]
     per_chip_total = [c + sentiment_seconds for c in analysis.per_chip_compute]
-    write_performance_metrics(
-        os.path.join(output_dir, "performance_metrics.json"),
-        processes=mesh.size,
-        total_songs=analysis.total_songs,
-        total_words=analysis.total_words,
-        compute_time=TimeStats.from_samples(per_chip_total),
-        total_time=TimeStats.uniform(total),
-        per_chip=per_chip_rows(mesh.devices, per_chip_total),
-        stages={
-            **analysis.timings,
-            "ingest": timer.seconds["ingest"],
-            "sentiment": sentiment_seconds,
-        },
-        device_platform=device_platform(mesh.devices[0]),
-    )
+    quiet = quiet or not multihost.is_coordinator()
+    if multihost.is_coordinator():
+        write_performance_metrics(
+            os.path.join(output_dir, "performance_metrics.json"),
+            processes=mesh.size,
+            total_songs=analysis.total_songs,
+            total_words=analysis.total_words,
+            compute_time=TimeStats.from_samples(per_chip_total),
+            total_time=TimeStats.uniform(total),
+            per_chip=per_chip_rows(mesh.devices, per_chip_total),
+            stages={
+                **analysis.timings,
+                "ingest": timer.seconds["ingest"],
+                "sentiment": sentiment_seconds,
+            },
+            device_platform=device_platform(mesh.devices[0]),
+        )
     if not quiet:
         print(
             f"Joint pipeline: {analysis.total_songs} songs in {total:.2f}s "

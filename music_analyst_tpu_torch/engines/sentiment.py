@@ -23,6 +23,14 @@ re-runs the whole stage), and ``collect`` runs inside the
 :func:`run_with_failover`, whose re-init reloads the backend through the
 residency (when this engine built it) and re-submits the batch.  There is
 no degrade: a second failure raises.
+
+``mesh=`` (``sentiment --devices N``) hands a ``parallel/mesh.DeviceMesh``
+to the on-device model families (:func:`mesh_capable`); the keyword
+kernel and Ollama take none, as in JAX.  Every rank runs this engine on
+the same batches (the backend splits each batch's rows and gathers the
+labels); only the coordinator writes ``sentiment_details.csv`` and
+``sentiment_totals.json``, and its ``--resume`` skip count is broadcast
+so every rank skips the same rows.
 """
 
 from __future__ import annotations
@@ -37,7 +45,9 @@ from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
 from music_analyst_tpu_torch.data.csv_io import iter_songs
 from music_analyst_tpu_torch.device import DeviceLike
+from music_analyst_tpu_torch.engines.families import mesh_capable
 from music_analyst_tpu_torch.observability import watchdog
+from music_analyst_tpu_torch.parallel import multihost
 from music_analyst_tpu_torch.resilience.failover import run_with_failover
 from music_analyst_tpu_torch.resilience.faults import fault_point
 from music_analyst_tpu_torch.runtime import (
@@ -129,7 +139,10 @@ def get_backend(
     **kwargs,
 ) -> ClassifierBackend:
     """Resolve the ``--model``/``--mock`` flag surface to a backend
-    (``--mock`` wins over ``--model``, as in the reference)."""
+    (``--mock`` wins over ``--model``, as in the reference).  A ``mesh``
+    is dropped for the families that take none."""
+    if not mesh_capable(model, mock):
+        kwargs.pop("mesh", None)
     if _has_buckets(length_buckets) and (
         mock or not model.startswith("distilbert")
     ):
@@ -231,6 +244,7 @@ def run_sentiment(
     prefetch_depth: Optional[int] = None,
     device: DeviceLike = "cuda",
     weight_quant: Optional[str] = None,
+    mesh=None,
 ) -> SentimentResult:
     """Classify the dataset and write the reference output artifacts.
 
@@ -243,6 +257,7 @@ def run_sentiment(
     (``weight_quant`` "int8"/"int4" stores the model's kernels quantized).
     A backend that measures each song (``last_latencies``, Ollama) has its
     latencies written as measured; others get the batch's amortized time.
+    ``mesh`` runs the model over a mesh of ranks (see the module notes).
     """
     if songs is not None and resume:
         raise ValueError("resume=True cannot be combined with songs=")
@@ -251,7 +266,7 @@ def run_sentiment(
         return _run_sentiment_impl(
             tel, dataset_path, model, mock, limit, output_dir, batch_size,
             backend, quiet, resume, songs, length_buckets, prefetch_depth,
-            device, weight_quant,
+            device, weight_quant, mesh,
         )
 
 
@@ -277,36 +292,45 @@ def _timed_source(tel, source):
 def _run_sentiment_impl(
     tel, dataset_path, model, mock, limit, output_dir, batch_size, backend,
     quiet, resume, songs, length_buckets, prefetch_depth, device,
-    weight_quant,
+    weight_quant, mesh,
 ) -> SentimentResult:
     if backend is not None and (
-            _has_buckets(length_buckets)
+            mesh is not None or _has_buckets(length_buckets)
             or weight_quant not in (None, "none")):
         raise ValueError(
-            "length_buckets=/weight_quant= configure backend construction "
-            "and cannot be combined with an explicit backend="
+            "mesh=/length_buckets=/weight_quant= configure backend "
+            "construction and cannot be combined with an explicit backend="
         )
-    os.makedirs(output_dir, exist_ok=True)
+    coordinator = multihost.is_coordinator()
+    quiet = quiet or not coordinator
+    if coordinator:
+        os.makedirs(output_dir, exist_ok=True)
     depth = resolve_prefetch_depth(prefetch_depth)
     # One owner for the backend's lifetime, as in JAX: the residency
     # loads it (its ``serve.load`` span) on the requested device.
     from music_analyst_tpu_torch.serving.residency import ModelResidency
 
+    extra = {} if mesh is None else {"mesh": mesh}
     residency = ModelResidency(
         model=model, mock=mock, weight_quant=weight_quant, backend=backend,
-        device=device, length_buckets=length_buckets,
+        device=device, length_buckets=length_buckets, **extra,
     )
     with tel.span("backend_init", model=model, mock=bool(mock)):
         clf = residency.acquire()
     tel.annotate(backend=clf.name, batch_size=batch_size, prefetch_depth=depth)
+    if mesh is not None and mesh_capable(model, mock):
+        tel.annotate(mesh_shape=mesh.shape, mesh_backend=multihost.backend())
 
     totals_path = os.path.join(output_dir, "sentiment_totals.json")
     details_path = os.path.join(output_dir, "sentiment_details.csv")
 
     skip = 0
     counts: Dict[str, int] = {label: 0 for label in SUPPORTED_LABELS}
-    if resume and os.path.exists(details_path):
+    if resume and coordinator and os.path.exists(details_path):
         skip, counts = _read_completed_details(details_path)
+    # Every rank must skip the coordinator's rows: the batches (and the
+    # collectives inside them) line up across ranks.
+    skip = multihost.broadcast_from_coordinator(skip)
 
     rows: List[SentimentRow] = []  # rows classified by THIS run
     start = time.perf_counter()
@@ -375,9 +399,9 @@ def _run_sentiment_impl(
         tel,
         songs if songs is not None else iter_songs(dataset_path, limit=limit),
     )
-    with open(
-        details_path, "a" if skip else "w", newline="", encoding="utf-8"
-    ) as details_fh:
+    with (open(details_path, "a" if skip else "w", newline="",
+               encoding="utf-8") if coordinator
+          else open(os.devnull, "w")) as details_fh:
         writer = csv.DictWriter(
             details_fh, fieldnames=["artist", "song", "label", "latency_seconds"]
         )
@@ -417,8 +441,9 @@ def _run_sentiment_impl(
                     details_fh.flush()
     wall = time.perf_counter() - start
 
-    with atomic_write(totals_path) as fh:
-        json.dump(counts, fh, indent=2)
+    if coordinator:
+        with atomic_write(totals_path) as fh:
+            json.dump(counts, fh, indent=2)
 
     if not quiet:
         print("Sentiment summary:")

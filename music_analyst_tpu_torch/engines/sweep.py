@@ -7,8 +7,9 @@ each run's metrics as ``performance_metrics_np{N}.json`` and writes
 default counts are those of (1, 2, 4, 8) that fit the cards present
 (``torch.cuda.device_count()``), or 1 on the CPU; a larger requested count
 prints ``skipping np=N: only M devices``.  A count above 1 that fits
-reaches ``parallel/mesh.py``, which refuses it until multi-card meshes are
-ported.
+reaches ``parallel/mesh.py``, which refuses it: a mesh of N devices is N
+ranks (``analyze --devices N`` launches them), and a sweep over ranks is
+not ported yet.
 """
 
 from __future__ import annotations

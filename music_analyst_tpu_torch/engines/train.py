@@ -18,8 +18,8 @@ the AdamW step on the masters.  Both moments are f32.  The state shares no
 tensor with the model, which only computes: two states can take turns on
 one model.
 
-Not ported: meshes (``mesh``, ``zero1``), which wait for multi-card
-support.  The flash kernel is forward only, as the Pallas kernel is, so
+Not ported: training on a mesh of ranks (``mesh``, ``zero1``; inference
+runs on one since ``parallel/mesh.py`` and ``parallel/sharding.py``).  The flash kernel is forward only, as the Pallas kernel is, so
 :func:`make_train_step` refuses ``attn_impl="flash"``; the loss itself runs
 through the kernel under ``torch.no_grad()`` (evaluation).
 """

@@ -23,6 +23,13 @@ and :func:`run_with_failover`, which on a classified device loss rebuilds
 the default mesh once and re-runs the histograms.  The JAX engine's
 degrade to a host ``np.bincount`` when the retry fails too is
 deliberately not ported: a second failure on the card raises.
+
+On a mesh of ranks (``analyze --devices N``) every rank ingests (or reads
+the corpus cache) and counts its ``dp`` shard; the histograms merge over
+``dp`` and only the coordinator (rank 0) writes the split columns, the
+CSVs and ``performance_metrics.json`` (one ``per_chip`` row per rank).
+A multi-rank mesh is not rebuilt on a failover: every rank would have to
+rebuild it together.
 """
 
 from __future__ import annotations
@@ -60,6 +67,7 @@ from music_analyst_tpu_torch.ops.histogram import (
     sharded_histogram_hostlocal_timed,
     sharded_histogram_streaming,
 )
+from music_analyst_tpu_torch.parallel import multihost
 from music_analyst_tpu_torch.parallel.mesh import data_parallel_mesh
 from music_analyst_tpu_torch.profiling.trace import annotate
 from music_analyst_tpu_torch.resilience.failover import run_with_failover
@@ -168,7 +176,8 @@ def run_analysis(
     cache_dir = resolve_cache_dir(corpus_cache_dir, use_corpus_cache)
     tel = get_telemetry()
     timer = StageTimer()
-    os.makedirs(output_dir, exist_ok=True)
+    if multihost.is_coordinator():
+        os.makedirs(output_dir, exist_ok=True)
     split_dir = os.path.join(output_dir, "split_columns")
 
     with tel.run_scope("wordcount", output_dir):
@@ -185,8 +194,10 @@ def _run_analysis_instrumented(
     artist_limit, limit, mesh, write_split, ingest_backend, count_mode,
     quiet, corpus, ingest_seconds, cache_dir, chunk_songs, default_mesh,
 ) -> AnalysisResult:
+    coordinator = multihost.is_coordinator()
+    quiet = quiet or not coordinator
     with timer.stage("split"):
-        if write_split:
+        if write_split and coordinator:
             artist_label, text_label = read_header_labels(dataset_path)
             split_dataset_columns(
                 dataset_path,
@@ -213,14 +224,16 @@ def _run_analysis_instrumented(
     tel.count("words_counted", corpus.token_count)
     tel.annotate(mesh_shape=mesh.shape, count_mode=count_mode,
                  chunk_songs=chunk)
+    if mesh.size > 1:
+        tel.annotate(mesh_backend=multihost.backend())
 
     def _reinit_mesh():
         # The port caches no compiled programs or histogram state; the
         # re-init rebuilds the default mesh, which re-resolves the device
         # and touches its context.  A caller-supplied mesh is left alone.
         nonlocal mesh
-        if default_mesh:
-            mesh = data_parallel_mesh(device=mesh.devices[0])
+        if default_mesh and mesh.size == 1:
+            mesh = data_parallel_mesh(device=mesh.device)
 
     with timer.stage("device_compute"), watchdog.watch(
         "wordcount.device_compute", kind="device"
@@ -246,8 +259,10 @@ def _run_analysis_instrumented(
         )
         word_path = os.path.join(output_dir, "word_counts.csv")
         artist_path = os.path.join(output_dir, "top_artists.csv")
-        write_count_csv(word_path, "word", word_entries, word_limit)
-        write_count_csv(artist_path, "artist", artist_entries, artist_limit)
+        if coordinator:
+            write_count_csv(word_path, "word", word_entries, word_limit)
+            write_count_csv(artist_path, "artist", artist_entries,
+                            artist_limit)
 
     # Reference timing semantics (src/parallel_spotify.c:850-851,1000,1068):
     # compute = local read + count; total = compute + aggregation/export.
@@ -257,19 +272,20 @@ def _run_analysis_instrumented(
     export_seconds = timer.seconds.get("aggregate_export", 0.0)
     per_chip_compute = [ingest_seconds + c for c in per_chip_compute]
     metrics_path = os.path.join(output_dir, "performance_metrics.json")
-    write_performance_metrics(
-        metrics_path,
-        processes=mesh.size,
-        total_songs=total_songs,
-        total_words=total_words,
-        compute_time=TimeStats.from_samples(per_chip_compute),
-        total_time=TimeStats.from_samples(
-            [c + export_seconds for c in per_chip_compute]
-        ),
-        per_chip=per_chip_rows(mesh.devices, per_chip_compute),
-        stages=dict(timer.seconds),
-        device_platform=device_platform(mesh.devices[0]),
-    )
+    if coordinator:
+        write_performance_metrics(
+            metrics_path,
+            processes=mesh.size,
+            total_songs=total_songs,
+            total_words=total_words,
+            compute_time=TimeStats.from_samples(per_chip_compute),
+            total_time=TimeStats.from_samples(
+                [c + export_seconds for c in per_chip_compute]
+            ),
+            per_chip=per_chip_rows(mesh.devices, per_chip_compute),
+            stages=dict(timer.seconds),
+            device_platform=device_platform(mesh.devices[0]),
+        )
 
     if not quiet:
         print("=== Parallel Spotify Analysis ===")

@@ -22,6 +22,14 @@ layer's attention runs the hand-written CUDA kernel
 batches by ``lengths`` plus segment ids.  ``"dense"`` materialises the
 logits (the JAX package's default) and is kept for comparison.
 
+``mesh=`` (a ``parallel/mesh.DeviceMesh`` over ranks) runs the classifier
+as JAX's does on a mesh: weights shard by ``parallel/sharding.py``'s rules
+(tp: heads, the FFN hidden axis, the vocabulary), batch rows split over
+``dp`` after JAX's padding (rows to a multiple of dp, with length 1), each
+rank tokenizes and classifies its own rows (all of them on the packed and
+length-bucket paths, which plan the whole batch), and the labels and
+confidences are all-gathered back in row order on every rank.
+
 Label contract: the sst2 head is 2-class; ``max softmax prob <
 neutral_threshold`` → ``Neutral``, else argmax → ``Positive``/``Negative``.
 """
@@ -52,6 +60,13 @@ from music_analyst_tpu_torch.models.layers import (
 )
 from music_analyst_tpu_torch.models.tokenization import resolve_bert_tokenizer
 from music_analyst_tpu_torch.models.tree import as_tensor, f32, put_kernel
+from music_analyst_tpu_torch.parallel.mesh import (
+    DeviceMesh,
+    all_gather,
+    shard_bounds,
+)
+from music_analyst_tpu_torch.parallel.sharding import shard_params
+from music_analyst_tpu_torch.profiling.collectives import record_collective
 from music_analyst_tpu_torch.runtime.wire import (
     count_h2d_bytes,
     narrow_lengths,
@@ -526,7 +541,8 @@ def expand_packed(starts: torch.Tensor, row_len: torch.Tensor, seq: int):
 
 
 class DistilBertClassifier(ClassifierBackend):
-    """Batched sentiment backend on one device.
+    """Batched sentiment backend on one device, or on a mesh of ranks
+    (``mesh=``).
 
     ``neutral_threshold`` (default 0.6) maps the binary sst2 head onto the
     reference's three labels: a max softmax prob below it is ``Neutral``.
@@ -551,8 +567,13 @@ class DistilBertClassifier(ClassifierBackend):
         device: DeviceLike = "cuda",
         state_dict: Optional[Mapping[str, np.ndarray]] = None,
         wq_cache_dir: Optional[str] = None,
+        mesh: Optional[DeviceMesh] = None,
     ) -> None:
-        self.device = resolve_device(device)
+        if mesh is not None and not isinstance(mesh, DeviceMesh):
+            raise TypeError(f"mesh must be a DeviceMesh, got "
+                            f"{type(mesh).__name__}")
+        self.mesh = mesh
+        self.device = resolve_device(device if mesh is None else mesh.device)
         self.config = config or DistilBertConfig()
         self.max_len = max_len
         self.neutral_threshold = neutral_threshold
@@ -610,6 +631,10 @@ class DistilBertClassifier(ClassifierBackend):
             self.pretrained = True
         else:
             init_random_(model, seed)
+        if mesh is not None:
+            # Megatron rules; axes absent from the mesh prune to
+            # replication, so one call serves dp, tp and dp x tp.
+            shard_params(model, mesh)
         self.model = model.eval()
         # Token ids ride the wire as int16 when every id fits (sized from
         # the tokenizer's range: a supplied vocab.txt can exceed the
@@ -685,6 +710,60 @@ class DistilBertClassifier(ClassifierBackend):
             narrow_lengths(lengths, self.max_len),
         )
 
+    @property
+    def _dp(self) -> int:
+        return 1 if self.mesh is None else self.mesh.axis_size("dp")
+
+    def _plan_flat_shard(self, texts: Sequence[str]):
+        """This rank's rows of a flat batch padded to a multiple of dp
+        (JAX's ``_pad_batch``: zero ids, length 1); only those rows are
+        tokenized."""
+        n = len(texts)
+        start, stop, share = shard_bounds(n, self.mesh)
+        ids, lens = self.tokenizer.encode_batch(texts[start:stop],
+                                                self.max_len)
+        pad = share - ids.shape[0]
+        if pad:
+            ids = np.pad(ids, ((0, pad), (0, 0)))
+            lens = np.pad(lens, (0, pad), constant_values=1)
+        return None, n, self._plan_flat(ids, lens)
+
+    def _shard_part(self, part):
+        """This rank's rows of a whole-batch part: rows padded to a
+        multiple of dp as JAX pads them (flat: zero ids, length 1;
+        packed: empty rows), then the dp coordinate's block."""
+        gather, n, arrays = part
+        fill = (0, 1) if len(arrays) == 2 else (0, self.max_len, 0)
+        rows = arrays[0].shape[0]
+        padded = -(-rows // self._dp) * self._dp
+        start, stop, _ = shard_bounds(padded, self.mesh)
+        out = []
+        for a, value in zip(arrays, fill):
+            if padded != rows:
+                widths = ((0, padded - rows),) + ((0, 0),) * (a.ndim - 1)
+                a = np.pad(a, widths, constant_values=value)
+            out.append(np.ascontiguousarray(a[start:stop]))
+        return gather, n, tuple(out)
+
+    def _record_mesh_collectives(self, rows: int, seq: int) -> None:
+        """JAX's analytic collective bytes of one sharded forward: two
+        tp all-reduces of the [rows/dp, seq, dim] bf16 activations per
+        layer, and the dp gather of ~8 B of results per row."""
+        if self.mesh is None:
+            return
+        dp, tp = self._dp, self.mesh.axis_size("tp")
+        if tp > 1:
+            record_collective(
+                "sentiment.tp_allreduce", "psum",
+                payload_bytes=(rows // max(dp, 1)) * seq * self.config.dim * 2,
+                n_devices=tp, axis="tp", count=2 * self.config.n_layers,
+            )
+        if dp > 1:
+            record_collective(
+                "sentiment.result_gather", "all_gather",
+                payload_bytes=(rows // dp) * 8, n_devices=dp, axis="dp",
+            )
+
     def _plan_packed(self, token_ids: np.ndarray, lengths: np.ndarray):
         """Bin-pack lyrics into shared rows and cast the compact wire
         format; the plan carries the ``(bin_of, slot_of)`` gather map."""
@@ -720,6 +799,14 @@ class DistilBertClassifier(ClassifierBackend):
         rows by token length and run each group at its bucket's sequence
         length; packing puts several short lyrics into one full-width row.
         """
+        if self._dp > 1 and not self.packed and self.length_buckets is None:
+            return texts, [self._plan_flat_shard(texts)]
+        texts, parts = self._prepare_whole(texts)
+        if self._dp > 1:
+            parts = [self._shard_part(part) for part in parts]
+        return texts, parts
+
+    def _prepare_whole(self, texts: Sequence[str]):
         token_ids, lengths = self.tokenizer.encode_batch(texts, self.max_len)
         if self.packed:
             return texts, self._plan_packed(token_ids, lengths)
@@ -786,14 +873,31 @@ class DistilBertClassifier(ClassifierBackend):
         with torch.inference_mode():
             return self.model(token_ids.long(), lengths.to(torch.int32))
 
+    def classify_logits(self, texts: Sequence[str]) -> torch.Tensor:
+        """Flat-batch class logits (f32, on the host) ``[len(texts), C]``
+        through the whole flat path, on a mesh too (this rank's rows,
+        gathered over dp) — for checks and comparisons."""
+        if self._dp > 1:
+            _, n, arrays = self._plan_flat_shard(texts)
+        else:
+            n = len(texts)
+            arrays = self._plan_flat(
+                *self.tokenizer.encode_batch(texts, self.max_len))
+        logits = self.forward_logits(*to_device(arrays, self.device))
+        return all_gather(logits.float().cpu(), self.mesh, "dp")[:n]
+
     def forward_logits_packed(self, texts: Sequence[str]) -> torch.Tensor:
         """Per-song class logits (f32) ``[len(texts), C]`` through the whole
         packed path (plan, wire, device-side expansion, CLS gather) — for
         checks and comparisons."""
         token_ids, lengths = self.tokenizer.encode_batch(texts, self.max_len)
-        [((bin_of, slot_of), _, arrays)] = self._plan_packed(token_ids, lengths)
+        [part] = self._plan_packed(token_ids, lengths)
+        if self._dp > 1:
+            part = self._shard_part(part)
+        (bin_of, slot_of), _, arrays = part
         with torch.inference_mode():
             logits = self._packed_logits(*to_device(arrays, self.device))
+        logits = all_gather(logits, self.mesh, "dp")
         return logits[torch.as_tensor(bin_of, device=logits.device),
                       torch.as_tensor(slot_of, device=logits.device)]
 
@@ -804,10 +908,19 @@ class DistilBertClassifier(ClassifierBackend):
         launched = []
         with torch.inference_mode():
             for gather, n, arrays in parts:
+                rows = arrays[0].shape[0] * self._dp
+                seq = arrays[0].shape[1] if len(arrays) == 2 else self.max_len
+                self._record_mesh_collectives(rows, seq)
                 if len(arrays) == 2:
                     classes, confidence = self._forward(*arrays)
                 else:
                     classes, confidence = self._forward_packed(*arrays)
+                if self._dp > 1:
+                    # The gather runs here, in the thread that issued the
+                    # forward's tp collectives, so every rank issues its
+                    # collectives in one order.
+                    classes = all_gather(classes.cpu(), self.mesh, "dp")
+                    confidence = all_gather(confidence.cpu(), self.mesh, "dp")
                 classes = classes.to("cpu", non_blocking=True)
                 confidence = confidence.to("cpu", non_blocking=True)
                 launched.append((gather, classes, confidence, n))

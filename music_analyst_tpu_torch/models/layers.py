@@ -9,6 +9,16 @@ quantized projections: ``QuantLinear`` (JAX ``QuantDenseGeneral``, dynamic
 int8) and ``WqLinear`` (JAX ``WqDenseGeneral``, stored int8 / int4 codes),
 picked by ``pick_dense_cls`` as JAX does.
 
+Tensor parallelism (Megatron's pieces, plain torch, no kernel of their
+own): a column-parallel projection is an ``nn.Linear`` holding this
+rank's output rows and needs no communication; :class:`RowParallelLinear`
+sums its partial products with one ``all_reduce`` over ``tp`` and adds
+its bias once, after the reduce; :class:`VocabParallelEmbedding` looks up
+the ids of its vocabulary block (zeros elsewhere) and all-reduces;
+:class:`VocabParallelHead` all-gathers its f32 logits into the full
+vocabulary.  :func:`tensor_parallel_` installs them where
+``parallel/sharding.py`` split a parameter.
+
 Layouts follow the JAX package at the function boundaries (``[B, S, H, D]``
 attention tensors, boolean masks broadcastable to ``[B, H, S, KV]``); the
 projections are ``nn.Linear`` (weights ``[out, in]``), which the models'
@@ -26,6 +36,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from music_analyst_tpu_torch.ops.flash_attention import flash_attention
+from music_analyst_tpu_torch.parallel.mesh import all_gather, all_reduce
 from music_analyst_tpu_torch.ops.quant import (
     WQ_DEFAULT_GROUP,
     QuantizedParam,
@@ -502,3 +513,86 @@ class GeluMLP(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.lin2(F.gelu(self.lin1(x), approximate="none"))
+
+
+class RowParallelLinear(nn.Module):
+    """``nn.Linear`` over this rank's input columns: the partial products
+    are summed over ``tp`` (one ``all_reduce``), then the bias is added
+    once — added on every rank before the reduce it would count tp
+    times."""
+
+    def __init__(self, linear: nn.Linear, mesh, axis: str = "tp") -> None:
+        super().__init__()
+        self.weight = linear.weight
+        self.bias = linear.bias
+        self.mesh, self.axis = mesh, axis
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = all_reduce(F.linear(x, self.weight), self.mesh, self.axis)
+        return y if self.bias is None else y + self.bias
+
+
+class VocabParallelEmbedding(nn.Module):
+    """Embedding over this rank's vocabulary block ``[start, start +
+    rows)``: ids outside it give zero rows, and the all-reduce over
+    ``tp`` adds the one rank's row to zeros — exact."""
+
+    def __init__(self, embedding: nn.Embedding, start: int, mesh,
+                 axis: str = "tp") -> None:
+        super().__init__()
+        self.weight = embedding.weight
+        self.start = int(start)
+        self.mesh, self.axis = mesh, axis
+
+    def forward(self, ids: torch.Tensor) -> torch.Tensor:
+        rows = self.weight.shape[0]
+        local = ids - self.start
+        outside = (local < 0) | (local >= rows)
+        out = F.embedding(local.clamp(0, rows - 1), self.weight)
+        out = out.masked_fill(outside[..., None], 0)
+        return all_reduce(out, self.mesh, self.axis)
+
+
+class VocabParallelHead(nn.Module):
+    """LM head over this rank's vocabulary rows: local logits (in the
+    weight's dtype, f32 for Llama), then one all-gather along the
+    vocabulary into the full ``[..., V]`` — so a greedy argmax ties to
+    the lowest index exactly as on one rank."""
+
+    def __init__(self, linear: nn.Linear, mesh, axis: str = "tp") -> None:
+        super().__init__()
+        self.weight = linear.weight
+        self.bias = linear.bias
+        self.mesh, self.axis = mesh, axis
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return all_gather(F.linear(x, self.weight, self.bias), self.mesh,
+                          self.axis, dim=-1)
+
+
+def tensor_parallel_(model: nn.Module, mesh, layout) -> None:
+    """Give the modules whose parameters ``layout`` split their
+    tensor-parallel forms (in place; parameter names are unchanged):
+    attention keeps its per-rank head counts, a linear whose input
+    columns were split becomes :class:`RowParallelLinear`, a split
+    embedding :class:`VocabParallelEmbedding` and the split ``lm_head``
+    :class:`VocabParallelHead`."""
+    for name, module in list(model.named_modules()):
+        prefix = f"{name}." if name else ""
+        if isinstance(module, MultiHeadAttention):
+            module.n_heads = module.q_proj.weight.shape[0] // module.head_dim
+            module.n_kv_heads = (module.k_proj.weight.shape[0]
+                                 // module.head_dim)
+        piece = layout.get(f"{prefix}weight")
+        if piece is None:
+            continue
+        parent_name, _, leaf = name.rpartition(".")
+        parent = model.get_submodule(parent_name)
+        if isinstance(module, nn.Embedding):
+            setattr(parent, leaf, VocabParallelEmbedding(
+                module, piece.bounds[0][0], mesh))
+        elif type(module) is nn.Linear and leaf == "lm_head":
+            setattr(parent, leaf, VocabParallelHead(module, mesh))
+        elif type(module) is nn.Linear and (
+                piece.bounds[1] != (0, piece.full_shape[1])):
+            setattr(parent, leaf, RowParallelLinear(module, mesh))

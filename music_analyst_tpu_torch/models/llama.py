@@ -33,8 +33,20 @@ quantized-checkpoint cache, so the float tree never exists whole.
 flash kernel on the no-cache path (the training loss and evaluation
 forwards, ``engines/train.py``): attention there is causal with ``lengths``
 and packed-document ``segment_ids``, and the mask array is not read.  The
-kernel is forward only, as in JAX; the cache paths attend as before.  Not
-yet ported: meshes.
+kernel is forward only, as in JAX; the cache paths attend as before.
+
+``mesh=`` (a ``parallel/mesh.DeviceMesh`` over ranks) runs the model with
+tensor parallelism over its ``tp`` axis (other axes replicate, as the
+JAX classifier's unsharded inputs do): each rank holds ``n_heads / tp``
+query and ``n_kv_heads / tp`` KV heads, its block of the MLP hidden axis
+and of the vocabulary (``parallel/sharding.py``); ``o_proj`` and
+``down_proj`` all-reduce, the embedding all-reduces its masked lookup
+and the f32 ``lm_head`` all-gathers the logits, so every rank sees the
+same full logits and takes the same greedy tokens and scheduling
+decisions.  KV caches and page pools hold the rank's own KV heads.
+Random weights draw each full tensor from the one generator and keep the
+rank's block, so every rank's weights are the unsharded model's.  Not
+yet ported under a mesh: ``quant``, ``weight_quant`` and MoE.
 """
 
 from __future__ import annotations
@@ -69,6 +81,12 @@ from music_analyst_tpu_torch.models.tokenization import (
 )
 from music_analyst_tpu_torch.models.tree import as_tensor, f32, put_kernel
 from music_analyst_tpu_torch.ops.quant import WQ_DEFAULT_GROUP
+from music_analyst_tpu_torch.parallel.mesh import DeviceMesh
+from music_analyst_tpu_torch.parallel.sharding import (
+    local_kv_heads,
+    shard_params,
+    shard_state_dict,
+)
 from music_analyst_tpu_torch.runtime.wire import count_h2d_bytes
 from music_analyst_tpu_torch.utils.labels import SUPPORTED_LABELS, normalise_label
 from music_analyst_tpu_torch.utils.shapes import round_pow2
@@ -262,11 +280,13 @@ class LlamaModel(nn.Module):
 
 
 def init_caches(cfg: LlamaConfig, batch: int, max_len: int,
-                dtype: torch.dtype = torch.bfloat16, device=None
-                ) -> List[KVCache]:
+                dtype: torch.dtype = torch.bfloat16, device=None,
+                n_kv_heads: Optional[int] = None) -> List[KVCache]:
+    """Zeroed per-layer caches; ``n_kv_heads`` is a rank's own head count
+    under tensor parallelism (default: the config's)."""
     return [
-        KVCache.zeros(batch, max_len, cfg.n_kv_heads, cfg.head_dim, dtype,
-                      device=device)
+        KVCache.zeros(batch, max_len, n_kv_heads or cfg.n_kv_heads,
+                      cfg.head_dim, dtype, device=device)
         for _ in range(cfg.n_layers)
     ]
 
@@ -281,13 +301,20 @@ def init_random_(model: LlamaModel, seed: int) -> None:
     weight, ``E * in`` of an ``[E, in, out]`` stack); RMSNorm scales 1.
     Each tensor is drawn in f32 and then stored in its parameter's dtype,
     or quantized into a ``WqLinear``'s codes, one at a time, so no f32
-    (nor, under ``weight_quant``, float) copy of the whole model exists."""
+    (nor, under ``weight_quant``, float) copy of the whole model exists.
+    A tensor-parallel model (``model.tp_layout``) draws each sharded
+    tensor whole and keeps its block, so the weights are the unsharded
+    model's on every rank."""
     device = model.norm.weight.device
     gen = torch.Generator(device=device).manual_seed(seed)
+    layout = getattr(model, "tp_layout", {})
     for name, shape, owner in param_slots(model):
         if name.endswith("norm.weight"):
             model.get_parameter(name).fill_(1.0)
             continue
+        piece = layout.get(name)
+        if piece is not None:
+            shape = piece.full_shape
         value = torch.empty(shape, dtype=torch.float32, device=device)
         if name == "tok_embeddings.weight":
             value.normal_(0.0, shape[1] ** -0.5, generator=gen)
@@ -296,6 +323,8 @@ def init_random_(model: LlamaModel, seed: int) -> None:
             # nn.Linear weights are [out, in]; expert stacks [E, in, out].
             fan_in = shape[1] if len(shape) == 2 else math.prod(shape[:-1])
             value.mul_(math.sqrt(1.0 / fan_in) / 0.87962566103423978)
+        if piece is not None:
+            value = piece.take(value)
         if isinstance(owner, WqLinear):
             owner.quantize_from_(value)
         else:
@@ -511,8 +540,11 @@ def load_hf_torch_checkpoint(model: LlamaModel, path: str) -> None:
     if "lm_head.weight" not in mapped and "tok_embeddings.weight" in mapped:
         mapped["lm_head.weight"] = mapped["tok_embeddings.weight"]
     params = dict(model.named_parameters())
+    layout = getattr(model, "tp_layout", {})
     embed = mapped.get("tok_embeddings.weight")
     want = tuple(params["tok_embeddings.weight"].shape)
+    if "tok_embeddings.weight" in layout:
+        want = layout["tok_embeddings.weight"].full_shape
     if embed is not None and tuple(embed.shape) != want:
         raise ValueError(
             f"checkpoint embed_tokens is {tuple(embed.shape)} but the model "
@@ -530,11 +562,14 @@ def load_hf_torch_checkpoint(model: LlamaModel, path: str) -> None:
         value = mapped[name]
         if not value.is_floating_point():
             raise TypeError(f"{name}: float weights only, got {value.dtype}")
+        if name in layout:
+            value = layout[name].take(value)
         param.copy_(value.to(torch.float32))
 
 
 class LlamaZeroShotClassifier(ClassifierBackend):
-    """Zero-shot sentiment over the decoder LM on one device."""
+    """Zero-shot sentiment over the decoder LM on one device, or tensor
+    parallel over a mesh of ranks (``mesh=``)."""
 
     name = "llama"
 
@@ -556,11 +591,19 @@ class LlamaZeroShotClassifier(ClassifierBackend):
                 f"decode_mode must be 'score' or 'generate', got "
                 f"{decode_mode!r}"
             )
-        if mesh is not None:
+        if mesh is not None and not isinstance(mesh, DeviceMesh):
+            raise TypeError(f"mesh must be a DeviceMesh, got "
+                            f"{type(mesh).__name__}")
+        cfg = config or LlamaConfig.tiny()
+        if mesh is not None and (cfg.quant != "none"
+                                 or cfg.weight_quant != "none"
+                                 or cfg.n_experts > 0):
             raise NotImplementedError(
-                "meshes (tensor parallelism) are not yet ported to "
-                "music_analyst_tpu_torch"
-            )
+                "quant, weight_quant and MoE (n_experts > 0) under a mesh "
+                "are not yet ported to music_analyst_tpu_torch")
+        self.mesh = mesh
+        if mesh is not None:
+            device = mesh.device
         self.decode_mode = decode_mode
         # > 0 routes batch generation through the continuous paged
         # scheduler at that slot count; $MUSICAAL_CONTINUOUS_SLOTS is the
@@ -592,6 +635,10 @@ class LlamaZeroShotClassifier(ClassifierBackend):
                           stacklevel=2)
         with torch.device("meta"):
             model = LlamaModel(self.config)
+        if mesh is not None:
+            shard_params(model, mesh)
+        # The KV heads this rank's caches hold.
+        self.kv_heads = local_kv_heads(mesh, self.config.n_kv_heads)
         self.pretrained = False
         wq = self.config.weight_quant
         if checkpoint_path and wq != "none" and state_dict is None:
@@ -622,9 +669,11 @@ class LlamaZeroShotClassifier(ClassifierBackend):
             use_float_slots_(model, state_dict)
         model = model.to_empty(device=self.device)
         if state_dict is not None:
+            state_dict = {k: as_tensor(v) for k, v in state_dict.items()}
             with torch.no_grad():
                 model.load_state_dict(
-                    {k: as_tensor(v) for k, v in state_dict.items()})
+                    shard_state_dict(state_dict, model.tp_layout)
+                    if mesh is not None else state_dict)
         elif checkpoint_path:
             load_hf_torch_checkpoint(model, checkpoint_path)
             self.pretrained = True
@@ -726,7 +775,8 @@ class LlamaZeroShotClassifier(ClassifierBackend):
         pad = torch.cat([pad, torch.zeros(B, 1, 1, L, dtype=torch.bool,
                                           device=dev)], dim=-1)
         mask = causal_mask(S, S + L, 0, device=dev) & pad
-        caches = init_caches(cfg, B, S + L, device=dev)
+        caches = init_caches(cfg, B, S + L, device=dev,
+                             n_kv_heads=self.kv_heads)
         logits, caches = self.model(prompt_ids, positions, mask, caches,
                                     last_position=lens - 1)
         caches = [KVCache(c.keys, c.values, S) for c in caches]
@@ -775,7 +825,8 @@ class LlamaZeroShotClassifier(ClassifierBackend):
         S = self.max_prompt_len
         n = int(lens[0])
         dev = self.device
-        caches = init_caches(self.config, 1, S + max_new_tokens, device=dev)
+        caches = init_caches(self.config, 1, S + max_new_tokens, device=dev,
+                             n_kv_heads=self.kv_heads)
         pad = torch.cat([padding_mask(self._tensor(lens), S),
                          torch.zeros(1, 1, 1, max_new_tokens,
                                      dtype=torch.bool, device=dev)], dim=-1)
@@ -818,7 +869,8 @@ class LlamaZeroShotClassifier(ClassifierBackend):
                          torch.zeros(B, 1, 1, max_new_tokens,
                                      dtype=torch.bool, device=dev)], dim=-1)
         mask = causal_mask(S, total, 0, device=dev) & pad
-        caches = init_caches(self.config, B, total, device=dev)
+        caches = init_caches(self.config, B, total, device=dev,
+                             n_kv_heads=self.kv_heads)
         logits, caches = self.model(
             self._tensor(ids), torch.arange(S, device=dev).expand(B, S), mask,
             caches, last_position=lens_t - 1)
@@ -891,7 +943,8 @@ class LlamaZeroShotClassifier(ClassifierBackend):
             max_new=int(max_new_tokens), decode_span=int(decode_span),
         )
         eos_id = getattr(self.tokenizer, "eos_id", ByteTokenizer.EOS)
-        return SlotDecodeRuntime(self.model, self.config, plan, eos_id)
+        return SlotDecodeRuntime(self.model, self.config, plan, eos_id,
+                                 mesh=self.mesh)
 
     def paged_runtime(
         self,
@@ -930,7 +983,7 @@ class LlamaZeroShotClassifier(ClassifierBackend):
         )
         eos_id = getattr(self.tokenizer, "eos_id", ByteTokenizer.EOS)
         return PagedDecodeRuntime(self.model, self.config, plan, eos_id,
-                                  kv_quant=kv_quant)
+                                  kv_quant=kv_quant, mesh=self.mesh)
 
     def generate_batch_continuous(
         self,

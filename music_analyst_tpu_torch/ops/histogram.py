@@ -27,13 +27,19 @@ is XLA's), so the port computes it with torch operations on the card:
   two or multiples of 2^22 only so that XLA reuses one compiled program.
   PyTorch runs eagerly, and padding is bytes over the host→device link,
   so the port moves each stream and each chunk at its own length.
-* With one device the cross-device sum (JAX's ``psum``) is the identity;
-  the host-shard path still merges its per-shard rows on the card, so its
-  measured ``merge_seconds`` keeps its meaning.  Each merge point keeps
-  JAX's ``collective.psum`` fault seam, so a one-card run trips it as
-  often as JAX's one-device mesh does, and records the merge's bytes
-  (``profiling/collectives.py``) at JAX's four call sites.  Payloads are
-  the port's unpadded ``vocab_size`` int32 bins, not JAX's buckets.
+* On a mesh of ranks (``parallel/mesh.py``) each rank counts its own
+  ``dp`` shard on its own device and the dense histograms merge with one
+  ``all_reduce(SUM)`` over ``dp`` (JAX's ``psum``; staged through host
+  memory under gloo).  Shards follow JAX: the id stream padded with
+  ``PAD_ID`` to a multiple of dp and cut into equal blocks (``shard_pad``)
+  for the device-ids and streaming paths — the streaming path cuts every
+  chunk so — and ``np.array_split`` for the host-shard path.  With one
+  device the sum is the identity; the host-shard path still merges its
+  row on the card, so its measured ``merge_seconds`` keeps its meaning.
+  Each merge point keeps JAX's ``collective.psum`` fault seam and records
+  the merge's bytes (``profiling/collectives.py``) at JAX's four call
+  sites.  Payloads are the port's unpadded ``vocab_size`` int32 bins, not
+  JAX's buckets.
 
 Counts are exact int32 (integer atomics do not depend on their order).
 """
@@ -48,7 +54,12 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
-from music_analyst_tpu_torch.parallel.mesh import DeviceMesh
+from music_analyst_tpu_torch.parallel.mesh import (
+    DeviceMesh,
+    all_gather,
+    all_reduce,
+    shard_bounds,
+)
 from music_analyst_tpu_torch.profiling.collectives import record_collective
 from music_analyst_tpu_torch.resilience.faults import fault_point
 
@@ -113,26 +124,24 @@ def sharded_histogram(
     mesh: DeviceMesh,
     axis: str = "dp",
 ) -> torch.Tensor:
-    """Global histogram of host ``ids`` sharded over the mesh's devices.
+    """Global histogram of host ``ids`` sharded over the mesh's ranks.
 
-    Each device receives its shard whole (one host→device copy) and
-    scatter-adds it; the per-device histograms are summed on the first
-    device.  Returns int32 ``[vocab_size]`` on that device (the caller's
-    host copy is the synchronisation point).
+    This rank's shard goes to its device whole (one host→device copy) and
+    is scatter-added there; the per-rank histograms are summed over
+    ``axis``.  Returns int32 ``[vocab_size]`` on this rank's device (the
+    caller's host copy is the synchronisation point).
     """
-    shards = np.array_split(np.asarray(ids), mesh.shape[axis])
+    ids = np.asarray(ids)
+    start, stop, _ = shard_bounds(ids.shape[0], mesh, axis)
     # Each device's vocab_size-wide int32 histogram joins the merge.
     record_collective(
         "histogram.device_ids", "psum",
         payload_bytes=vocab_size * 4, n_devices=mesh.shape[axis], axis=axis,
     )
     fault_point("collective.psum", op="histogram.device_ids")
-    home = mesh.devices[0]
-    total = None
-    for device, shard in zip(mesh.devices, shards):
-        hist = token_histogram(_host_tensor(shard).to(device), vocab_size)
-        total = hist.to(home) if total is None else total + hist.to(home)
-    return total
+    hist = token_histogram(_host_tensor(ids[start:stop]).to(mesh.device),
+                           vocab_size)
+    return all_reduce(hist, mesh, axis)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -167,24 +176,24 @@ def sharded_histogram_hostlocal_timed(
     """
     ids = np.asarray(ids)
     shards = mesh.shape[axis]
-    local = np.zeros((shards, vocab_size), dtype=np.int32)
-    count_seconds = []
-    for i, chunk in enumerate(np.array_split(ids, shards)):
-        t0 = time.perf_counter()
-        valid = chunk[(chunk >= 0) & (chunk < vocab_size)]
-        if valid.size:
-            local[i] = np.bincount(valid, minlength=vocab_size)
-        count_seconds.append(time.perf_counter() - t0)
+    chunk = np.array_split(ids, shards)[mesh.coords.get(axis, 0)]
+    local = np.zeros((vocab_size,), dtype=np.int32)
+    t0 = time.perf_counter()
+    valid = chunk[(chunk >= 0) & (chunk < vocab_size)]
+    if valid.size:
+        local[:] = np.bincount(valid, minlength=vocab_size)
+    # Every shard's own count time, gathered over the axis.
+    count_seconds = all_gather(
+        torch.tensor([time.perf_counter() - t0], dtype=torch.float64),
+        mesh, axis).tolist()
     record_collective(
         "histogram.hostlocal_merge", "psum",
         payload_bytes=vocab_size * 4, n_devices=shards, axis=axis,
     )
     t0 = time.perf_counter()
     fault_point("collective.psum", op="histogram.hostlocal_merge")
-    home = mesh.devices[0]
-    rows = [torch.from_numpy(local[i]).to(d) for i, d in enumerate(mesh.devices)]
-    merged = torch.stack([r.to(home) for r in rows]).sum(0, dtype=torch.int32)
-    merged = merged.cpu().numpy()   # the synchronisation point
+    row = torch.from_numpy(local).to(mesh.device)
+    merged = all_reduce(row, mesh, axis).cpu().numpy()   # the sync point
     merge_seconds = time.perf_counter() - t0
     return merged, HistogramTimings(tuple(count_seconds), merge_seconds)
 
@@ -256,7 +265,8 @@ def sharded_histogram_streaming(
     ``$MUSICAAL_PREFETCH_DEPTH``) chunks may be in flight ahead of the
     accumulate: the ring holds ``depth + 1`` buffer pairs (0 = one chunk
     at a time).  Identical counts to :func:`sharded_histogram` at every
-    chunk size.  One device only, like the mesh.
+    chunk size.  On a mesh each rank streams its ``shard_pad`` block of
+    every chunk and the histograms merge over ``axis`` once at the end.
     """
     from music_analyst_tpu_torch.runtime.prefetch import resolve_prefetch_depth
     from music_analyst_tpu_torch.telemetry import get_telemetry
@@ -266,15 +276,14 @@ def sharded_histogram_streaming(
     song_count = offsets.shape[0] - 1
     if chunk_songs <= 0:
         raise ValueError("sharded_histogram_streaming needs chunk_songs > 0")
-    if mesh.shape[axis] != 1:
-        raise NotImplementedError(
-            "streaming over more than one device is not yet ported"
-        )
     if song_count <= 0 or ids.shape[0] == 0:
         return np.zeros((vocab_size,), dtype=np.int32)
-    device = mesh.devices[0]
+    device = mesh.device
     bounds = chunk_token_bounds(offsets, chunk_songs)
-    spans = list(zip(bounds, bounds[1:]))
+    spans = []
+    for start, end in zip(bounds, bounds[1:]):
+        lo, hi, _ = shard_bounds(end - start, mesh, axis)
+        spans.append((start + lo, start + hi))
     hist = _bins(vocab_size, device)
     tel = get_telemetry()
     tel.count("histogram.stream_chunks", len(spans))
@@ -284,12 +293,13 @@ def sharded_histogram_streaming(
             _accumulate(hist, _host_tensor(ids[start:end]))
         _record_stream_merge(vocab_size, mesh, axis)
         fault_point("collective.psum", op="histogram.stream_merge")
-        return hist[:vocab_size].numpy().copy()
-    # The bytes that cross: each chunk's int32 ids, unpadded.
-    tel.count("histogram.stream_h2d_bytes", 4 * (bounds[-1] - bounds[0]))
+        return all_reduce(hist[:vocab_size], mesh, axis).numpy().copy()
+    # The bytes that cross: this rank's int32 ids of each chunk, unpadded.
+    tel.count("histogram.stream_h2d_bytes",
+              4 * sum(end - start for start, end in spans))
 
     ring = resolve_prefetch_depth(prefetch_depth) + 1
-    width = max(end - start for start, end in spans)
+    width = max(1, max(end - start for start, end in spans))
     compute = torch.cuda.current_stream(device)
     copier = torch.cuda.Stream(device)
     pinned = [torch.empty((width,), dtype=torch.int32, pin_memory=True)
@@ -317,7 +327,8 @@ def sharded_histogram_streaming(
         buf.record_stream(copier)
     _record_stream_merge(vocab_size, mesh, axis)
     fault_point("collective.psum", op="histogram.stream_merge")
-    return hist[:vocab_size].cpu().numpy()   # the synchronisation point
+    # The host copy is the synchronisation point.
+    return all_reduce(hist[:vocab_size], mesh, axis).cpu().numpy()
 
 
 def sharded_total(values: np.ndarray, mesh: DeviceMesh, axis: str = "dp") -> int:
@@ -330,9 +341,6 @@ def sharded_total(values: np.ndarray, mesh: DeviceMesh, axis: str = "dp") -> int
         payload_bytes=8, n_devices=mesh.shape[axis], axis=axis,
     )
     fault_point("collective.psum", op="histogram.scalar_total")
-    home = mesh.devices[0]
-    total = torch.zeros((), dtype=torch.int64, device=home)
-    for device, shard in zip(mesh.devices,
-                             np.array_split(values, mesh.shape[axis])):
-        total += torch.from_numpy(shard).to(device).sum().to(home)
-    return int(total)
+    start, stop, _ = shard_bounds(values.shape[0], mesh, axis)
+    total = torch.from_numpy(values[start:stop]).to(mesh.device).sum()
+    return int(all_reduce(total, mesh, axis))

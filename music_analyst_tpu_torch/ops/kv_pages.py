@@ -43,6 +43,7 @@ import torch.nn.functional as F
 from music_analyst_tpu_torch.models.layers import KVCache
 from music_analyst_tpu_torch.ops.paged_attention import PagedAttnView
 from music_analyst_tpu_torch.ops.quant import quantize_kv_page
+from music_analyst_tpu_torch.parallel.sharding import local_kv_heads
 
 KV_QUANT_SCHEMES = ("none", "int8")
 
@@ -140,7 +141,7 @@ class PagedDecodeRuntime:
     scheduler."""
 
     def __init__(self, model, config, plan: PagePlan, eos_id: int,
-                 kv_quant: str = "none") -> None:
+                 kv_quant: str = "none", mesh=None) -> None:
         if kv_quant not in KV_QUANT_SCHEMES:
             raise ValueError(
                 f"kv_quant must be one of {KV_QUANT_SCHEMES}, got {kv_quant!r}"
@@ -159,13 +160,17 @@ class PagedDecodeRuntime:
         # The dtype the pool stores (unquantized) or dequantizes to.
         self.compute_dtype = torch.bfloat16
         self.device = next(model.parameters()).device
+        # Under tensor parallelism each rank's pool holds its own
+        # n_kv_heads / tp heads (parallel/sharding.py:kv_cache_spec): a
+        # per-rank allocation, never a head slice of a full pool.
+        self.n_kv_heads = local_kv_heads(mesh, config.n_kv_heads)
 
     # -------------------------------------------------------------- state
 
     def init_caches(self) -> List:
         """A zeroed pool per layer, with ``[n_slots]`` write offsets."""
         cfg, plan = self.config, self.plan
-        shape = (plan.n_pages + 1, plan.page_size, cfg.n_kv_heads,
+        shape = (plan.n_pages + 1, plan.page_size, self.n_kv_heads,
                  cfg.dim // cfg.n_heads)
         dev = self.device
 
@@ -188,7 +193,7 @@ class PagedDecodeRuntime:
         """Device bytes one cached token costs across layers (K + V); int8
         counts its codes plus one f32 scale each for K and V."""
         cfg = self.config
-        row = cfg.n_kv_heads * (cfg.dim // cfg.n_heads)
+        row = self.n_kv_heads * (cfg.dim // cfg.n_heads)
         if self.quantized:
             return 2 * cfg.n_layers * (row + 4)
         itemsize = torch.empty((), dtype=self.compute_dtype).element_size()
@@ -198,7 +203,8 @@ class PagedDecodeRuntime:
         """What the same token costs without KV quantization."""
         cfg = self.config
         itemsize = torch.empty((), dtype=self.compute_dtype).element_size()
-        return 2 * cfg.n_layers * cfg.n_kv_heads * (cfg.dim // cfg.n_heads) * itemsize
+        return (2 * cfg.n_layers * self.n_kv_heads * (cfg.dim // cfg.n_heads)
+                * itemsize)
 
     def page_bytes(self) -> int:
         return self.plan.page_size * self.kv_token_bytes()

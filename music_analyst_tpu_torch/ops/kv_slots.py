@@ -37,6 +37,7 @@ from typing import List, Sequence, Tuple
 import torch
 
 from music_analyst_tpu_torch.models.layers import KVCache
+from music_analyst_tpu_torch.parallel.sharding import local_kv_heads
 
 
 @dataclasses.dataclass(frozen=True)
@@ -72,7 +73,8 @@ class SlotDecodeRuntime:
     model.  Holds no request state: slots, budgets and arrival order live
     in the host scheduler."""
 
-    def __init__(self, model, config, plan: SlotPlan, eos_id: int) -> None:
+    def __init__(self, model, config, plan: SlotPlan, eos_id: int,
+                 mesh=None) -> None:
         if plan.max_total > config.max_seq_len:
             raise ValueError(
                 f"prompt_region + max_new ({plan.max_total}) exceeds the "
@@ -84,6 +86,8 @@ class SlotDecodeRuntime:
         self.eos_id = int(eos_id)
         self.dtype = torch.bfloat16
         self.device = next(model.parameters()).device
+        # Each rank's cache holds its own n_kv_heads / tp heads.
+        self.n_kv_heads = local_kv_heads(mesh, config.n_kv_heads)
 
     # -------------------------------------------------------------- state
 
@@ -91,7 +95,7 @@ class SlotDecodeRuntime:
         """Zeroed ``[n_slots, max_total, n_kv, head_dim]`` keys and values
         per layer, with ``[n_slots]`` write offsets."""
         cfg, plan = self.config, self.plan
-        shape = (plan.n_slots, plan.max_total, cfg.n_kv_heads,
+        shape = (plan.n_slots, plan.max_total, self.n_kv_heads,
                  cfg.dim // cfg.n_heads)
         dev = self.device
         return [KVCache(torch.zeros(shape, dtype=self.dtype, device=dev),
@@ -106,7 +110,7 @@ class SlotDecodeRuntime:
         cfg, plan = self.config, self.plan
         itemsize = torch.empty((), dtype=self.dtype).element_size()
         return (cfg.n_layers * 2 * plan.n_slots * plan.max_total
-                * cfg.n_kv_heads * (cfg.dim // cfg.n_heads) * itemsize)
+                * self.n_kv_heads * (cfg.dim // cfg.n_heads) * itemsize)
 
     def compiled_variants(self) -> int:
         """Programs compiled for this runtime: none, eager PyTorch traces

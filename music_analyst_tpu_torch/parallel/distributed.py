@@ -35,9 +35,10 @@ from music_analyst_tpu_torch.data.csv_io import (
     write_count_csv,
 )
 from music_analyst_tpu_torch.data.ingest import IngestResult, ingest_dataset
-from music_analyst_tpu_torch.device import DeviceLike, resolve_device
+from music_analyst_tpu_torch.device import DeviceLike
 from music_analyst_tpu_torch.ops.histogram import PAD_ID, token_histogram
 from music_analyst_tpu_torch.parallel import multihost
+from music_analyst_tpu_torch.parallel.mesh import rank_device
 from music_analyst_tpu_torch.profiling.collectives import record_collective
 from music_analyst_tpu_torch.telemetry import get_telemetry
 
@@ -129,11 +130,7 @@ def _sum_across_processes(counts: torch.Tensor) -> np.ndarray:
 
 
 def _rank_device(device: DeviceLike) -> torch.device:
-    dev = resolve_device(device)
-    if dev.type == "cuda" and torch.device(device).index is None:
-        dev = torch.device(
-            "cuda", multihost.process_index() % torch.cuda.device_count())
-    return dev
+    return rank_device(device, multihost.process_index())
 
 
 def _global_counts(local_ids: np.ndarray, local_tokens: List[str],

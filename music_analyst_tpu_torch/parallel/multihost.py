@@ -16,11 +16,17 @@ two ranks on one device) or ``nccl`` (one card per rank).  Collective
 payloads live where the backend wants them: host tensors under gloo, the
 rank's card under NCCL (:func:`transport_device`).  Byte payloads stay
 ``uint8`` end to end.
+
+:func:`mesh_backend` is the backend rule of a mesh: NCCL when every rank
+has a card of its own, gloo when ranks share a card (NCCL refuses two
+ranks on one device) or run on the CPU.  :func:`join_from_env` is the
+side of a rank that ``parallel/launch.py:run_ranks`` started.
 """
 
 from __future__ import annotations
 
 import datetime
+import os
 import pickle
 from typing import Any, List, Optional
 
@@ -28,10 +34,13 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from music_analyst_tpu_torch.parallel import launch
+
 BACKENDS = ("gloo", "nccl")
 # A peer that died leaves its partners in a collective; after this long
 # the collective raises instead of waiting for ever.
 DEFAULT_TIMEOUT_S = 300.0
+_timeout_s = DEFAULT_TIMEOUT_S
 
 
 def initialize(
@@ -48,14 +57,33 @@ def initialize(
     rank's card, ``cuda:(process_id % device_count)``, becomes current."""
     if backend not in BACKENDS:
         raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
+    global _timeout_s
     if backend == "nccl":
         torch.cuda.set_device(process_id % torch.cuda.device_count())
+    _timeout_s = float(timeout_s)
     address = (coordinator_address if "://" in coordinator_address
                else f"tcp://{coordinator_address}")
     dist.init_process_group(
         backend, init_method=address, world_size=int(num_processes),
         rank=int(process_id), timeout=datetime.timedelta(seconds=timeout_s),
     )
+
+
+def group_timeout() -> datetime.timedelta:
+    """The timeout of the default group, for the groups made after it: a
+    collective a peer never joins raises after it instead of hanging."""
+    return datetime.timedelta(seconds=_timeout_s)
+
+
+def mesh_backend(n_ranks: int, device: str) -> str:
+    """NCCL when every one of ``n_ranks`` ranks has a card of its own
+    (rank r on ``cuda:(r % count)``), else gloo (ranks sharing a card, a
+    card named by index, or the CPU)."""
+    dev = torch.device(device)
+    if (dev.type == "cuda" and dev.index is None
+            and torch.cuda.device_count() >= n_ranks):
+        return "nccl"
+    return "gloo"
 
 
 def shutdown() -> None:
@@ -174,3 +202,18 @@ def broadcast_bytes(payload: Optional[bytes]) -> bytes:
     row = _byte_row(data, max(1, n)).to(dev)
     dist.broadcast(row, src=0)
     return row[:n].cpu().numpy().tobytes()
+
+
+def join_from_env() -> bool:
+    """Join the group a launcher described in the environment
+    (``parallel/launch.py:run_ranks``); ``False`` when this process was
+    not launched as a rank.  Every rank works out the same backend from
+    the world size and the device (:func:`mesh_backend`)."""
+    env = os.environ
+    if launch.ENV_RANK not in env:
+        return False
+    world = int(env[launch.ENV_WORLD])
+    initialize(env[launch.ENV_COORDINATOR], world, int(env[launch.ENV_RANK]),
+               backend=mesh_backend(world, env[launch.ENV_DEVICE]),
+               timeout_s=float(env[launch.ENV_TIMEOUT]))
+    return True

@@ -6,6 +6,9 @@ the port's backends on the requested device (CUDA by default).  One
 deliberate difference: the response-cache fingerprint also folds in
 ``framework="torch"`` and the device's name, so a cache directory shared
 with the JAX package never answers one framework with the other's bytes.
+One repair: the ``shutdown`` op's drain begins only once its reply is
+queued (JAX begins it while parsing, so the writer can see the drain with
+that reply not yet queued and end the stream without it).
 Tensor parallelism (``--tp > 1``) is not ported yet; the replica router
 (``serving/router.py``) sits in the batcher seat of this same server.
 
@@ -234,9 +237,8 @@ class SentimentServer:
         if op == "stats":
             return {"id": rid, "ok": True, "op": "stats",
                     "stats": self.stats_snapshot()}
-        # shutdown: the reply goes out first (in order), then the stream
-        # loop sees drain_event and flushes the rest.
-        self.request_drain("shutdown_op")
+        # shutdown: the reader requests the drain once this reply is
+        # queued (``handle_stream``), so it goes out first, in order.
         return {"id": rid, "ok": True, "op": "shutdown", "draining": True}
 
     def _parse_submit(self, line: str) -> ServeRequest:
@@ -362,7 +364,13 @@ class SentimentServer:
                     line = line.strip()
                     if not line:
                         continue
-                    order.put(self._parse_submit(line))
+                    req = self._parse_submit(line)
+                    order.put(req)
+                    if req.op == "shutdown":
+                        # Only now: a drain requested while parsing let
+                        # the writer see it with this reply not yet
+                        # queued, and end the stream without it.
+                        self.request_drain("shutdown_op")
             except (OSError, ValueError):
                 pass  # peer vanished mid-line: the writer flushes and exits
             finally:
@@ -656,7 +664,8 @@ def _stale_flight_witness() -> bool:
 
 def serve_mesh(tp: Optional[int]):
     """Mesh for ``--tp N``: None for the one-device layout; a width above
-    1 (tensor parallelism over several cards) is not ported yet."""
+    1 (tensor-parallel serving: a follower loop on every rank but the
+    coordinator) is not ported yet."""
     width = resolve_tp(tp)
     if width <= 1:
         return None

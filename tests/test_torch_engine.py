@@ -194,7 +194,7 @@ _NO_OP_FLAGS = [
 ]
 _UNPORTED_FLAGS = [
     (["--weight-quant", "int8"], "on-device model family"),
-    (["--devices", "2"], "not yet ported"),
+    (["--devices", "2", "--weight-quant", "int8"], "not yet ported"),
     (["--watchdog-timeout", "-5"], "finite and >= 0"),
     (["--watchdog-timeout", "soon"], "number of seconds"),
     (["--inject-faults", "ingest.read:explode"], "mode must be"),

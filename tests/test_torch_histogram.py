@@ -152,7 +152,8 @@ def test_sharded_total_and_mesh(mesh):
         values, jax_mesh()) == 136
     assert mesh.shape == {"dp": 1} and mesh.devices == (torch.device("cpu"),)
     assert data_parallel_mesh(1, device="cpu") == mesh
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    # Two devices are two ranks: without a process group it refuses.
+    with pytest.raises(RuntimeError, match="process group of 2 ranks"):
         data_parallel_mesh(2, device="cpu")
 
 

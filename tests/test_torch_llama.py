@@ -234,7 +234,7 @@ def test_unported_and_refused_configurations(monkeypatch):
     assert tl.LlamaModel(tl.LlamaConfig.tiny(attn_impl="flash")).layers[0].flash
     with pytest.raises(ValueError, match="MoE expert stacks"):
         tl.LlamaConfig.tiny(n_experts=4, weight_quant="int8")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         tl.LlamaZeroShotClassifier(mesh=object(), device="cpu")
     with pytest.raises(ValueError, match="unknown llama preset"):
         tl.LlamaZeroShotClassifier.from_pretrained_or_random(

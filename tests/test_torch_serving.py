@@ -19,6 +19,7 @@ import dataclasses
 import io
 import json
 import sys
+import time
 
 import jax
 import numpy as np
@@ -137,6 +138,24 @@ def test_stats_and_shutdown_match_jax(songs):
     assert set(gs["requests"]) == set(ws["requests"])
     for key in ("admitted", "completed", "shed", "failed"):
         assert gs["requests"][key] == ws["requests"][key]
+
+
+def test_shutdown_reply_survives_a_slow_drain_record(songs, monkeypatch):
+    """The ``shutdown`` reply is queued before its drain begins: a slow
+    flight-record dump inside the drain must not let the writer see the
+    drain with an empty queue and end the stream without that reply."""
+    from music_analyst_tpu_torch.observability import flight
+
+    class _SlowRecorder:
+        def dump(self, **_):
+            time.sleep(0.3)
+
+    monkeypatch.setattr(flight, "get_flight_recorder", _SlowRecorder)
+    lines = _lines(songs[:2]) + [json.dumps({"id": "z", "op": "shutdown"})]
+    got = _stream(PORT, lines, MockKeywordClassifier(device="cpu"),
+                  max_batch=4, max_wait_ms=5.0)
+    assert [r["id"] for r in got] == ["r0", "r1", "z"]
+    assert got[-1]["draining"] is True
 
 
 @pytest.fixture(scope="module")

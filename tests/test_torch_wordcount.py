@@ -149,7 +149,7 @@ def test_analyze_without_device_raises_without_a_card(monkeypatch,
 
 
 @pytest.mark.parametrize("flags,message", [
-    (["--devices", "2"], "not yet ported"),
+    (["--devices", "-1"], "must be >= 1"),
     (["--watchdog-timeout", "nan"], "finite and >= 0"),
     (["--trace-dir", "t", "--profile-dir", "p"], "give one of them"),
 ])
