@@ -29,6 +29,10 @@
    A profile that saw no device event is taken again, twice at most; if
    none did, the calls are timed by CUDA events instead, and the case is
    logged and listed under ``timed_by_events`` in ``chip_smoke.json``.
+   The served DistilBERT stream of step 8 and the ``--profile-dir`` trace
+   of step 9 are taken again the same way (the stream through a fresh
+   server, the command as a new process) while their profile holds no
+   device event, and must then name ``flash_wgmma_kernel``.
    The scan is timed on a ``--mock`` batch of the corpus (its first 4,096
    songs, padded to the 4,096-byte bucket) and on the random matrix.  The
    flash kernel's output at the main shape (B=8192, corpus lengths) is
@@ -48,7 +52,8 @@
    One flat batch is then profiled: host prepare time, device busy time by
    kernel group, and the card's idle share over the batch.
 5. Drives the Llama slice at full width: ``LlamaConfig.llama3_8b()``
-   (32 layers, seeded random bf16 weights drawn on the card) through
+   (4 of its 32 layers, ``LLAMA_LAYERS``, since step 10's sweep over
+   ranks; seeded random bf16 weights drawn on the card) through
    ``run_sentiment`` in generate mode on the continuous paged scheduler
    (16 songs, 8 slots, one run after a warm-up on 8 prompts; ``paged_attention``
    must launch exactly once per layer per decode step), in score mode (16
@@ -88,21 +93,23 @@
    weight with its nibbles swapped, or one group's scale dropped, must
    break the limit).  After step 4, full DistilBERT ``-int8`` and
    ``weight_quant`` int8 / int4 through ``run_sentiment`` once each on
-   8,192 songs (16,384 before step 13; flash must launch), logits on them against the bf16 model on
-   the same weights, stored bytes and peak memory.  After step 6,
-   ``wordcount-per-song`` as one process on the 16,384-song CSV (the
-   57,650-song one until step 13 needed the time) (global
+   4,096 songs (8,192 before step 10's sweep over ranks, 16,384 before
+   step 13; flash must launch), logits on the first 8,192 against the
+   bf16 model on the same weights, stored bytes and peak memory.  After step 6,
+   ``wordcount-per-song`` as one process on a 4,096-song CSV (16,384
+   songs until step 10's sweep over ranks, 57,650 until step 13) (global
    counts sum to the per-song counts, ranked by count, one row group per
    song with tokens).  After step 5 (whose bf16 generate phase runs once
    now), Llama-3-8B with weights drawn on the card and quantized kernel by
-   kernel: ``weight_quant`` int8 in generate mode (10 songs, two waves on
-   8 continuous slots) and score mode (8), int4 in generate mode (10,
-   two waves), dynamic int8 in
-   score mode (8), paged attention once per layer per decode step; a
-   decoder layer rebuilt in f32 on the card and on the CPU from the same
-   codes must agree; stored bytes, init and run peak memory (the init
-   must peak below the bf16 weights' bytes), and a profiled decode
-   dispatch per weight scheme.
+   kernel: each weight scheme is first built at all 32 layers for its
+   stored bytes and init peak memory (the init must peak below the bf16
+   weights' bytes), then run at ``LLAMA_LAYERS`` (4) layers:
+   ``weight_quant`` int8 in generate mode (9 songs, two waves on 8
+   continuous slots) and score mode (8), int4 in generate mode (9, two
+   waves), dynamic int8 in score mode (8), paged attention once per layer
+   per decode step; a decoder layer rebuilt in f32 on the card and on the
+   CPU from the same codes must agree; run peak memory and a profiled
+   decode dispatch per weight scheme.
 
 8. Drives ``serve`` (the resident NDJSON server).  After step 4's
    ``--mock`` CLI, ``python -m music_analyst_tpu_torch serve --stdio
@@ -118,8 +125,9 @@
    logits served for each request id must hold the plain reference's
    (``forward_logits`` on its text), each reply's label must follow its
    own logits, and a label may differ from the batch engine's only at a
-   near-tie.  At the end of step 5, on the same Llama-3-8B, 16
-   ``generate`` requests (8 slots, 16 new tokens) through the threaded
+   near-tie.  At the end of step 5, on the same Llama-3-8B, 12
+   ``generate`` requests (16 before step 10's sweep over ranks; a first
+   wave filling the 8 slots, then 4; 16 new tokens) through the threaded
    continuous scheduler behind the server: paged (the baseline),
    speculative (k = 4; text byte-identical to the baseline), a
    priority-2 burst preempting priority-1 decodes under a 1 ms TTFT
@@ -165,11 +173,12 @@
    32-layer ``llama3_8b`` (random bf16 weights) through flash against
    dense on the same weights, B = 8, S = 513, unpacked and packed; flash
    launches once per layer per forward.  The trainer at ``llama3_8b``'s
-   full width with 4 layers (f32 masters and AdamW moments): 5 steps (lr
+   full width with 2 layers (4 before step 10's sweep over ranks; f32
+   masters and AdamW moments): 5 steps (lr
    1e-4) on one seeded batch and 3 packed batches, each through
    ``prefetch_batches``; every loss finite, the fifth below the first,
    ``train_steps`` counting 8; the trained model's loss through flash
-   against dense (4 launches); ``save_train_state`` then
+   against dense (2 launches); ``save_train_state`` then
    ``restore_train_state`` in a temporary directory must give back the
    masters, moments and step bit for bit; step wall time by CUDA events,
    tokens/s, peak memory, and one more step split into loading the
@@ -177,9 +186,15 @@
    ``torch.profiler``.  MoE at ``llama3_8b`` width (2 layers, 8 experts,
    top-2): sparse dispatch at lossless capacity against dense (last
    prompt logits and label scores over 8 prompts), the drops at capacity
-   1.25, int8 experts against the float model.  ``sweep --devices 1,2``
-   as a process on step 6's CSV: one point, one ``skipping np=2`` line,
-   the summary and the point's metrics.
+   1.25, int8 experts against the float model.  ``sweep --devices 1,2,4``
+   as a process on step 6's CSV with a corpus cache (point 1 cold, the
+   later points warm), each point above 1 a mesh of ranks on the one card
+   over gloo: no skip line, the summary listing [1, 2, 4], each mesh named
+   on stderr, each point's metrics with ``processes == N``, N ``per_chip``
+   rows on the card and the corpus's songs, the np 4 point's CSVs equal
+   to the oracle; each point's wall and speedup beside the process's
+   wall.  A 2-rank point whose rank 1 exits 1 after its last collective
+   must exit non-zero and publish neither its metrics nor a summary.
 
 11. Drives the fault seams, the watchdog and the native WordPiece path,
    after step 10; each drill is held against the same run without faults
@@ -199,11 +214,12 @@
    ``checkpoint.load:error@2;h2d.transfer:error@3`` (every code and scale
    equal bit for bit).  (b) A WordPiece vocabulary (at most 30,522
    entries) built from the corpus, then full-width DistilBERT
-   ``run_sentiment`` under ``$MUSICAAL_BERT_VOCAB`` over 8,192 of the songs
-   (16,384 before step 13) with the native tokenizer and with the Python one: the ids of every
-   batch equal (and of the edge rows, encoded apart), the native run's
+   ``run_sentiment`` under ``$MUSICAAL_BERT_VOCAB`` over 4,096 of the songs
+   (8,192 before step 10's sweep over ranks, 16,384 before step 13) with
+   the native tokenizer and with the Python one: the ids of every batch
+   equal (and of the edge rows, encoded apart), the native run's
    manifest counting every song on the native path, labels identical;
-   each run's first 8,192-song batch times its tokenizer, and each run's
+   each run's first 4,096-song batch times its tokenizer, and each run's
    songs/s is reported.
 
 12. Drives the multi-process paths, after step 11, with every rank a
@@ -211,7 +227,8 @@
    device), the kernels built before the first rank starts; a rank that
    fails or overstays kills its peers and fails the run.  (a)
    ``distributed_wordcount`` (``parallel/distributed.py``) on step 6's
-   57,650-song CSV at np 1, 2 and 4: the coordinator's CSVs byte-identical
+   57,650-song CSV at np 2 and 4 (1 too before step 10's sweep over
+   ranks): the coordinator's CSVs byte-identical
    to the single-process ``analyze`` output and the ``np.bincount``
    oracle, every rank's totals equal, one ``per_chip`` row per process;
    at np 2 a variant whose last rank starts one record late must break
@@ -235,8 +252,8 @@
    and heads; paged with tp 2's 16 query and 4 KV heads), each against
    its plain version, beside its bound and the library call.  (a)
    ``analyze --devices 2`` and ``--devices 4`` (the CLI launching its
-   ranks), plus ``--devices 2 --chunk-songs 4096``, on step 6's CSV: CSVs byte-identical to the
-   oracle, one ``per_chip`` row per rank, the manifest naming the mesh
+   ranks), plus ``--devices 2 --chunk-songs 4096``, on step 6's
+   CSV: CSVs byte-identical to the oracle, one ``per_chip`` row per rank, the manifest naming the mesh
    and gloo; process wall, songs/s and ``collectives.total_bytes``.  (b)
    ``sentiment --model distilbert --devices 2`` at full width on the
    16,384 songs (batch 8192, step 9's split checkpoint through
@@ -250,7 +267,8 @@
    within 5e-2 of the scale of the one-rank logits; the row-parallel bias
    added before the reduce, and two ranks' head shards swapped, must
    each fail.  (d) Llama-3-8B at tp 2 as two ranks, full
-   width and 32 layers, random bf16 weights drawn whole from seed 0 on
+   width and step 5's ``LLAMA_LAYERS`` (4 of 32) layers, random bf16
+   weights drawn whole from seed 0 on
    each rank and sliced: score-mode labels on 16 songs equal step 5's;
    generate mode on 8 prompts through the paged kernel (once per layer
    per decode step on each rank), the share of texts byte-identical to
@@ -1356,10 +1374,15 @@ PAGED_PLAIN_REL = 2.0 ** -5
 #  - Llama logits of one decode step, paged kernel vs dense attention over
 #    the gathered view, same pool state: the two round attention
 #    differently (the kernel keeps logits and weights in f32, dense rounds
-#    both to bf16), and 32 bf16 layers carry the difference to the logits;
+#    both to bf16), and the bf16 layers carry the difference to the logits;
 #    5e-2 of the logit scale (max |logit|).  A step that ignores the slot
 #    lengths (attends to every row of its pages) must break it.
 LLAMA_LOGIT_REL_TOL = 5e-2
+# The Llama-3-8B phases (steps 5, 7, 8 and 13) run at full width and 4 of
+# its 32 layers, cut in step 10's sweep over ranks to keep the script well
+# inside its time; the quantized inits are also built at all 32 layers,
+# for the memory they must stay under (step 7).
+LLAMA_LAYERS = 4
 LLAMA_SONGS = 16          # generate mode (64, then 32; cut to fit steps 8 and 13)
 LLAMA_REPEATS = 1         # bf16 generate runs
 LLAMA_SCORE_SONGS = 16    # score mode, one batch
@@ -1774,10 +1797,13 @@ def decode_breakdown(torch, sched) -> dict:
 
 
 def llama_path(torch, dev, card, serve=None) -> dict:
-    """Full-width Llama-3-8B (random bf16 weights drawn on the card) through
+    """Full-width Llama-3-8B at LLAMA_LAYERS layers (random bf16 weights
+    drawn on the card) through
     run_sentiment: generate mode on the continuous paged scheduler (8
     slots, page 16, chunk 64, 16 new tokens, span 4, prefix cache on) and
     score mode; int8 pages; model-level checks."""
+    import dataclasses
+
     import numpy as np
 
     from music_analyst_tpu_torch import kernels
@@ -1799,7 +1825,7 @@ def llama_path(torch, dev, card, serve=None) -> dict:
     report = {}
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    cfg = LlamaConfig.llama3_8b()
+    cfg = dataclasses.replace(LlamaConfig.llama3_8b(), n_layers=LLAMA_LAYERS)
     clf = LlamaZeroShotClassifier(config=cfg, max_prompt_len=PAGED_REGION,
                                   device=dev, seed=0, decode_mode="generate",
                                   continuous_slots=PAGED_SLOTS)
@@ -1807,8 +1833,9 @@ def llama_path(torch, dev, card, serve=None) -> dict:
     report["init_s"] = time.perf_counter() - t0
     report["weights_bytes"] = sum(p.numel() * p.element_size()
                                   for p in clf.model.parameters())
-    log(f"llama3_8b random init on the card in {report['init_s']:.1f} s, "
-        f"{report['weights_bytes'] / 1e9:.2f} GB of weights")
+    log(f"llama3_8b ({cfg.n_layers} layers) random init on the card in "
+        f"{report['init_s']:.1f} s, {report['weights_bytes'] / 1e9:.2f} GB of "
+        f"weights")
     dataset = os.path.join(WORK, f"songs_{LLAMA_SONGS}.csv")
     generate_dataset(dataset, num_songs=LLAMA_SONGS, seed=13)
     songs = list(iter_songs(dataset))
@@ -1927,7 +1954,7 @@ def llama_path(torch, dev, card, serve=None) -> dict:
     del sched
     torch.cuda.empty_cache()
     if serve is not None:
-        # The serve phase reuses this model (no second 17 GB build).
+        # The serve phase reuses this model (no second build).
         clf.decode_mode = "generate"
         report["serve"] = serve(clf, prompts)
     del clf
@@ -1959,7 +1986,9 @@ QUANT_REL_TOL = 1e-6
 #    (tests/test_quant.py:54-77, a dynamic int8 bound).  The JAX package
 #    holds int4 to no such bound: its step (max|w| / 7 per group of 128)
 #    is ~18x int8's, and its max |diff| is reported.
-DQ_SONGS = BATCH             # songs of each quantized DistilBERT run (16,384 before)
+DQ_SONGS = 4096              # songs of each quantized DistilBERT run (8,192
+                             # before step 10's sweep over ranks, 16,384
+                             # before step 13)
 QUANT_LOGIT_CORR = 0.99
 QUANT_LOGIT_SPREAD = 0.1
 #  - one quantized layer (DistilBERT encoder layer 0 on 8 x 128 tokens;
@@ -1976,11 +2005,12 @@ QUANT_LOGIT_SPREAD = 0.1
 # song), each layer projection with one scale or weight row dropped.
 # The int8 generate run was 64 songs; cut to 24 (three waves of 8 slots)
 # to fit the serve phases in the script's time, then to 16 to fit step 13,
-# then to 10 (int4: 16 to 10) to keep the script well inside its limit.
+# then to 10 (int4: 16 to 10) to keep the script well inside its limit,
+# then to 9 with the cut to LLAMA_LAYERS layers.
 # Each generate run keeps two waves, so slots are refilled under every
 # weight scheme (``run`` fails on a run of one wave).
-LLAMA_WQ_SONGS = 10        # weight_quant int8, generate mode (two waves)
-LLAMA_WQ_INT4_SONGS = 10   # weight_quant int4, generate mode (two waves)
+LLAMA_WQ_SONGS = 9         # weight_quant int8, generate mode (two waves)
+LLAMA_WQ_INT4_SONGS = 9    # weight_quant int4, generate mode (two waves)
 LLAMA_Q_SCORE_SONGS = 8    # weight_quant int8 and dynamic int8, score (16 before)
 
 
@@ -2211,11 +2241,11 @@ def distilbert_layer_check(torch, dev, clf, tlen) -> dict:
 
 
 def distilbert_quant_path(torch, dev, dataset, card) -> dict:
-    """Full DistilBERT, flash attention, at batch 8192 on the first 8,192
-    songs of the corpus: ``-int8`` (dynamic) and ``weight_quant`` int8 / int4, each
-    through ``run_sentiment`` once, against the bf16 model on the same
-    weights (seed 0) on the first batch; encoder layer 0 against its plain
-    version on the CPU."""
+    """Full DistilBERT, flash attention: ``-int8`` (dynamic) and
+    ``weight_quant`` int8 / int4, each through ``run_sentiment`` once on
+    the first DQ_SONGS songs of the corpus, against the bf16 model on the
+    same weights (seed 0) on the first batch of 8,192; encoder layer 0
+    against its plain version on the CPU."""
     import dataclasses
 
     from music_analyst_tpu_torch import kernels
@@ -2321,9 +2351,11 @@ def llama_layer_check(torch, dev, clf) -> dict:
 
 def llama_quant_path(torch, dev, card) -> dict:
     """Full-width Llama-3-8B with random weights drawn on the card and
-    quantized kernel by kernel: weight_quant int8 (generate, 10 songs on
-    8 continuous slots; score, 8), weight_quant int4 (generate, 10) and
-    dynamic int8 (score, 8), each through ``run_sentiment`` once."""
+    quantized kernel by kernel, each weight scheme built at all 32 layers
+    for its init memory and then run at LLAMA_LAYERS: weight_quant int8
+    (generate, 9 songs on 8 continuous slots; score, 8), weight_quant
+    int4 (generate, 9) and dynamic int8 (score, 8), each through
+    ``run_sentiment`` once."""
     import dataclasses
 
     from music_analyst_tpu_torch import kernels
@@ -2345,19 +2377,19 @@ def llama_quant_path(torch, dev, card) -> dict:
         generate_dataset(dataset, num_songs=LLAMA_SONGS, seed=13)
     prompts = [PROMPT_TEMPLATE.format(lyrics=t.strip()[:LYRICS_TRUNCATION])
                for _, _, t in iter_songs(dataset)]
-    base = LlamaConfig.llama3_8b()
-    bf16_bytes = 2 * (2 * base.vocab_size * base.dim + base.n_layers * (
-        2 * base.dim * base.dim + 2 * base.dim * base.head_dim
-        * base.n_kv_heads + 3 * base.dim * base.hidden_dim))
-    report = dict(bf16_weight_bytes=bf16_bytes)
+    full = LlamaConfig.llama3_8b()
+    bf16_bytes = 2 * (2 * full.vocab_size * full.dim + full.n_layers * (
+        2 * full.dim * full.dim + 2 * full.dim * full.head_dim
+        * full.n_kv_heads + 3 * full.dim * full.hidden_dim))
+    report = dict(bf16_weight_bytes=bf16_bytes, layers=LLAMA_LAYERS)
 
-    def build(**field):
+    def build(n_layers=LLAMA_LAYERS, **field):
         gc.collect()              # a scheduler and its model form a cycle
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         clf = LlamaZeroShotClassifier(
-            config=dataclasses.replace(base, **field),
+            config=dataclasses.replace(full, n_layers=n_layers, **field),
             max_prompt_len=PAGED_REGION, device=dev, seed=0,
             decode_mode="generate", continuous_slots=PAGED_SLOTS)
         torch.cuda.synchronize()
@@ -2407,8 +2439,14 @@ def llama_quant_path(torch, dev, card) -> dict:
         log(f"llama {tag} on {card}: {json.dumps(out)}")
         return out
 
+    def full_depth(**field):
+        """The stored bytes and init memory of all 32 layers."""
+        return build(full.n_layers, **field)[1]
+
+    report["wq_int8"] = full_depth(weight_quant="int8")
     clf, info = build(weight_quant="int8")
-    report["wq_int8"] = dict(info, layer_check=llama_layer_check(torch, dev, clf))
+    report["wq_int8"].update(run_init=info,
+                             layer_check=llama_layer_check(torch, dev, clf))
     report["wq_int8"]["generate"] = run(clf, "generate", LLAMA_WQ_SONGS,
                                         "wq_int8_generate")
     report["wq_int8"]["score"] = run(clf, "score", LLAMA_Q_SCORE_SONGS,
@@ -2420,8 +2458,10 @@ def llama_quant_path(torch, dev, card) -> dict:
     report["wq_int8"]["decode_breakdown"] = decode_breakdown(torch, sched)
     report["wq_int8"]["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
     del sched, clf
+    report["wq_int4"] = full_depth(weight_quant="int4")
     clf, info = build(weight_quant="int4")
-    report["wq_int4"] = dict(info, layer_check=llama_layer_check(torch, dev, clf))
+    report["wq_int4"].update(run_init=info,
+                             layer_check=llama_layer_check(torch, dev, clf))
     report["wq_int4"]["generate"] = run(clf, "generate", LLAMA_WQ_INT4_SONGS,
                                         "wq_int4_generate")
     clf._slot_schedulers.clear()
@@ -2449,13 +2489,19 @@ def llama_quant_path(torch, dev, card) -> dict:
     return report
 
 
-def persong_path(dataset, card) -> dict:
-    """``wordcount-per-song`` as one process on ``dataset``; the two files
-    must agree with each other and with the CSV."""
+PERSONG_SONGS = 4096   # 16,384 until step 10's sweep over ranks
+
+
+def persong_path(card) -> dict:
+    """``wordcount-per-song`` as one process on a CSV of PERSONG_SONGS
+    songs; the two files must agree with each other and with the CSV."""
     import csv
 
+    from music_analyst_tpu_torch.data.synthetic import generate_dataset
     from music_analyst_tpu_torch.data.tokenizer import tokenize_latin1
 
+    dataset = os.path.join(WORK, f"persong_{PERSONG_SONGS}.csv")
+    generate_dataset(dataset, num_songs=PERSONG_SONGS, seed=11)
     out_dir = os.path.join(WORK, "persong")
     t0 = time.perf_counter()
     # csv.Sniffer takes this corpus's spaces for the delimiter (in both
@@ -2500,7 +2546,9 @@ def persong_path(dataset, card) -> dict:
 SERVE_MOCK_REQUESTS = 2048
 SERVE_DISTILBERT_REQUESTS = 4096
 SERVE_MAX_BATCH = 256
-SERVE_PROMPTS = 16        # generate requests per Llama serve variant
+SERVE_PROMPTS = 12        # generate requests per Llama serve variant (16
+                          # before step 10's sweep over ranks): 8 fill the
+                          # slots, then 4 more
 SERVE_K = 4               # draft tokens per slot in the speculative variant
 #  - DistilBERT through the server vs the batch engine, same weights: the
 #    server pads its pow2 batches to another width and mixes other songs
@@ -2735,25 +2783,34 @@ def serve_distilbert_path(torch, dev, clf, dataset, texts, card) -> dict:
         batch_labels = [r.label for r in batch.rows]
         residency = ModelResidency(model="distilbert", backend=clf, device=dev)
         warm = residency.warmup(SERVE_MAX_BATCH)
-        batcher = DynamicBatcher(
-            build_resident_ops(residency), max_batch=SERVE_MAX_BATCH,
-            max_queue=n + 1, device=dev,
-            failover=lambda exc: residency.reload() is not None).start()
-        server = SentimentServer(batcher, residency, mode="stdio")
-        hook = record(serve_store)
-        try:
-            kernels.reset_launches()
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                t0 = time.perf_counter()
-                replies = _stream(server, _lines(texts))
-                torch.cuda.synchronize()
-                wall = time.perf_counter() - t0
-            launches = kernels.launches()
-        finally:
-            hook.remove()
+        # A profile with no device event at all is taken again, the whole
+        # stream through a fresh batcher and server (the drain stops them).
+        for attempt in range(1, PROFILE_TRIES + 1):
+            serve_store.clear()
+            batcher = DynamicBatcher(
+                build_resident_ops(residency), max_batch=SERVE_MAX_BATCH,
+                max_queue=n + 1, device=dev,
+                failover=lambda exc: residency.reload() is not None).start()
+            server = SentimentServer(batcher, residency, mode="stdio")
+            hook = record(serve_store)
+            try:
+                kernels.reset_launches()
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    t0 = time.perf_counter()
+                    replies = _stream(server, _lines(texts))
+                    torch.cuda.synchronize()
+                    wall = time.perf_counter() - t0
+                launches = kernels.launches()
+            finally:
+                hook.remove()
+            _no_serve_threads("serve distilbert")
+            if device_kernel_ms(prof):
+                break
+            log(f"serve distilbert: profile {attempt} of the stream holds "
+                f"no device event" + ("; streaming again"
+                                      if attempt < PROFILE_TRIES else ""))
     finally:
         clf.neutral_threshold = default_threshold
-    _no_serve_threads("serve distilbert")
     flash_events = sum(e.count for e in prof.key_averages()
                        if "flash_wgmma_kernel" in e.key)
     if launches["flash_attention"] == 0 or flash_events == 0:
@@ -2811,7 +2868,7 @@ def serve_distilbert_path(torch, dev, clf, dataset, texts, card) -> dict:
                    scale=scale, server_shifted_by_one=shifted),
                labels_differing=dict(differ=len(differ),
                                      near_ties=int(near.sum())),
-               warmup=warm)
+               warmup=warm, profile_attempts=attempt)
     log(f"serve distilbert on {card}: {json.dumps(out)}")
     return out
 
@@ -2880,7 +2937,7 @@ def _dispatch_profile(sched, taken, what: str) -> dict:
 
 def serve_llama_path(torch, dev, clf, prompts, card) -> dict:
     """(c) ``generate`` through the threaded continuous scheduler behind
-    ``SentimentServer`` on the full-width Llama the Llama phase built: 16
+    ``SentimentServer`` on the full-width Llama the Llama phase built: 12
     prompts, 8 slots, 16 new tokens; paged plain (the baseline), paged
     with speculation (text byte-identical to the baseline), a priority-2
     burst preempting priority-1 decodes under a TTFT target (at least one
@@ -2915,7 +2972,7 @@ def serve_llama_path(torch, dev, clf, prompts, card) -> dict:
         profiled = None if staged else _profile_dispatches(torch, sched)
         sched.start()
         server = SentimentServer(batcher, mode="stdio", decode=sched)
-        half = SERVE_PROMPTS // 2
+        half = PAGED_SLOTS            # the first wave fills every slot
 
         def lines():
             yield from gen_lines(range(half))
@@ -3404,25 +3461,33 @@ def manifest_tools_path(torch, card, dataset, run_dirs, trace_dir) -> dict:
     prof_dir = os.path.join(WORK, "profiled_sentiment_profile")
     tel_dir = os.path.join(WORK, "profiled_sentiment_telemetry")
     out_dir = os.path.join(WORK, "profiled_sentiment")
-    for d in (prof_dir, tel_dir):
-        shutil.rmtree(d, ignore_errors=True)
-    t0 = time.perf_counter()
-    run = _cli(["sentiment", dataset, "--model", "distilbert",
-                "--limit", str(PROFILED_SONGS),
-                "--batch-size", str(PROFILED_SONGS),
-                "--profile-dir", prof_dir, "--telemetry-dir", tel_dir,
-                "--output-dir", out_dir])
-    wall = time.perf_counter() - t0
-    if run.returncode != 0:
-        fail(f"sentiment --profile-dir: rc {run.returncode}: "
-             f"{run.stderr[-2000:]}")
-    with open(os.path.join(prof_dir, "torch_trace.json")) as fh:
-        trace = json.load(fh)
-    flash_events = sum(1 for e in trace.get("traceEvents", [])
-                       if e.get("cat") == "kernel"
+    # A trace with no device event at all is taken again: the command
+    # runs again, up to PROFILE_TRIES times in all.
+    for attempt in range(1, PROFILE_TRIES + 1):
+        for d in (prof_dir, tel_dir):
+            shutil.rmtree(d, ignore_errors=True)
+        t0 = time.perf_counter()
+        run = _cli(["sentiment", dataset, "--model", "distilbert",
+                    "--limit", str(PROFILED_SONGS),
+                    "--batch-size", str(PROFILED_SONGS),
+                    "--profile-dir", prof_dir, "--telemetry-dir", tel_dir,
+                    "--output-dir", out_dir])
+        wall = time.perf_counter() - t0
+        if run.returncode != 0:
+            fail(f"sentiment --profile-dir: rc {run.returncode}: "
+                 f"{run.stderr[-2000:]}")
+        with open(os.path.join(prof_dir, "torch_trace.json")) as fh:
+            trace = json.load(fh)
+        device = [e for e in trace.get("traceEvents", [])
+                  if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+        if device:
+            break
+        log(f"sentiment --profile-dir: trace {attempt} holds no device "
+            f"event" + ("; running the command again"
+                        if attempt < PROFILE_TRIES else ""))
+    flash_events = sum(1 for e in device if e.get("cat") == "kernel"
                        and "flash_wgmma_kernel" in e.get("name", ""))
-    kernel_events = sum(1 for e in trace.get("traceEvents", [])
-                        if e.get("cat") == "kernel")
+    kernel_events = sum(1 for e in device if e.get("cat") == "kernel")
     if flash_events == 0:
         fail(f"sentiment --profile-dir: the device trace holds no "
              f"flash_wgmma_kernel ({kernel_events} kernel events)")
@@ -3438,7 +3503,8 @@ def manifest_tools_path(torch, card, dataset, run_dirs, trace_dir) -> dict:
     if manifest["profiling"].get("profiler", {}).get("status") != "recording":
         fail(f"sentiment --profile-dir: profiler {manifest['profiling']}")
     out = dict(wall_s=wall, flash_events=flash_events,
-               kernel_events=kernel_events, span_events=len(spans),
+               kernel_events=kernel_events, profile_attempts=attempt,
+               span_events=len(spans),
                manifest_wall_s=manifest["wall_seconds"],
                manifest_device=manifest["device"]["kinds"])
 
@@ -3472,7 +3538,8 @@ def manifest_tools_path(torch, card, dataset, run_dirs, trace_dir) -> dict:
 # ---------------------------------------------------------------------------
 
 TRAIN_B, TRAIN_S = 8, 513        # token rows: 512 inputs and 512 targets
-TRAIN_LAYERS = 4                 # llama3_8b width, depth cut to fit 80 GB
+TRAIN_LAYERS = 2                 # llama3_8b width, depth cut to fit 80 GB
+                                 # (4 before step 10's sweep over ranks)
 TRAIN_LR = 1e-4
 TRAIN_FIXED_STEPS, TRAIN_PACKED_STEPS = 5, 3
 #  - flash at Llama's shapes: the bf16 elementwise bound above (one
@@ -4056,32 +4123,98 @@ def moe_path(torch, dev, card) -> dict:
     return out
 
 
-def sweep_path(dataset, card) -> dict:
-    """``sweep --devices 1,2`` as a process on the analyze CSV: one point,
-    one ``skipping np=2`` line, the summary and the point's metrics."""
+SWEEP_COUNTS = (1, 2, 4)          # sweep --devices 1,2,4 on step 6's CSV
+# The broken sweep: rank 1 of its 2-rank point runs the point's analyze,
+# then exits 1, after its last collective and after leaving the group.
+_SWEEP_LATE_RANK = r'''
+import os, sys
+from music_analyst_tpu_torch.engines.sweep import run_sweep
+from music_analyst_tpu_torch.parallel import launch
+dataset, out, cache = sys.argv[1:]
+RANK = ("import os, sys\n"
+        "from music_analyst_tpu_torch.cli.main import main\n"
+        "main(sys.argv[1:])\n"
+        "os._exit(1)\n")
+launch.module_command = lambda argv: [sys.executable, "-c", RANK, *argv]
+run_sweep(dataset, device_counts=[2], output_dir=out, ingest_backend="native",
+          corpus_cache_dir=cache, device="cuda")
+'''
+
+
+def sweep_path(analyze, oracle, card) -> dict:
+    """``sweep --devices 1,2,4`` as a process on step 6's CSV with a corpus
+    cache (point 1 cold, the later points warm), each point above 1 a mesh
+    of ranks on the one card over gloo: no skip line, each mesh named on
+    stderr, each point's metrics with one ``per_chip`` row a rank and the
+    corpus's songs, the np 4 point's CSVs equal to the oracle.  Then a
+    2-rank point whose rank 1 exits 1 after its last collective must exit
+    non-zero and publish neither its metrics nor a summary."""
+    dataset, songs = analyze["dataset"], analyze["songs"]
     out_dir = os.path.join(WORK, "sweep")
-    shutil.rmtree(out_dir, ignore_errors=True)
+    cache = os.path.join(WORK, "sweep_corpus_cache")
+    for d in (out_dir, cache):
+        shutil.rmtree(d, ignore_errors=True)
+    counts = ",".join(map(str, SWEEP_COUNTS))
     t0 = time.perf_counter()
-    proc = _cli(["sweep", dataset, "--devices", "1,2", "--output-dir",
-                 out_dir, "--no-corpus-cache"])
+    proc = _cli(["sweep", dataset, "--devices", counts, "--ingest", "native",
+                 "--corpus-cache-dir", cache, "--output-dir", out_dir])
     wall = time.perf_counter() - t0
     if proc.returncode:
-        fail(f"sweep exited {proc.returncode}: {proc.stderr[-2000:]}")
+        fail(f"sweep exited {proc.returncode}: {proc.stderr[-3000:]}")
     skips = [ln for ln in proc.stdout.splitlines()
              if ln.startswith("skipping np=")]
-    if skips != ["skipping np=2: only 1 devices"]:
-        fail(f"sweep: expected one skip line, got {skips}")
+    if skips:
+        fail(f"sweep: skipped points {skips}")
+    for n in SWEEP_COUNTS[1:]:
+        if f"mesh: {n} ranks over gloo" not in proc.stderr:
+            fail(f"sweep: no gloo mesh of {n} ranks named: "
+                 f"{proc.stderr[-2000:]}")
     with open(os.path.join(out_dir, "sweep_summary.json")) as fh:
         summary = json.load(fh)
-    with open(os.path.join(out_dir, "performance_metrics_np1.json")) as fh:
-        metrics = json.load(fh)
-    if ([r["devices"] for r in summary["runs"]] != [1]
-            or metrics.get("device_platform") != "gpu"
-            or metrics.get("total_songs") != ANALYZE_SONGS):
-        fail(f"sweep: summary {summary}, metrics {metrics}")
-    out = dict(process_wall_s=wall, summary=summary,
-               total_songs=metrics["total_songs"])
-    log(f"sweep on {card}: {json.dumps(out)}")
+    if [r["devices"] for r in summary["runs"]] != list(SWEEP_COUNTS):
+        fail(f"sweep: summary {summary}")
+    points = {}
+    for run in summary["runs"]:
+        n = run["devices"]
+        with open(os.path.join(out_dir, run["metrics_file"])) as fh:
+            metrics = json.load(fh)
+        if (metrics.get("processes") != n or len(metrics["per_chip"]) != n
+                or metrics.get("device_platform") != "gpu"
+                or {c["platform"] for c in metrics["per_chip"]} != {"gpu"}
+                or metrics.get("total_songs") != songs):
+            fail(f"sweep np={n}: metrics {json.dumps(metrics)[:600]}")
+        points[n] = dict(wall_s=run["wall_seconds"],
+                         speedup=run["speedup_vs_first"],
+                         stages_s=metrics["stages"])
+    if read_outputs(out_dir) != oracle:
+        fail("sweep: the np 4 point's CSVs differ from the oracle")
+    in_points = sum(p["wall_s"] for p in points.values())
+    out = dict(process_wall_s=wall, points=points,
+               outside_clock_s=wall - in_points, total_songs=songs)
+    log(f"sweep --devices {counts} on {card}: "
+        + ", ".join(f"np={n} {p['wall_s']:.3f} s (speedup {p['speedup']}x)"
+                    for n, p in points.items())
+        + f"; process {wall:.2f} s, of it {wall - in_points:.2f} s outside "
+          f"the points' clocks (start-ups of the process and the ranks)")
+
+    broken = os.path.join(WORK, "sweep_late_rank")
+    shutil.rmtree(broken, ignore_errors=True)
+    t0 = time.perf_counter()
+    late = subprocess.run(
+        [sys.executable, "-c", _SWEEP_LATE_RANK, dataset, broken, cache],
+        cwd=ROOT, capture_output=True, text=True, timeout=600)
+    late_wall = time.perf_counter() - t0
+    left = sorted(os.listdir(broken)) if os.path.isdir(broken) else []
+    staged = [e for e in os.listdir(WORK) if ".staging-" in e]
+    if (late.returncode == 0 or "rank 1 exited with 1" not in late.stderr
+            or "performance_metrics_np2.json" in left
+            or "sweep_summary.json" in left or staged):
+        fail(f"sweep with rank 1 exiting 1 late: rc {late.returncode}, "
+             f"left {left}, staging {staged}: {late.stderr[-2000:]}")
+    out["late_rank"] = dict(rc=late.returncode, wall_s=late_wall, left=left)
+    log(f"sweep with rank 1 exiting 1 after its last collective: rc "
+        f"{late.returncode} after {late_wall:.2f} s, left {left} (failed, as "
+        f"it must)")
     return out
 
 
@@ -4103,8 +4236,9 @@ _HF_NAMES = (
 DRILL_DELAY_S = 3.0          # the injected prefetch-stage stall ...
 DRILL_WATCHDOG_S = 1.0       # ... against this watchdog timeout
 WP_VOCAB_MAX = 30_522        # bert-base-uncased's vocabulary size
-WP_BATCH = BATCH             # the timed tokenization batch (8,192 songs)
-WP_SONGS = BATCH             # songs of each WordPiece run (16,384 before)
+WP_BATCH = 4096              # the timed tokenization batch (8,192 before
+                             # step 10's sweep over ranks)
+WP_SONGS = WP_BATCH          # songs of each WordPiece run (one batch)
 WP_EDGE_ROWS = [
     "", "   ", "the ελληνικά row", "爱 love 愛", "love 🎵 rain",
     "a\ud800b love", "naïve résumé søster ßüber", "[MASK] love [SEP]",
@@ -4451,12 +4585,12 @@ class _RecordingTokenizer:
 def wordpiece_path(torch, dev, card, dataset, checkpoint) -> dict:
     """(b) The native WordPiece fast path: a vocabulary built from the
     corpus, then full-width DistilBERT (step 9's checkpoint, whose labels
-    split) ``run_sentiment`` over 8,192 of the songs under
+    split) ``run_sentiment`` over 4,096 of the songs under
     ``$MUSICAAL_BERT_VOCAB`` with the native tokenizer and with the Python
     one.  Every batch each run tokenized is kept: the native ids must
     equal the Python ids on every song (and on the edge rows, encoded
     apart), the native run's manifest must show every song on the native
-    path, the labels must be identical; each run's first 8,192-song batch
+    path, the labels must be identical; each run's first 4,096-song batch
     is its tokenizer's timed batch (in the pipeline's tokenize stage), and
     each run's songs/s is reported."""
     import numpy as np
@@ -4516,7 +4650,7 @@ def wordpiece_path(torch, dev, card, dataset, checkpoint) -> dict:
         kernels.reset_launches()
         t0 = time.perf_counter()
         result = run_sentiment(dataset, backend=clf, output_dir=out_dir,
-                               batch_size=BATCH, quiet=True, limit=WP_SONGS)
+                               batch_size=WP_BATCH, quiet=True, limit=WP_SONGS)
         torch.cuda.synchronize()
         runs[name] = dict(wall_s=time.perf_counter() - t0,
                           songs_per_s=result.songs_per_second,
@@ -4567,7 +4701,9 @@ def wordpiece_path(torch, dev, card, dataset, checkpoint) -> dict:
 
 # --- step 12: multi-process runs on the one card ---------------------------
 
-DIST_NPS = (1, 2, 4)           # the reference's run_performance.sh sweep
+DIST_NPS = (2, 4)              # the reference's run_performance.sh sweep
+                               # (np 1 too before step 10's sweep over
+                               # ranks, which runs it as one process)
 RING_RANKS = 4
 RING_SEQ = 32_768              # 8,192 positions a rank
 RING_HEADS, RING_KV_HEADS, RING_HEAD_DIM = 32, 8, 128   # Llama-3-8B attention
@@ -4775,7 +4911,7 @@ def run_ranks(script: str, n: int, args, tag: str) -> list:
 
 
 def distributed_wordcount_path(card, analyze, oracle) -> dict:
-    """The distributed word count at np 1, 2 and 4 on the one card over
+    """The distributed word count at np 2 and 4 on the one card over
     gloo, on step 6's 57,650-song CSV: CSVs byte-identical to the
     single-process ``analyze`` output and the ``np.bincount`` oracle,
     every rank's totals equal, one ``per_chip`` row per process; at np 2,
@@ -5088,7 +5224,7 @@ multihost.shutdown()
 '''
 
 _MESH_LLAMA_CHILD = r'''
-import json, os, sys, time
+import dataclasses, json, os, sys, time
 sys.path.insert(0, os.getcwd())
 rank, n, port, work, songs_csv = (int(sys.argv[1]), int(sys.argv[2]),
                                   sys.argv[3], sys.argv[4], sys.argv[5])
@@ -5106,7 +5242,7 @@ mesh = M.build_mesh(M.MeshSpec((("tp", n),)))
 dev = mesh.device
 torch.cuda.set_device(dev)
 torch.backends.cuda.matmul.allow_tf32 = False     # f32 lm_head stays f32
-cfg = LlamaConfig.llama3_8b()
+cfg = dataclasses.replace(LlamaConfig.llama3_8b(), n_layers=cs.LLAMA_LAYERS)
 report = dict(rank=rank, backend=multihost.backend(), device=str(dev),
               coords=mesh.coords)
 multihost.barrier("init")
@@ -5457,7 +5593,8 @@ def mesh_distilbert_api_path(torch, dev, card, dataset, checkpoint) -> dict:
 
 
 def mesh_llama_path(torch, card, llama) -> dict:
-    """Llama-3-8B at tp 2 (full width, 32 layers, random bf16 weights from
+    """Llama-3-8B at tp 2 (full width, LLAMA_LAYERS layers, random bf16
+    weights from
     seed 0 drawn whole on each rank and sliced) as two ranks on the one
     card: score-mode labels equal to the tp-1 run's, generate mode
     through the paged kernel, decode-step logits within
@@ -5489,7 +5626,7 @@ def mesh_llama_path(torch, card, llama) -> dict:
     if score_diff > LLAMA_LOGIT_REL_TOL * score_scale:
         fail(f"mesh llama: label scores differ from tp 1's by {score_diff} "
              f"(> {LLAMA_LOGIT_REL_TOL} x {score_scale})")
-    n_layers = 32
+    n_layers = LLAMA_LAYERS
     for r in ranks:
         g = r["generate"]
         if g["launches"]["paged_attention"] != n_layers * g["decode_steps"]:
@@ -5618,6 +5755,23 @@ def mesh_kernel_shapes(torch, dev) -> dict:
     return out
 
 
+class PhaseClock:
+    """The wall seconds of each phase of ``main``: a call names the phase
+    that has just ended, timed from the previous call."""
+
+    def __init__(self) -> None:
+        self.seconds = {}
+        self._t = time.perf_counter()
+
+    def __call__(self, name: str) -> None:
+        now = time.perf_counter()
+        self.seconds[name] = now - self._t
+        self._t = now
+
+    def sum(self, *names: str) -> float:
+        return sum(self.seconds[name] for name in names)
+
+
 def main() -> int:
     try:
         import torch
@@ -5642,12 +5796,15 @@ def main() -> int:
     report = {"card": card, "torch": torch.__version__}
 
     report["host_python_ms"] = {"start": python_ms()}
+    mark = PhaseClock()
     report["build"] = build_all()
+    mark("build")
     report["flash_max_abs_err"] = check_flash(torch, dev)
-    t0 = time.perf_counter()
+    mark("flash_max_abs_err")
     x = keyword_matrix(torch, dev)
     report["keyword_rows_with_hits"] = check_keyword(torch, dev, x)
-    report["keyword_check_s"] = time.perf_counter() - t0
+    mark("keyword")
+    report["keyword_check_s"] = mark.seconds["keyword"]
 
     os.makedirs(WORK, exist_ok=True)
     dataset = os.path.join(WORK, "songs_16384.csv")
@@ -5661,31 +5818,31 @@ def main() -> int:
                                lyric_share)
     del x, corpus_batch
     torch.cuda.empty_cache()
-    t0 = time.perf_counter()
+    mark("timing")
     report["quant_gemm"] = quant_gemm_probe(torch, dev)
-    slice7_s = time.perf_counter() - t0
+    mark("quant_gemm")
     report["main_path"] = main_path(torch, dev, dataset, card)
+    mark("main_path")
     mp = report["main_path"]
-    slice8_s = mp["serve"]["wall_s"]
     torch.cuda.empty_cache()
-    t1 = time.perf_counter()
     report["serve_mock"] = serve_mock_path(torch, dev, card)
+    mark("serve_mock")
     mock_replies = report["serve_mock"].pop("replies")
-    slice8_s += time.perf_counter() - t1
-    t0 = time.perf_counter()
     report["distilbert_quant"] = distilbert_quant_path(torch, dev, dataset,
                                                        card)
-    slice7_s += time.perf_counter() - t0
-    t0 = time.perf_counter()
+    mark("distilbert_quant")
     report["analyze"], oracle = analyze_path(torch, dev, card)
+    mark("analyze")
     report["joint"] = joint_path(torch, card, report["analyze"], oracle)
+    mark("joint")
     report["histogram"] = histogram_path(torch, dev, card)
-    report["slice6_s"] = time.perf_counter() - t0
+    mark("histogram")
+    report["slice6_s"] = mark.sum("analyze", "joint", "histogram")
     log(f"word-count, joint and histogram phases: {report['slice6_s']:.1f} s")
-    t0 = time.perf_counter()
-    report["persong"] = persong_path(dataset, card)
-    slice7_s += time.perf_counter() - t0
+    report["persong"] = persong_path(card)
+    mark("persong")
     report["paged"] = check_paged(torch, dev)
+    mark("paged")
     torch.cuda.empty_cache()
     serve_s = []
 
@@ -5697,70 +5854,90 @@ def main() -> int:
 
     report["host_python_ms"]["before_llama"] = python_ms()
     report["llama"] = llama_path(torch, dev, card, serve=serve)
-    slice8_s += serve_s[0]
-    report["slice8_s"] = slice8_s
-    log(f"serve phases: {slice8_s:.1f} s")
+    mark("llama")
+    report["slice8_s"] = (mp["serve"]["wall_s"] + mark.seconds["serve_mock"]
+                          + serve_s[0])
+    log(f"serve phases: {report['slice8_s']:.1f} s")
     torch.cuda.empty_cache()
-    t0 = time.perf_counter()
     report["llama_quant"] = llama_quant_path(torch, dev, card)
-    report["slice7_s"] = slice7_s + time.perf_counter() - t0
+    mark("llama_quant")
+    report["slice7_s"] = mark.sum("quant_gemm", "distilbert_quant", "persong",
+                                  "llama_quant")
     log(f"quantized and per-song phases: {report['slice7_s']:.1f} s")
     torch.cuda.empty_cache()
-    t0 = time.perf_counter()
     report["router_mock"] = router_mock_path(
         torch, card, report["serve_mock"], mock_replies)
+    mark("router_mock")
     report["router_distilbert"] = router_distilbert_path(
         torch, dev, card, dataset, mp["serve"])
+    mark("router_distilbert")
     report["manifests"] = manifest_tools_path(
         torch, card, dataset,
         [os.path.join(WORK, "analyze_auto_streaming"),
          os.path.join(WORK, "router_mock_telemetry"),
          report["router_distilbert"]["telemetry_dir"]],
         report["router_distilbert"]["trace_dir"])
-    report["slice9_s"] = time.perf_counter() - t0
+    mark("manifests")
+    report["slice9_s"] = mark.sum("router_mock", "router_distilbert",
+                                  "manifests")
     log(f"router and manifest phases: {report['slice9_s']:.1f} s")
     torch.cuda.empty_cache()
-    t0 = time.perf_counter()
     report["flash_llama"] = check_flash_llama(torch, dev)
+    mark("flash_llama")
     report["flash_loss"] = flash_loss_path(torch, dev, card)
+    mark("flash_loss")
     report["train"] = train_path(torch, dev, card)
+    mark("train")
     report["moe"] = moe_path(torch, dev, card)
-    report["sweep"] = sweep_path(report["analyze"]["dataset"], card)
-    report["slice10_s"] = time.perf_counter() - t0
+    mark("moe")
+    report["sweep"] = sweep_path(report["analyze"], oracle, card)
+    mark("sweep")
+    report["slice10_s"] = mark.sum("flash_llama", "flash_loss", "train", "moe",
+                                   "sweep")
     log(f"training, flash loss, MoE and sweep phases: "
         f"{report['slice10_s']:.1f} s")
     torch.cuda.empty_cache()
-    t0 = time.perf_counter()
     report["fault_drills"] = fault_drills(
         torch, dev, card, dataset, report["analyze"], oracle,
         report["router_distilbert"]["checkpoint"]["path"])
+    mark("fault_drills")
     report["wordpiece"] = wordpiece_path(
         torch, dev, card, dataset,
         report["router_distilbert"]["checkpoint"]["path"])
-    report["slice11_s"] = time.perf_counter() - t0
+    mark("wordpiece")
+    report["slice11_s"] = mark.sum("fault_drills", "wordpiece")
     log(f"fault drills and WordPiece phases: {report['slice11_s']:.1f} s")
     torch.cuda.empty_cache()
-    t0 = time.perf_counter()
     report["distributed"] = distributed_wordcount_path(
         card, report["analyze"], oracle)
+    mark("distributed")
     report["ring"] = ring_path(torch, dev, card)
-    report["slice12_s"] = time.perf_counter() - t0
+    mark("ring")
+    report["slice12_s"] = mark.sum("distributed", "ring")
     log(f"distributed word count and ring attention phases: "
         f"{report['slice12_s']:.1f} s")
     torch.cuda.empty_cache()
-    t0 = time.perf_counter()
     checkpoint = report["router_distilbert"]["checkpoint"]["path"]
     report["mesh_kernels"] = mesh_kernel_shapes(torch, dev)
+    mark("mesh_kernels")
     report["mesh_analyze"] = mesh_analyze_path(card, report["analyze"], oracle)
+    mark("mesh_analyze")
     report["mesh_sentiment"] = mesh_sentiment_path(torch, dev, card, dataset,
                                                    checkpoint)
+    mark("mesh_sentiment")
     report["mesh_distilbert"] = mesh_distilbert_api_path(
         torch, dev, card, dataset, checkpoint)
+    mark("mesh_distilbert")
     report["mesh_llama"] = mesh_llama_path(torch, card, report["llama"])
-    report["slice13_s"] = time.perf_counter() - t0
+    mark("mesh_llama")
+    report["slice13_s"] = mark.sum("mesh_kernels", "mesh_analyze",
+                                   "mesh_sentiment", "mesh_distilbert",
+                                   "mesh_llama")
     log(f"mesh phases (analyze/sentiment --devices, DistilBERT dp x tp, "
         f"Llama-3-8B tp 2): {report['slice13_s']:.1f} s")
     report["host_python_ms"]["end"] = python_ms()
+    report["phase_s"] = mark.seconds
+    log(f"phase walls (s): {json.dumps(mark.seconds)}")
     log(f"host probe (ms of a fixed Python loop): "
         f"{json.dumps(report['host_python_ms'])}")
     report["timed_by_events"] = TIMED_BY_EVENTS

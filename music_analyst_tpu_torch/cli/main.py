@@ -29,17 +29,20 @@ rank 0 of a mesh of N ranks and launches ranks 1..N-1 as child processes
 with the same arguments (``parallel/launch.py:run_ranks``); the
 backend is NCCL when every rank has a card of its own and gloo when
 ranks share one or run on the CPU, and is printed and written into the
-run manifest.  Only rank 0 writes outputs and the manifest; a failed rank
-stops every rank and the command exits 1.  ``sentiment --devices N``
-with ``--mock`` or ``--model ollama`` builds no mesh and runs one
-process, as JAX does.  Not ported yet: ``--tp`` above 1, ``--devices``
-above 1 with ``--weight-quant`` (usage errors naming the flag), and
-``sweep`` over more than one device (it skips or refuses such points).
+run manifest.  Only rank 0 writes outputs and the manifest, into a
+staging directory that is published once every rank has exited 0; a
+failed rank stops every rank, nothing is published and the command exits
+1.  ``sentiment --devices N`` with ``--mock`` or ``--model ollama``
+builds no mesh and runs one process, as JAX does.  ``sweep --devices
+1,2,4`` runs each point as such a mesh.  Not ported yet: ``--tp`` above
+1 and ``--devices`` above 1 with ``--weight-quant`` (usage errors naming
+the flag).
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 from typing import List, Optional
 
@@ -141,7 +144,11 @@ def _check_run_flags(parser: argparse.ArgumentParser,
         parser.error("--trace-dir and --profile-dir each capture a device "
                      "trace; give one of them")
     devices = getattr(args, "devices", None)
-    if args.command == "sweep" or devices is None:
+    if args.command == "sweep":
+        if devices and min(devices) < 1:
+            parser.error(f"--devices counts must be >= 1, got {devices}")
+        return
+    if devices is None:
         return
     if devices < 1:
         parser.error(f"--devices must be >= 1, got {devices}")
@@ -314,8 +321,10 @@ def _add_sweep(sub: argparse._SubParsersAction) -> None:
     )
     p.add_argument("dataset")
     p.add_argument("--devices", type=_int_list, default=None,
-                   help="Comma-separated device counts (default: 1,2,4,8 "
-                        "capped at the cards present; 1 with --device cpu)")
+                   help="Comma-separated device counts, each point a mesh "
+                        "of that many ranks, which may share a card "
+                        "(default: 1,2,4,8 capped at the cards present; 1 "
+                        "with --device cpu)")
     p.add_argument("--output-dir", default="output")
     p.add_argument("--ingest", choices=("auto", "native", "python"),
                    default="auto")
@@ -356,6 +365,7 @@ def _run_sweep(args: argparse.Namespace) -> int:
         use_corpus_cache=not args.no_corpus_cache,
         chunk_songs=args.chunk_songs,
         device=args.device,
+        inject_faults=args.inject_faults,
     )
     for run in summary["runs"]:
         print(f"np={run['devices']}: {run['wall_seconds']}s "
@@ -824,10 +834,40 @@ def main(argv: Optional[List[str]] = None) -> int:
         # --devices N on CUDA needs a card: run_ranks checks before rank 0
         # joins, and stops the ranks it started.
         argv = list(sys.argv[1:] if argv is None else argv)
+        staging = _stage_outputs(args)
         return launch.run_ranks(
-            argv, n_ranks, args.device,
-            lambda: _report_launches(_run_scoped(parser, args)))
+            launch.module_command(argv), n_ranks, args.device,
+            lambda: _report_launches(_run_scoped(parser, args, staging)),
+            staging=staging)
     return _run_scoped(parser, args)
+
+
+def _stage_outputs(args: argparse.Namespace):
+    """Rank 0 of a mesh writes into a staging directory that
+    ``run_ranks`` publishes once every rank has exited 0: ``--output-dir``
+    and every path flag that lies under it are pointed there.  The
+    telemetry log and a resumed details file are appended to, so they are
+    carried in first.  A ``--telemetry-dir``, ``--profile-dir`` or
+    ``--trace-dir`` elsewhere is written in place.
+
+    So ``sentiment --devices N`` keeps its crash-resume contract only at
+    the level of whole runs: the rows it classifies reach the output
+    directory with its publish, and a run whose rank fails, or whose
+    rank 0 is killed, adds nothing to the details prefix that
+    ``--resume`` continues from (the last published one)."""
+    from music_analyst_tpu_torch.parallel.launch import Staging
+
+    carry = [os.path.join(args.telemetry_dir or args.output_dir,
+                          "telemetry.jsonl")]
+    if getattr(args, "resume", False):
+        carry.append(os.path.join(args.output_dir, "sentiment_details.csv"))
+    staging = Staging(args.output_dir, carry=carry)
+    for flag in ("telemetry_dir", "profile_dir", "trace_dir"):
+        path = getattr(args, flag, None)
+        if path:
+            setattr(args, flag, staging.staged(path))
+    args.output_dir = staging.path
+    return staging
 
 
 def _run_launched_rank(parser: argparse.ArgumentParser,
@@ -870,7 +910,7 @@ def _report_launches(code: int) -> int:
 
 
 def _run_scoped(parser: argparse.ArgumentParser,
-                args: argparse.Namespace) -> int:
+                args: argparse.Namespace, staging=None) -> int:
     from music_analyst_tpu_torch.observability.flight import (
         install_flight_recorder,
     )
@@ -885,7 +925,8 @@ def _run_scoped(parser: argparse.ArgumentParser,
     )
     from music_analyst_tpu_torch.telemetry import configure
 
-    configure(enabled=not args.no_telemetry, directory=args.telemetry_dir)
+    configure(enabled=not args.no_telemetry, directory=args.telemetry_dir,
+              published=staging.published if staging else None)
     # Every run-scoped subcommand flies with the recorder installed: an
     # unhandled exception or SIGTERM leaves flight_record.json behind.
     # The watchdog is opt-in (--watchdog-timeout / $MUSICAAL_WATCHDOG_S).

@@ -206,9 +206,11 @@ class FlightRecorder:
         env = os.environ.get("MUSICAAL_FLIGHT_RECORD_DIR", "").strip()
         if env:
             return env
-        sink = get_telemetry().sink_path
-        if sink:
-            return os.path.dirname(sink)
+        tel = get_telemetry()
+        if tel.sink_path:
+            # A staged run's failure record goes where its outputs would
+            # have gone: the staging directory is removed on failure.
+            return os.path.dirname(tel.published(tel.sink_path))
         return tempfile.gettempdir()
 
     def dump(

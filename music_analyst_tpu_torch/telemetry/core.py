@@ -40,7 +40,7 @@ import random
 import threading
 import time
 from contextlib import contextmanager
-from typing import Any, Dict, Iterator, List, Optional, Tuple
+from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 
 from music_analyst_tpu_torch.profiling.collectives import emit_stage_table
 
@@ -196,6 +196,10 @@ class Histogram:
         return out
 
 
+def _unmoved(path: str) -> str:
+    return path
+
+
 class Telemetry:
     """Thread-safe span/counter registry with an optional JSONL sink."""
 
@@ -204,6 +208,9 @@ class Telemetry:
         self._tls = threading.local()
         self.enabled = enabled
         self.directory: Optional[str] = None  # explicit --telemetry-dir
+        # Where a path written now will be read: a staged mesh run
+        # (``parallel/launch.py:Staging``) moves its files on success.
+        self.published: Callable[[str], str] = _unmoved
         # Event taps (observability flight recorder): process-lifetime
         # observers, deliberately OUTSIDE _reset_run_state so a recorder
         # installed once keeps seeing events across runs/configure().
@@ -511,17 +518,20 @@ def get_telemetry() -> Telemetry:
 
 
 def configure(
-    enabled: bool = True, directory: Optional[str] = None
+    enabled: bool = True, directory: Optional[str] = None,
+    published: Optional[Callable[[str], str]] = None,
 ) -> Telemetry:
     """(Re)configure the process-wide registry — the CLI's entry point.
 
     ``directory`` pins the sink location for the whole run (the
     ``--telemetry-dir`` flag); ``None`` lets each run scope default to the
-    engine's output directory.
+    engine's output directory.  ``published`` maps a path of a staged run
+    to where it lands (the manifest's ``telemetry_log``, flight records).
     """
     tel = _TELEMETRY
     tel.close_sink()
     tel.enabled = enabled
     tel.directory = directory
+    tel.published = published or _unmoved
     tel._reset_run_state()
     return tel

@@ -150,7 +150,8 @@ def write_run_manifest(
         "spans": tel.top_spans(n=20),
         "pipeline": pipelines,
         "event_count": events,
-        "telemetry_log": tel.sink_path,
+        "telemetry_log": (tel.published(tel.sink_path) if tel.sink_path
+                          else None),
     }
     # Failover degradation and an unclean previous shutdown are headline
     # facts about the run, hoisted out of the annotation context; absent
