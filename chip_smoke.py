@@ -276,7 +276,30 @@
    step 5's at the same pool state, and ranks whose pools hold each
    other's KV heads must fail; per rank: weight bytes, peak memory, init
    seconds, prefill and decode rates, ms per decode step and the share of
-   a decode dispatch spent in the tp collectives.
+   a decode dispatch spent in the tp collectives.  Then, on the same two
+   ranks and weights, the 8B served at tp 2: rank 0 stands up the server
+   (batcher, threaded continuous scheduler) over the classifier and the
+   dispatch stream (``serving/tp_dispatch.py``), rank 1 replays the
+   stream; step 8's 12 ``generate`` requests in one burst must give step
+   8's tp-1 tokens, except one row at most whose first differing token is
+   a near-tie (tp 2's logit gap there, teacher-forced, within 5e-2 of the
+   logit scale); paged launches of 4 a decode step, rank 1's equal to
+   rank 0's; TTFT / TPOT p50 / p99, host ms per decode dispatch, and the
+   stream's descriptor bytes and broadcast ms beside each method's call
+   ms.  A follower that skips ``copy_page`` and ``free_pages`` must change
+   the tokens of a prompt that shares 40 tokens with an earlier one (8
+   rows of its boundary page come from the page copy alone, prefill
+   chunks of 8).  (e) ``serve --stdio --tp 2 --model distilbert`` as a
+   process beside ``--tp 1``, full width, step 9's split checkpoint: 4,096
+   ``sentiment`` requests in one burst at max_batch 256, then EOF; exit 0,
+   labels equal the checkpoint's one-device labels away from a boundary
+   (a label that moves at tp 2 is held to the checkpoint's logits at tp
+   2, computed for those songs on two ranks, which must lie within 5e-2
+   of the scale of one device's; the same songs with the row-parallel
+   partials summed in f32 must move fewer labels), the gloo mesh and both
+   ranks' equal flash launches named on stderr; requests/s and p50 / p99
+   reply arrival beside tp 1's; how many labels the same checkpoint moves
+   on one device with dense attention in bf16 and in f32.
 
 Prints the card's name and power limit, a ``{"quant_gemm": [...]}`` line,
 a ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
@@ -2580,6 +2603,23 @@ def _stream(server, lines):
     return [json.loads(line) for line in out.getvalue().splitlines()]
 
 
+def _record_tokens(sched) -> dict:
+    """Each request's generated ids as the scheduler settles it, by
+    request id (a reply's text drops ids past the byte range)."""
+    got = {}
+    settle = sched._settle
+
+    def recording(idx, slot):
+        toks = list(slot.tokens)
+        eos = sched.runtime.eos_id
+        got[slot.req.id] = (toks[:toks.index(eos)] if eos in toks
+                            else toks)[:slot.budget]
+        settle(idx, slot)
+
+    sched._settle = recording
+    return got
+
+
 def _no_serve_threads(tag: str) -> None:
     """A drained server leaves no worker thread behind: one that polls on
     would take the interpreter from every later phase's host work."""
@@ -2965,6 +3005,7 @@ def serve_llama_path(torch, dev, clf, prompts, card) -> dict:
         sched = ContinuousScheduler(
             clf, n_slots=PAGED_SLOTS, prefill_chunk=64,
             max_new_tokens=PAGED_NEW, max_queue=64, **kw)
+        ids = _record_tokens(sched)
         warm = sched.warmup()
         batcher = DynamicBatcher(build_ops(clf), max_batch=PAGED_SLOTS,
                                  device=dev).start()
@@ -3019,9 +3060,16 @@ def serve_llama_path(torch, dev, clf, prompts, card) -> dict:
         if profiled is not None:
             out["dispatch_profile"] = _dispatch_profile(
                 sched, profiled, f"serve llama {name}")
+        tokens = [ids[r["id"]] for r in replies]
         del sched, batcher, server
         gc.collect()
         torch.cuda.empty_cache()
+        if name == "paged":
+            # Step 13 serves the same requests at tp 2 and holds them to
+            # these.
+            with open(os.path.join(WORK, "llama_tp1_served.json"), "w") as fh:
+                json.dump(dict(prompts=prompts, texts=texts, tokens=tokens),
+                          fh)
         return out, texts
 
     report = {}
@@ -3240,6 +3288,69 @@ def router_mock_path(torch, card, single, single_replies) -> dict:
     return out
 
 
+def distilbert_labels(texts, logits, threshold, scale):
+    """The batch engine's labels of ``logits`` (argmax, Neutral below the
+    neutral threshold's confidence or for an empty lyric), and for each the
+    distance of its top-two logit gap from a decision boundary (0, or the
+    gap at the threshold) over ``scale``."""
+    import math
+
+    from music_analyst_tpu_torch.models.distilbert import DistilBertClassifier
+
+    boundary = math.log(threshold / (1.0 - threshold))
+    top2 = logits.topk(2, dim=-1).values
+    gap = top2[:, 0] - top2[:, 1]
+    labels = ["Neutral" if not t.strip() or float(g) < boundary
+              else DistilBertClassifier._CLASS_LABELS[int(k)]
+              for t, g, k in zip(texts, gap, logits.argmax(dim=-1))]
+    margin = (gap.minimum((gap - boundary).abs()) / scale).tolist()
+    return labels, margin
+
+
+def distilbert_logits(torch, dev, texts, checkpoint_path, **config):
+    """Full DistilBERT loaded from ``checkpoint_path`` on one device
+    (``DistilBertConfig(**config)``): its logits of ``texts`` in one
+    forward, and its neutral threshold."""
+    import numpy as np
+
+    from music_analyst_tpu_torch.models.distilbert import (
+        DistilBertClassifier,
+        DistilBertConfig,
+    )
+    from music_analyst_tpu_torch.runtime.wire import to_device
+
+    clf = DistilBertClassifier.from_pretrained_or_random(
+        "distilbert", config=DistilBertConfig(**config),
+        checkpoint_path=checkpoint_path, device=dev)
+    ids, lens = clf.tokenizer.encode_batch(texts, clf.max_len)
+    logits = clf.forward_logits(*to_device(
+        [np.asarray(ids, np.int64), np.asarray(lens)], dev)).float().cpu()
+    threshold = clf.neutral_threshold
+    del clf
+    torch.cuda.empty_cache()
+    return logits, threshold
+
+
+def distilbert_reference(torch, dev, texts, checkpoint_path, what):
+    """Full DistilBERT loaded from ``checkpoint_path`` on one device
+    (flash, bf16): its logits of ``texts``, its labels, each label's
+    distance from a decision boundary over the logit scale
+    (:func:`distilbert_labels`), the scale and the neutral threshold;
+    fails unless every label holds a tenth of the texts."""
+    from music_analyst_tpu_torch.models.distilbert import DistilBertClassifier
+
+    ref, threshold = distilbert_logits(torch, dev, texts, checkpoint_path,
+                                       attn_impl="flash")
+    scale = max(1.0, float(ref.abs().max()))
+    want, margin = distilbert_labels(texts, ref, threshold, scale)
+    counts = {l: want.count(l) for l in DistilBertClassifier._CLASS_LABELS
+              + ("Neutral",)}
+    if min(counts.values()) < len(texts) // 10:
+        fail(f"{what}: the reference labels do not split: {counts}")
+    return dict(labels=want, margin=margin, logits=ref, scale=scale,
+                threshold=threshold, counts=counts)
+
+
 def router_distilbert_path(torch, dev, card, dataset, single) -> dict:
     """(b) ``serve --replicas 2 --socket --model distilbert`` as a process:
     full-width DistilBERT in each worker (bf16, flash), loaded through
@@ -3254,46 +3365,18 @@ def router_distilbert_path(torch, dev, card, dataset, single) -> dict:
     one worker SIGKILLed halfway: every request must be answered, and the
     manifest's ``serving.router`` must record the worker's health
     transition."""
-    import math
     import signal
 
-    import numpy as np
-
     from music_analyst_tpu_torch.data.csv_io import iter_songs
-    from music_analyst_tpu_torch.models.distilbert import (
-        DistilBertClassifier,
-        DistilBertConfig,
-    )
-    from music_analyst_tpu_torch.runtime.wire import to_device
 
     n = SERVE_DISTILBERT_REQUESTS
     texts = [t for _, _, t in iter_songs(dataset, limit=n)]
     checkpoint = distilbert_split_checkpoint(
         torch, dev, texts, os.path.join(WORK, "router_distilbert.bin"))
-    # The reference: the workers' model, loaded here from the same file.
-    clf = DistilBertClassifier.from_pretrained_or_random(
-        "distilbert", config=DistilBertConfig(attn_impl="flash"),
-        checkpoint_path=checkpoint["path"], device=dev)
-    ids, lens = clf.tokenizer.encode_batch(texts, clf.max_len)
-    ref = clf.forward_logits(*to_device(
-        [np.asarray(ids, np.int64), np.asarray(lens)], dev)).float().cpu()
-    threshold = clf.neutral_threshold
-    del clf
-    torch.cuda.empty_cache()
-    scale = max(1.0, float(ref.abs().max()))
-    boundary = math.log(threshold / (1.0 - threshold))
-    top2 = ref.topk(2, dim=-1).values
-    gap = top2[:, 0] - top2[:, 1]
-    want = ["Neutral" if not t.strip() or float(g) < boundary
-            else DistilBertClassifier._CLASS_LABELS[int(k)]
-            for t, g, k in zip(texts, gap, ref.argmax(dim=-1))]
-    near = (torch.minimum(gap, (gap - boundary).abs())
-            < SERVE_FLIP_REL * scale).tolist()
-    counts = {l: want.count(l) for l in DistilBertClassifier._CLASS_LABELS
-              + ("Neutral",)}
-    if min(counts.values()) < n // 10:
-        fail(f"router distilbert: the reference labels do not split: "
-             f"{counts}")
+    ref = distilbert_reference(torch, dev, texts, checkpoint["path"],
+                               "router distilbert")
+    want = ref["labels"]
+    near = [m < SERVE_FLIP_REL for m in ref["margin"]]
 
     def mismatches(replies):
         return [i for i, r in enumerate(replies)
@@ -3431,7 +3514,7 @@ def router_distilbert_path(torch, dev, card, dataset, single) -> dict:
                flash_launches=sum(launches.values()),
                dispatched={k: s["dispatched"]
                            for k, s in fleet["replicas"].items()},
-               reference_labels=counts, near_boundary=int(sum(near)),
+               reference_labels=ref["counts"], near_boundary=int(sum(near)),
                rotated_mismatches=rotated, checkpoint=checkpoint,
                kill=dict(victim=victim, wall_s=kill_wall,
                          requests_per_s=n / kill_wall, all_answered=True,
@@ -5224,7 +5307,7 @@ multihost.shutdown()
 '''
 
 _MESH_LLAMA_CHILD = r'''
-import dataclasses, json, os, sys, time
+import dataclasses, gc, json, os, sys, time
 sys.path.insert(0, os.getcwd())
 rank, n, port, work, songs_csv = (int(sys.argv[1]), int(sys.argv[2]),
                                   sys.argv[3], sys.argv[4], sys.argv[5])
@@ -5365,9 +5448,152 @@ report["generate"] = dict(
     prefill_tokens_per_s=st["prefill_tokens"] / st["prefill_seconds"],
     decode_tokens_per_s=st["tokens_generated"] / st["decode_seconds"],
     ms_per_decode_step=st["decode_seconds"] / st["decode_steps"] * 1e3)
-report["peak_memory_bytes"] = torch.cuda.max_memory_allocated(dev)
 report["kv_heads"] = clf.kv_heads
 report["pool_shape"] = list(sched.caches[0].keys.shape)
+del sched
+gc.collect()
+torch.cuda.empty_cache()
+
+# Served at tp 2: rank 0 stands up the server over this classifier and
+# the dispatch stream, rank 1 replays the stream on its shard.  Step 8's
+# 12 generate requests in one burst (8 fill the slots, then 4 more).
+from music_analyst_tpu_torch.serving import tp_dispatch as TD
+from music_analyst_tpu_torch.serving.batcher import DynamicBatcher
+from music_analyst_tpu_torch.serving.decode_loop import ContinuousScheduler
+from music_analyst_tpu_torch.serving.server import SentimentServer, build_ops
+with open(os.path.join(work, "llama_tp1_served.json")) as fh:
+    tp1_served = json.load(fh)
+
+def stream_over(skip=()):
+    """Rank 0: a stream and the classifier behind it (None on rank 1,
+    which replays the stream, its runtime skipping the calls in ``skip``,
+    until rank 0 closes it)."""
+    kernels.reset_launches()
+    multihost.barrier("stream")
+    if rank == 0:
+        stream = TD.DispatchStream({"backend": clf})
+        return stream, stream.remote(clf, TD.BACKEND_METHODS)
+    real = clf.paged_runtime
+    def skipping(*a, **kw):
+        rt = real(*a, **kw)
+        if "copy_page" in skip:
+            rt.copy_page = lambda caches, src, dst: caches
+        if "free_pages" in skip:
+            rt.free_pages = lambda caches, pages, slots: caches
+        return rt
+    if skip:
+        clf.paged_runtime = skipping
+    try:
+        TD.follow({"backend": clf}, device=dev)
+    finally:
+        clf.__dict__.pop("paged_runtime", None)
+    return None, None
+
+stream, backend = stream_over()
+served = {}
+if rank == 0:
+    sched = ContinuousScheduler(backend, n_slots=cs.PAGED_SLOTS,
+                                prefill_chunk=64, max_new_tokens=cs.PAGED_NEW,
+                                max_queue=64)
+    ids = cs._record_tokens(sched)
+    sched.warmup()
+    batcher = DynamicBatcher(build_ops(backend), max_batch=cs.PAGED_SLOTS,
+                             device=dev).start()
+    sched.start()
+    server = SentimentServer(batcher, mode="stdio", decode=sched,
+                             dispatch=stream)
+    lines = [json.dumps({"id": f"g{i}", "op": "generate", "text": p,
+                         "max_new_tokens": cs.PAGED_NEW, "priority": 1,
+                         "deadline_ms": 600_000.0})
+             for i, p in enumerate(tp1_served["prompts"])]
+    torch.cuda.synchronize()
+    at_ready = kernels.launches()
+    t0 = time.perf_counter()
+    replies = cs._stream(server, lines)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    st = sched.stats()
+    stream.close()
+    launches = kernels.launches()
+    served = dict(
+        ok=all(r.get("ok") for r in replies) and len(replies) == len(lines),
+        texts=[r.get("text") for r in replies],
+        tokens=[ids.get(r.get("id")) for r in replies], wall_s=wall,
+        requests_per_s=len(lines) / wall,
+        launches={k: v - at_ready[k] for k, v in launches.items()},
+        launches_total=launches, decode_steps=st["decode_steps"],
+        decode_span=sched.plan.decode_span,
+        ttft=cs._quantiles(st["ttft"]), tpot=cs._quantiles(st["tpot"]),
+        host_ms_per_decode_dispatch=(
+            st["decode_seconds"] / st["decode_dispatches"] * 1e3),
+        decode_dispatches=st["decode_dispatches"],
+        prefix=st.get("prefix_cache"), stream=stream.stats())
+    del sched, batcher, server, backend, stream
+else:
+    served = dict(launches_total=kernels.launches())
+report["served"] = served
+
+# A first differing token must be a near-tie: tp 2's logits there, the
+# prompt and tp 1's tokens before it teacher-forced, one forward (every
+# rank takes part).
+row = None
+if rank == 0 and served["ok"]:
+    off = [i for i, (a, b) in enumerate(zip(served["tokens"],
+                                            tp1_served["tokens"])) if a != b]
+    served["rows_differing"] = off
+    if len(off) == 1:
+        i = off[0]
+        a, b = served["tokens"][i], tp1_served["tokens"][i]
+        k = next(j for j in range(min(len(a), len(b)) + 1)
+                 if j == min(len(a), len(b)) or a[j] != b[j])
+        row = (i, k, a[k] if k < len(a) else None,
+               b[k] if k < len(b) else None)
+row = multihost.broadcast_from_coordinator(row)
+if row is not None:
+    i, k, tok2, tok1 = row
+    ids_, plen = clf.tokenizer.encode(tp1_served["prompts"][i], cs.PAGED_REGION)
+    seq = [int(t) for t in ids_[:plen]] + tp1_served["tokens"][i][:k]
+    x = torch.tensor([seq], device=dev)
+    S = len(seq)
+    with torch.no_grad():
+        lg, _ = clf.model(x, torch.arange(S, device=dev)[None],
+                          layers.causal_mask(S, S, 0, device=dev),
+                          last_position=torch.tensor([S - 1], device=dev))
+    lg = lg[0, 0].float().cpu()
+    eos = clf.tokenizer.eos_id
+    tok1 = eos if tok1 is None else tok1
+    tok2 = eos if tok2 is None else tok2
+    served["near_tie"] = dict(row=i, position=k, tp2_token=tok2,
+                              tp1_token=tok1,
+                              gap=float(lg[tok2] - lg[tok1]),
+                              scale=float(lg.abs().max()))
+
+# Broken: rank 1 skips copy_page and free_pages.  Prompt B shares 40
+# tokens with A (two pages and 8 rows of the third); prefill chunks of 8
+# start B at row 40, so rows 32..39 of B's boundary page come from the
+# page copy alone.  B's tokens must differ from the faithful follower's.
+cow_a = "The long road home winds past the silver lake and the old mill"
+cow_b = cow_a[:39] + " toward a different sea tonight"
+cow = {}
+for name, skip in (("faithful", ()), ("broken", ("copy_page", "free_pages"))):
+    stream, backend = stream_over(skip)
+    if rank == 0:
+        sched = ContinuousScheduler(backend, n_slots=2, prefill_chunk=8,
+                                    prompt_region=64,
+                                    max_new_tokens=cs.PAGED_NEW, max_queue=8)
+        ids = cs._record_tokens(sched)
+        sched.warmup()
+        for rid, text in (("a", cow_a), ("b", cow_b)):
+            sched.submit(rid, text)
+            sched.run_until_idle()
+        cow[name] = dict(a=ids["a"], b=ids["b"],
+                         tokens_shared=sched._prefix["tokens_shared"],
+                         cow_copies=sched._prefix["cow_copies"],
+                         by_method=stream.stats()["by_method"])
+        stream.close()
+        del sched, backend, stream
+report["cow"] = cow
+report["peak_memory_bytes"] = torch.cuda.max_memory_allocated(dev)
 print("RESULT " + json.dumps(report), flush=True)
 multihost.shutdown()
 '''
@@ -5644,6 +5870,7 @@ def mesh_llama_path(torch, card, llama) -> dict:
     if len(r0["generate"]["texts"]) != len(ref_texts):
         fail(f"mesh llama: {len(r0['generate']['texts'])} texts")
     same_text = sum(a == b for a, b in zip(r0["generate"]["texts"], ref_texts))
+    served = served_tp2_check(ranks)
     out = dict(
         wall_s=wall, score_labels_equal=True, score_max_abs_diff=score_diff,
         score_scale=score_scale,
@@ -5659,9 +5886,290 @@ def mesh_llama_path(torch, card, llama) -> dict:
                     "songs_per_s", "prefill_tokens_per_s",
                     "decode_tokens_per_s", "ms_per_decode_step",
                     "decode_steps", "launches")})
-            for r in ranks])
+            for r in ranks], served=served)
     log(f"mesh llama3_8b tp 2 on {card}: {json.dumps(out)}")
     return out
+
+
+def served_tp2_check(ranks) -> dict:
+    """The 8B served at tp 2 (rank 0 the server, rank 1 replaying its
+    dispatch stream): step 8's 12 requests with step 8's tokens, except
+    one row at most whose first differing token is a near-tie of tp 2's
+    logits; paged launches of LLAMA_LAYERS a decode step, rank 1's count
+    equal to rank 0's; the follower that skips copy_page and free_pages
+    must change the prefix-shared prompt's tokens."""
+    r0, r1 = ranks[0], ranks[1]
+    sv = r0["served"]
+    with open(os.path.join(WORK, "llama_tp1_served.json")) as fh:
+        ref = json.load(fh)
+    if not sv["ok"]:
+        fail(f"mesh llama served: replies failed: {sv['texts']}")
+    off = sv["rows_differing"]
+    if len(off) > 1:
+        fail(f"mesh llama served: rows {off} differ from step 8's tp-1 "
+             f"served tokens")
+    if off:
+        tie = sv["near_tie"]
+        if tie["gap"] > LLAMA_LOGIT_REL_TOL * tie["scale"]:
+            fail(f"mesh llama served: row {tie['row']} differs at token "
+                 f"{tie['position']} by a logit gap {tie['gap']} (> "
+                 f"{LLAMA_LOGIT_REL_TOL} x {tie['scale']}): not a near-tie")
+    paged = sv["launches"]["paged_attention"]
+    if paged != LLAMA_LAYERS * sv["decode_steps"] or paged == 0:
+        fail(f"mesh llama served: {paged} paged launches for "
+             f"{sv['decode_steps']} decode steps")
+    if r1["served"]["launches_total"] != sv["launches_total"]:
+        fail(f"mesh llama served: rank 1 launched {r1['served']} against "
+             f"rank 0's {sv['launches_total']}")
+    good, bad = r0["cow"]["faithful"], r0["cow"]["broken"]
+    if good["cow_copies"] < 1 or good["tokens_shared"] % PAGED_P < 8 or \
+            good["by_method"].get("copy_page", 0) < 2:
+        fail(f"mesh llama served: the prefix check copied no page rows that "
+             f"prefill leaves alone: {good}")
+    if bad["b"] == good["b"]:
+        fail("mesh llama served: a follower that skips copy_page and "
+             "free_pages gives the shared prompt the same tokens")
+    stream = sv["stream"]
+    out = dict(
+        same_tokens_as_tp1=len(ref["tokens"]) - len(off),
+        same_text_as_tp1=sum(a == b for a, b in zip(sv["texts"],
+                                                   ref["texts"])),
+        rows=len(ref["tokens"]), near_tie=sv.get("near_tie"),
+        requests_per_s=sv["requests_per_s"], wall_s=sv["wall_s"],
+        ttft=sv["ttft"], tpot=sv["tpot"],
+        host_ms_per_decode_dispatch=sv["host_ms_per_decode_dispatch"],
+        decode_dispatches=sv["decode_dispatches"],
+        decode_steps=sv["decode_steps"],
+        paged_launches_per_rank=[sv["launches_total"]["paged_attention"],
+                                 r1["served"]["launches_total"][
+                                     "paged_attention"]],
+        paged_launches_served=paged, prefix=sv["prefix"],
+        stream={k: stream[k] for k in (
+            "dispatches", "noops", "descriptor_bytes_mean",
+            "descriptor_bytes_max",
+            "send_ms_per_dispatch", "call_ms_per_dispatch",
+            "shipped_device_bytes", "ms_by_method", "by_method")},
+        broken_follower=dict(
+            tokens_shared=good["tokens_shared"],
+            cow_copies=good["cow_copies"],
+            b_tokens_equal=sum(x == y for x, y in zip(bad["b"], good["b"])),
+            b_tokens=len(good["b"]), a_same=bad["a"] == good["a"]))
+    return out
+
+
+SERVE_TP = 2   # serve --tp N of full DistilBERT through the CLI
+
+# The tp-N logits of the texts whose served label differs from one
+# device's: the same checkpoint on a tp mesh of N ranks, through the API;
+# then again with each row-parallel projection's partial products kept in
+# f32 and summed over tp in f32 (the port sums bf16 partials, as JAX's
+# sharded dot does), the witness of what moves those labels.
+_TP_BERT_CHILD = r'''
+import json, os, sys
+sys.path.insert(0, os.getcwd())
+rank, n, port, work, ckpt, texts_path = (
+    int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4], sys.argv[5],
+    sys.argv[6])
+import torch
+from music_analyst_tpu_torch.models.distilbert import DistilBertClassifier
+from music_analyst_tpu_torch.parallel import mesh as M, multihost
+multihost.initialize(f"localhost:{port}", n, rank, backend="gloo", timeout_s=300)
+mesh = M.build_mesh(M.MeshSpec((("tp", n),)))
+torch.cuda.set_device(mesh.device)
+with open(texts_path) as fh:
+    texts = json.load(fh)
+clf = DistilBertClassifier.from_pretrained_or_random(
+    "distilbert", checkpoint_path=ckpt, mesh=mesh)
+logits = clf.classify_logits(texts).float().cpu()
+import torch.nn.functional as F
+from music_analyst_tpu_torch.models import layers
+
+def f32_reduce(self, x):
+    y = M.all_reduce(F.linear(x.float(), self.weight.float()), self.mesh,
+                     self.axis)
+    return (y if self.bias is None else y + self.bias.float()).to(x.dtype)
+
+layers.RowParallelLinear.forward = f32_reduce
+logits_f32 = clf.classify_logits(texts).float().cpu()
+if rank == 0:
+    torch.save(logits, os.path.join(work, "serve_tp_logits.pt"))
+    torch.save(logits_f32, os.path.join(work, "serve_tp_logits_f32.pt"))
+print("RESULT " + json.dumps(dict(rank=rank, rows=len(texts))), flush=True)
+multihost.shutdown()
+'''
+
+
+def serve_tp_distilbert_path(torch, dev, card, dataset, checkpoint) -> dict:
+    """``serve --stdio --tp 2 --model distilbert`` as a process (two ranks
+    on the one card over gloo, rank 1 replaying rank 0's dispatch stream)
+    beside ``--tp 1``, full width, loaded from step 9's split checkpoint
+    through ``$MUSICAAL_DISTILBERT_CKPT``: 4,096 ``sentiment`` requests in
+    one burst at max_batch 256, then EOF.  Each must exit 0 after its
+    drain; every label equals the checkpoint's one-device labels except
+    within SERVE_FLIP_REL of the scale of a boundary; at tp 2 stderr names
+    the gloo mesh and both ranks' flash launches, equal and above 0.  A
+    tp-2 label that differs from one device's is held instead to the
+    same checkpoint's logits at tp 2 (the API on two ranks; they must lie
+    within LOGIT_REL_TOL of the scale of one device's, the limit of the
+    mesh API check): the tp all-reduces sum bf16 partials, so tp 2's
+    labels move near a boundary by more than the server's own batching
+    does (the served tp-1 path runs the reference's kernels in its order).
+    Two witnesses of that cause, beside it: the same rows at tp 2 with the
+    row-parallel partials summed in f32 must move fewer labels than the
+    bf16 sums; and the same checkpoint on one device, with dense attention
+    in bf16 and in f32, gives how far this model's own rounding moves its
+    labels (readings, not checks)."""
+    from music_analyst_tpu_torch.data.csv_io import iter_songs
+
+    n = SERVE_DISTILBERT_REQUESTS
+    texts = [t for _, _, t in iter_songs(dataset, limit=n)]
+    ref = distilbert_reference(torch, dev, texts, checkpoint,
+                               f"serve --tp {SERVE_TP}")
+    want, margin = ref["labels"], ref["margin"]
+    lines = _lines(texts)
+    env = dict(os.environ, MUSICAAL_DISTILBERT_CKPT=checkpoint)
+    report = {}
+    for tp in (1, SERVE_TP):
+        what = f"serve --stdio --tp {tp} distilbert"
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "music_analyst_tpu_torch", "serve",
+             "--stdio", "--model", "distilbert", "--tp", str(tp),
+             "--max-batch", str(SERVE_MAX_BATCH), "--max-queue", str(4 * n),
+             "--no-response-cache", "--no-telemetry"],
+            cwd=ROOT, env=env, stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+        stderr = []
+        reader = threading.Thread(target=lambda: stderr.extend(proc.stderr),
+                                  daemon=True)
+        reader.start()
+        t_wait = time.perf_counter() + 300
+        while not any("serve: ready" in line for line in stderr):
+            if proc.poll() is not None or time.perf_counter() > t_wait:
+                proc.kill()
+                fail(f"{what} did not come up: {''.join(stderr)[-3000:]}")
+            time.sleep(0.05)
+        startup = time.perf_counter() - t0
+        replies, arrivals, wall = _burst(proc.stdin, proc.stdout, lines)
+        proc.stdin.close()
+        try:
+            code = proc.wait(timeout=300)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            fail(f"{what}: no exit 300 s after EOF")
+        reader.join(timeout=30)
+        err = "".join(stderr)
+        if code != 0:
+            fail(f"{what}: exit {code}: {err[-3000:]}")
+        bad = [r for r in replies if not r.get("ok")]
+        if bad:
+            fail(f"{what}: {len(bad)} requests failed, first {bad[0]}")
+        differ = [i for i, r in enumerate(replies) if r["label"] != want[i]]
+        report.setdefault("labels", {})[f"tp{tp}"] = [r["label"]
+                                                      for r in replies]
+        held = {i: (want[i], margin[i]) for i in differ}
+        tp_ref = {}
+        if tp > 1 and differ:
+            path = os.path.join(WORK, "serve_tp_texts.json")
+            with open(path, "w") as fh:
+                json.dump([texts[i] for i in differ], fh)
+            run_ranks(_TP_BERT_CHILD, tp, [WORK, checkpoint, path],
+                      "serve_tp_reference")
+            got = torch.load(os.path.join(WORK, "serve_tp_logits.pt"))
+            labels, margins = distilbert_labels(
+                [texts[i] for i in differ], got, ref["threshold"],
+                ref["scale"])
+            diff = float((got - ref["logits"][differ]).abs().max())
+            if diff > LOGIT_REL_TOL * ref["scale"]:
+                fail(f"{what}: tp {tp} logits differ from one device's by "
+                     f"{diff} (> {LOGIT_REL_TOL} x {ref['scale']})")
+            held = dict(zip(differ, zip(labels, margins)))
+            moved = [i for a, i in zip(labels, differ) if a != want[i]]
+            tp_ref = dict(rows=len(differ), logits_max_abs_diff=diff,
+                          scale=ref["scale"], labels_moved=len(moved),
+                          away_from_boundary=sum(
+                              margin[i] >= SERVE_FLIP_REL for i in moved),
+                          farthest_moved=max((margin[i] for i in moved),
+                                             default=None))
+            got32 = torch.load(os.path.join(WORK, "serve_tp_logits_f32.pt"))
+            labels32, _ = distilbert_labels(
+                [texts[i] for i in differ], got32, ref["threshold"],
+                ref["scale"])
+            moved32 = [i for a, i in zip(labels32, differ) if a != want[i]]
+            off32 = [i for i in moved32 if margin[i] >= SERVE_FLIP_REL]
+            tp_ref["f32_reduce"] = dict(
+                logits_max_abs_diff=float(
+                    (got32 - ref["logits"][differ]).abs().max()),
+                labels_moved=len(moved32), away_from_boundary=len(off32),
+                farthest_moved=max((margin[i] for i in moved32),
+                                   default=None))
+            if len(moved32) >= len(moved):
+                fail(f"{what}: f32 partial sums move {len(moved32)} labels, "
+                     f"bf16 sums {len(moved)}: the bf16 sums are not what "
+                     "moves them")
+        off = [i for i in differ if replies[i]["label"] != held[i][0]
+               and held[i][1] >= SERVE_FLIP_REL]
+        if off:
+            fail(f"{what}: {len(off)} labels differ from the reference's "
+                 f"away from a boundary (first {off[0]}: "
+                 f"{replies[off[0]]['label']} vs {held[off[0]][0]}, "
+                 f"{held[off[0]][1]:.4f} of the scale from a boundary)")
+        row = dict(startup_s=startup, wall_s=wall, requests_per_s=n / wall,
+                   **_arrival_quantiles(arrivals),
+                   labels_differing_from_one_device=len(differ),
+                   farthest_differing=max((margin[i] for i in differ),
+                                          default=None))
+        if tp_ref:
+            row["tp_reference"] = tp_ref
+        if tp == 1:
+            found = re.search(r"serve: kernel launches since ready (\{.*\})",
+                              err)
+            row["flash_launches"] = json.loads(found.group(1))[
+                "flash_attention"] if found else None
+        else:
+            if f"mesh: {tp} ranks over gloo" not in err:
+                fail(f"{what}: stderr names no gloo mesh: {err[-2000:]}")
+            per_rank = {int(m.group(1)): json.loads(m.group(2))
+                        for m in re.finditer(
+                            r"mesh: rank (\d+) kernel launches (\{[^{}]*\})",
+                            err)}
+            flash = [per_rank.get(r, {}).get("flash_attention", 0)
+                     for r in range(tp)]
+            if min(flash) == 0 or len(set(flash)) != 1:
+                fail(f"{what}: flash launches per rank {flash}")
+            row["flash_launches_per_rank"] = flash
+            found = re.search(r"serve: tp stream (\{.*\})", err)
+            stream = json.loads(found.group(1)) if found else {}
+            row["stream"] = {k: stream.get(k) for k in (
+                "dispatches", "noops", "descriptor_bytes_mean",
+                "descriptor_bytes_max",
+                "send_ms_per_dispatch", "call_ms_per_dispatch",
+                "shipped_device_bytes", "ms_by_method", "by_method")}
+        report[f"tp{tp}"] = row
+    labels = report.pop("labels")
+    report[f"tp{SERVE_TP}"]["labels_equal_tp1"] = sum(
+        a == b for a, b in zip(labels["tp1"], labels[f"tp{SERVE_TP}"]))
+    # This checkpoint's own rounding on one device: how many labels move,
+    # and how far from a boundary, when only the attention kernel or the
+    # dtype changes.
+    noise = {}
+    for name, config in (("bf16_dense", dict(attn_impl="dense")),
+                         ("f32_dense", dict(attn_impl="dense",
+                                            dtype="float32"))):
+        got, _ = distilbert_logits(torch, dev, texts, checkpoint, **config)
+        moved = [i for i, a in enumerate(distilbert_labels(
+            texts, got, ref["threshold"], ref["scale"])[0]) if a != want[i]]
+        noise[name] = dict(
+            logits_max_abs_diff=float((got - ref["logits"]).abs().max()),
+            labels_moved=len(moved),
+            away_from_boundary=sum(margin[i] >= SERVE_FLIP_REL
+                                   for i in moved),
+            farthest_moved=max((margin[i] for i in moved), default=None))
+    report["one_device_rounding"] = noise
+    log(f"serve --stdio --model distilbert, tp 1 vs tp {SERVE_TP}, {n} "
+        f"requests at max_batch {SERVE_MAX_BATCH}, on {card}: "
+        f"{json.dumps(report)}")
+    return report
 
 
 def mesh_kernel_shapes(torch, dev) -> dict:
@@ -5934,7 +6442,11 @@ def main() -> int:
                                    "mesh_sentiment", "mesh_distilbert",
                                    "mesh_llama")
     log(f"mesh phases (analyze/sentiment --devices, DistilBERT dp x tp, "
-        f"Llama-3-8B tp 2): {report['slice13_s']:.1f} s")
+        f"Llama-3-8B tp 2 with its served run): "
+        f"{report['slice13_s']:.1f} s")
+    report["serve_tp"] = serve_tp_distilbert_path(torch, dev, card, dataset,
+                                                  checkpoint)
+    mark("serve_tp")
     report["host_python_ms"]["end"] = python_ms()
     report["phase_s"] = mark.seconds
     log(f"phase walls (s): {json.dumps(mark.seconds)}")
@@ -5983,6 +6495,8 @@ def main() -> int:
                     for tag in ("dp1xtp2", "dp2xtp2")}),
              mesh_shapes={name: report["mesh_kernels"][name] for name in
                           ("flash_dp2", "flash_tp2", "flash_dp2xtp2")},
+             serve_tp2_launches_per_rank=report["serve_tp"]["tp2"][
+                 "flash_launches_per_rank"],
              **{f"{name}_launches": report["distilbert_quant"][name][
                  "launches"]["flash_attention"]
                 for name in ("int8_dynamic", "wq_int8", "wq_int4")},
@@ -6019,6 +6533,8 @@ def main() -> int:
                  r["launches"]["paged_attention"]
                  for r in report["mesh_llama"]["per_rank"]],
              tp2_shape=report["mesh_kernels"]["paged_tp2"],
+             tp2_served_launches_per_rank=report["mesh_llama"]["served"][
+                 "paged_launches_per_rank"],
              max_abs_err=max([v["max_abs_err"] for v in report["paged"].values()]
                              + [report["mesh_kernels"]["paged_tp2"][
                                  "max_abs_err"]]),

@@ -4,7 +4,8 @@ Counterpart of ``music_analyst_tpu/cli/main.py`` for the subcommands
 ported so far — ``analyze`` (with ``--with-sentiment``, the joint
 pipeline), ``sentiment`` (``--weight-quant``, ``--model ollama[:tag]``),
 ``wordcount-per-song``, ``split``, ``serve`` (``--replicas N`` puts the
-replica router in front of N worker processes; ``--tp 1``), ``sweep``
+replica router in front of N worker processes; ``--tp N`` serves a
+mesh-capable model as N ranks), ``sweep``
 (the word count over device counts), ``validate`` (label agreement with
 a ``transformers`` oracle on a checkpoint), and the host-only tools
 ``profile-diff``, ``telemetry-report``, ``trace-report`` and ``monitor``
@@ -34,9 +35,17 @@ staging directory that is published once every rank has exited 0; a
 failed rank stops every rank, nothing is published and the command exits
 1.  ``sentiment --devices N`` with ``--mock`` or ``--model ollama``
 builds no mesh and runs one process, as JAX does.  ``sweep --devices
-1,2,4`` runs each point as such a mesh.  Not ported yet: ``--tp`` above
-1 and ``--devices`` above 1 with ``--weight-quant`` (usage errors naming
-the flag).
+1,2,4`` runs each point as such a mesh.
+
+``serve --tp N`` with ``--model distilbert*`` or ``llama*`` launches the
+same way: this process is rank 0 and serves; ranks 1..N-1 run the
+follower loop (``serving/server.py:run_follower``), replaying rank 0's
+dispatch stream on their shards; the mesh's backend and each rank's
+kernel launches are printed as for ``--devices``.  ``--tp N --mock`` (and
+``--model ollama``) serves in one process, as JAX does.  Not ported
+yet: ``--devices`` above 1 with ``--weight-quant``, and ``--tp`` above 1
+with ``--weight-quant`` or a quantized model (``*-int8``): usage errors
+naming the flag.
 """
 
 from __future__ import annotations
@@ -143,6 +152,9 @@ def _check_run_flags(parser: argparse.ArgumentParser,
     if getattr(args, "trace_dir", None) and args.profile_dir:
         parser.error("--trace-dir and --profile-dir each capture a device "
                      "trace; give one of them")
+    if args.command == "serve":
+        _check_serve_tp(parser, args)
+        return
     devices = getattr(args, "devices", None)
     if args.command == "sweep":
         if devices and min(devices) < 1:
@@ -158,9 +170,48 @@ def _check_run_flags(parser: argparse.ArgumentParser,
                      "under a mesh)")
 
 
+def _check_serve_tp(parser: argparse.ArgumentParser,
+                    args: argparse.Namespace) -> None:
+    """``--tp`` / ``--replicas`` (flags or their env) resolve, and a
+    tensor-parallel model has no quantized projections: those are not
+    ported under a mesh."""
+    from music_analyst_tpu_torch.engines.families import mesh_capable
+    from music_analyst_tpu_torch.serving.batcher import (
+        resolve_replicas,
+        resolve_tp,
+    )
+
+    try:
+        resolve_replicas(args.replicas)
+        tp = resolve_tp(args.tp)
+    except ValueError as exc:
+        parser.error(str(exc))
+    if tp > 1 and mesh_capable(args.model, args.mock):
+        if args.weight_quant != "none":
+            parser.error(f"--tp {tp} with --weight-quant {args.weight_quant} "
+                         f"{_NOT_PORTED} (quantized projections under a "
+                         "mesh)")
+        if args.model.endswith("-int8"):
+            parser.error(f"--tp {tp} with --model {args.model} {_NOT_PORTED} "
+                         "(quantized projections under a mesh)")
+
+
 def _mesh_ranks(args: argparse.Namespace) -> int:
     """Ranks this run's mesh spans (1: one process, no mesh).  Only
-    ``analyze`` and the on-device ``sentiment`` models build a mesh."""
+    ``analyze``, the on-device ``sentiment`` models and ``serve --tp N``
+    of an on-device model (one server, not the replica router) build a
+    mesh."""
+    if args.command == "serve":
+        from music_analyst_tpu_torch.engines.families import mesh_capable
+        from music_analyst_tpu_torch.serving.batcher import (
+            resolve_replicas,
+            resolve_tp,
+        )
+
+        if (resolve_replicas(args.replicas) > 1
+                or not mesh_capable(args.model, args.mock)):
+            return 1
+        return resolve_tp(args.tp)
     devices = getattr(args, "devices", None) or 1
     if devices == 1 or args.command not in ("analyze", "sentiment"):
         return 1
@@ -450,8 +501,11 @@ def _add_serve(sub: argparse._SubParsersAction) -> None:
     p.add_argument("--tp", type=int, default=None,
                    help="Tensor-parallel width per worker: attention "
                         "heads + KV cache shard over a tp mesh axis "
-                        "(must divide kv heads; default "
-                        "$MUSICAAL_SERVE_TP or 1; only 1 is ported)")
+                        "(a width that does not divide the kv heads "
+                        "replicates them; default $MUSICAAL_SERVE_TP or "
+                        "1); N > 1 runs the server as N ranks, this "
+                        "process serving and the others replaying its "
+                        "dispatch stream on their shards")
     p.add_argument("--ttft-slo-ms", type=float, default=None,
                    help="Time-to-first-token target in ms: arms SLO-aware "
                         "preemption (a waiting higher-priority admit may "
@@ -690,10 +744,7 @@ def _run_wordcount_per_song(args: argparse.Namespace) -> int:
 def _run_serve(parser: argparse.ArgumentParser,
                args: argparse.Namespace) -> int:
     from music_analyst_tpu_torch.device import resolve_device
-    from music_analyst_tpu_torch.serving.batcher import (
-        resolve_replicas,
-        resolve_tp,
-    )
+    from music_analyst_tpu_torch.serving.batcher import resolve_replicas
     from music_analyst_tpu_torch.serving.server import run_server
 
     if not args.stdio and not args.socket:
@@ -706,12 +757,7 @@ def _run_serve(parser: argparse.ArgumentParser,
             "--weight-quant requires an on-device model family "
             "(distilbert[-*] or llama[3*])"
         )
-    try:
-        replicas, tp = resolve_replicas(args.replicas), resolve_tp(args.tp)
-    except ValueError as exc:
-        parser.error(str(exc))
-    if tp > 1:
-        parser.error(f"--tp {tp} {_NOT_PORTED}")
+    replicas = resolve_replicas(args.replicas)
     resolve_device(args.device)
     try:
         common = dict(
@@ -834,7 +880,8 @@ def main(argv: Optional[List[str]] = None) -> int:
         # --devices N on CUDA needs a card: run_ranks checks before rank 0
         # joins, and stops the ranks it started.
         argv = list(sys.argv[1:] if argv is None else argv)
-        staging = _stage_outputs(args)
+        # serve writes no output directory to publish.
+        staging = None if args.command == "serve" else _stage_outputs(args)
         return launch.run_ranks(
             launch.module_command(argv), n_ranks, args.device,
             lambda: _report_launches(_run_scoped(parser, args, staging)),
@@ -886,9 +933,23 @@ def _run_launched_rank(parser: argparse.ArgumentParser,
     configure_faults(resolve_fault_spec(args.inject_faults))
     multihost.join_from_env()
     try:
+        if args.command == "serve":
+            return _report_launches(_run_serve_follower(args))
         return _report_launches(_dispatch(parser, args))
     finally:
         multihost.shutdown()
+
+
+def _run_serve_follower(args: argparse.Namespace) -> int:
+    """A rank of ``serve --tp N`` other than 0: no wire, journal, cache or
+    telemetry, only the replay of rank 0's dispatch stream."""
+    from music_analyst_tpu_torch.serving.server import run_follower
+
+    return run_follower(
+        model=args.model, mock=args.mock,
+        weight_quant=(None if args.weight_quant == "none"
+                      else args.weight_quant),
+        tp=args.tp, device=args.device)
 
 
 def _report_launches(code: int) -> int:

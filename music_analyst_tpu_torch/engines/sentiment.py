@@ -310,10 +310,9 @@ def _run_sentiment_impl(
     # loads it (its ``serve.load`` span) on the requested device.
     from music_analyst_tpu_torch.serving.residency import ModelResidency
 
-    extra = {} if mesh is None else {"mesh": mesh}
     residency = ModelResidency(
         model=model, mock=mock, weight_quant=weight_quant, backend=backend,
-        device=device, length_buckets=length_buckets, **extra,
+        device=device, length_buckets=length_buckets, mesh=mesh,
     )
     with tel.span("backend_init", model=model, mock=bool(mock)):
         clf = residency.acquire()

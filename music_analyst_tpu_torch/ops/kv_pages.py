@@ -41,6 +41,7 @@ import torch
 import torch.nn.functional as F
 
 from music_analyst_tpu_torch.models.layers import KVCache
+from music_analyst_tpu_torch.ops.kv_slots import upload_arrays
 from music_analyst_tpu_torch.ops.paged_attention import PagedAttnView
 from music_analyst_tpu_torch.ops.quant import quantize_kv_page
 from music_analyst_tpu_torch.parallel.sharding import local_kv_heads
@@ -212,6 +213,11 @@ class PagedDecodeRuntime:
     def pool_bytes(self) -> int:
         """The whole pool across layers, the trash page included."""
         return (self.plan.n_pages + 1) * self.page_bytes()
+
+    def upload(self, *arrays) -> List[torch.Tensor]:
+        """A dispatch's host inputs on this runtime's device
+        (``kv_slots.upload_arrays``)."""
+        return upload_arrays(self.device, *arrays)
 
     def compiled_variants(self) -> int:
         """Programs compiled for this runtime: none, eager PyTorch traces

@@ -18,7 +18,11 @@ buffers updated in place:
 * ``snapshot_slot`` / ``restore_slot`` copy one slot's rows out to
   stand-alone device tensors and back into any slot: the O(1)
   preempt-resume of the monolithic backend (one device copy each way,
-  no host readback).
+  no host readback);
+* ``upload`` puts a dispatch's host inputs on the device in one copy
+  (:func:`upload_arrays`; the paged runtime has it too), so a
+  tensor-parallel server's followers make their own copies of them
+  (``serving/tp_dispatch.py``).
 
 Attention is the model's dense path (``models/layers.py``), as in the
 JAX package: no kernel runs here.  The layout mirrors the static path's
@@ -34,6 +38,7 @@ from __future__ import annotations
 import dataclasses
 from typing import List, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from music_analyst_tpu_torch.models.layers import KVCache
@@ -66,6 +71,22 @@ class SlotPlan:
     @property
     def max_total(self) -> int:
         return self.prompt_region + self.max_new
+
+
+def upload_arrays(device: torch.device,
+                  *arrays: np.ndarray) -> List[torch.Tensor]:
+    """Host int32/bool arrays → tensors on ``device`` in ONE host-to-device
+    copy (bools travel as int32 and come back as bool)."""
+    flat = np.concatenate([np.asarray(a).astype(np.int32, copy=False).ravel()
+                           for a in arrays])
+    dev = torch.from_numpy(flat).to(device)
+    out, at = [], 0
+    for a in arrays:
+        a = np.asarray(a)
+        part = dev[at:at + a.size].view(a.shape)
+        out.append(part.bool() if a.dtype == np.bool_ else part)
+        at += a.size
+    return out
 
 
 class SlotDecodeRuntime:
@@ -111,6 +132,10 @@ class SlotDecodeRuntime:
         itemsize = torch.empty((), dtype=self.dtype).element_size()
         return (cfg.n_layers * 2 * plan.n_slots * plan.max_total
                 * self.n_kv_heads * (cfg.dim // cfg.n_heads) * itemsize)
+
+    def upload(self, *arrays: np.ndarray) -> List[torch.Tensor]:
+        """A dispatch's host inputs on this runtime's device."""
+        return upload_arrays(self.device, *arrays)
 
     def compiled_variants(self) -> int:
         """Programs compiled for this runtime: none, eager PyTorch traces

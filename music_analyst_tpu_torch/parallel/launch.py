@@ -20,7 +20,13 @@ The moment a rank fails, a watcher kills the others, so no rank is left
 blocked in a collective; this process then removes the staging
 directory and exits 1 as soon as its command stops writing (it returns
 or raises), or after ``END_GRACE_S`` if it stays blocked on the dead
-peer.  This module imports no torch.
+peer.  Rank 0's command may end the run the same way itself
+(:func:`abort`: a tensor-parallel server whose dispatch stream broke).
+
+The children read no standard input (under ``serve --stdio`` rank 0's
+is the request stream).  A long-lived rank (a server's follower) calls
+:func:`exit_with_parent`, so that it does not outlive a rank 0 killed
+outright, whose watcher never ran.  This module imports no torch.
 """
 
 from __future__ import annotations
@@ -40,6 +46,10 @@ ENV_WORLD = "MUSICAAL_WORLD_SIZE"
 ENV_COORDINATOR = "MUSICAAL_COORDINATOR"
 ENV_DEVICE = "MUSICAAL_RANK_DEVICE"
 ENV_TIMEOUT = "MUSICAAL_DIST_TIMEOUT_S"
+ENV_PARENT = "MUSICAAL_RANK_PARENT"
+DEFAULT_TIMEOUT_S = 300.0
+# How often a long-lived rank looks for its parent (exit_with_parent).
+PARENT_POLL_S = 0.2
 
 STAGING_INFIX = ".staging-"
 # How long a failed rank's watcher waits for rank 0 to come out of its
@@ -52,6 +62,45 @@ def launched_rank() -> Optional[int]:
     ``None``."""
     value = os.environ.get(ENV_RANK)
     return None if value is None else int(value)
+
+
+def resolve_timeout() -> float:
+    """The group timeout of a launch: ``$MUSICAAL_DIST_TIMEOUT_S``, else
+    300 s."""
+    return float(os.environ.get(ENV_TIMEOUT) or DEFAULT_TIMEOUT_S)
+
+
+# The running launch's way to end every rank (set while run_ranks runs).
+_ABORT: Optional[Callable[[str], None]] = None
+
+
+def abort(reason: str) -> None:
+    """End the mesh that :func:`run_ranks` runs in this process: kill
+    every rank and exit 1 (nothing published).  A no-op outside
+    ``run_ranks``."""
+    end = _ABORT
+    if end is not None:
+        end(reason)
+
+
+def exit_with_parent() -> None:
+    """Exit 1 once the process that launched this rank is gone: a watcher
+    thread compares the parent's pid (``$MUSICAAL_RANK_PARENT``, else the
+    parent at the call) with ``os.getppid()`` every ``PARENT_POLL_S``, so
+    the rank ends within one poll of its parent's death, a SIGKILL
+    included."""
+    parent = int(os.environ.get(ENV_PARENT) or os.getppid())
+
+    def _watch() -> None:
+        while os.getppid() == parent:
+            time.sleep(PARENT_POLL_S)
+        sys.stderr.write(f"mesh: rank {launched_rank()}: its parent "
+                         f"{parent} is gone; exiting\n")
+        sys.stderr.flush()
+        os._exit(1)
+
+    threading.Thread(target=_watch, name="mesh-parent-watch",
+                     daemon=True).start()
 
 
 def module_command(argv: Sequence[str]) -> List[str]:
@@ -135,20 +184,25 @@ class Staging:
 
 
 def run_ranks(command: Sequence[str], n_ranks: int, device: str,
-              body: Callable[[], int], timeout_s: float = 300.0,
+              body: Callable[[], int], timeout_s: Optional[float] = None,
               staging: Optional[Staging] = None) -> int:
     """Run ``body`` as rank 0 of ``n_ranks`` on ``device``, ranks
     1..N-1 being ``command`` in child processes of this one; the process
     group lives for ``body``'s call and is destroyed in a ``finally``.
     After ``body`` returns, the children are awaited under one deadline
-    (``timeout_s``, also every collective's timeout).  ``staging`` is
-    published when ``body`` returned 0 and every child exited 0, and
-    removed in every other case.  One rank runs ``body`` alone."""
+    (``timeout_s``, default :func:`resolve_timeout`, also every
+    collective's timeout).  ``staging`` is published when ``body``
+    returned 0 and every child exited 0, and removed in every other case.
+    One rank runs ``body`` alone."""
+    global _ABORT
+    if timeout_s is None:
+        timeout_s = resolve_timeout()
     address = f"localhost:{_free_port()}"
     env = dict(os.environ, **{ENV_WORLD: str(n_ranks),
                               ENV_COORDINATOR: address,
                               ENV_DEVICE: device,
-                              ENV_TIMEOUT: str(timeout_s)})
+                              ENV_TIMEOUT: str(timeout_s),
+                              ENV_PARENT: str(os.getpid())})
     if "OMP_NUM_THREADS" not in os.environ:
         # Ranks on one host split its cores (as the replica router does).
         env["OMP_NUM_THREADS"] = str(max(1, (os.cpu_count() or 1) // n_ranks))
@@ -168,7 +222,7 @@ def run_ranks(command: Sequence[str], n_ranks: int, device: str,
         for rank in range(1, n_ranks):
             children.append(subprocess.Popen(
                 list(command), env=dict(env, **{ENV_RANK: str(rank)}),
-                stdout=subprocess.DEVNULL,
+                stdin=subprocess.DEVNULL, stdout=subprocess.DEVNULL,
             ))
             sys.stderr.write(f"mesh: rank {rank} pid {children[-1].pid}\n")
             sys.stderr.flush()
@@ -231,9 +285,11 @@ def run_ranks(command: Sequence[str], n_ranks: int, device: str,
         if n_ranks > 1:
             multihost.initialize(address, n_ranks, 0, backend=backend,
                                  timeout_s=timeout_s)
+        _ABORT = _end
         try:
             code = body()
         finally:
+            _ABORT = None
             if n_ranks > 1:
                 multihost.shutdown()
             left_body.set()

@@ -538,15 +538,16 @@ class ContinuousScheduler:
         variants_before = self.runtime.compiled_variants()
         t0 = time.perf_counter()
         dev = self.device
-        chunk_ids = torch.zeros((self.plan.prefill_chunk,), dtype=torch.int32,
-                                device=dev)
         n = self.plan.n_slots
+        # Inputs go up through the runtime, as the traffic's do.
+        (chunk_ids,) = self._upload(
+            np.zeros((self.plan.prefill_chunk,), np.int32))
 
         def ints(value, size):
-            return torch.full((size,), value, dtype=torch.int32, device=dev)
+            return self._upload(np.full((size,), value, np.int32))[0]
 
         def flags(value, size):
-            return torch.full((size,), value, dtype=torch.bool, device=dev)
+            return self._upload(np.full((size,), value, bool))[0]
 
         if self.paged:
             plan = self.plan
@@ -555,20 +556,19 @@ class ContinuousScheduler:
                 row = (np.arange(pps, dtype=np.int32) + shift) % plan.n_pages
                 self.caches, _ = self.runtime.prefill_chunk(
                     self.caches, row, 0, chunk_ids, 0, plan.prefill_chunk, 0)
-            table = torch.from_numpy(
+            (table,) = self._upload(
                 np.arange(n * pps, dtype=np.int32).reshape(n, pps)
-                % plan.n_pages).to(dev)
+                % plan.n_pages)
             self.caches, _, _, _, _ = self.runtime.decode_step(
                 self.caches, table, ints(0, n), ints(1, n), ints(0, n),
                 ints(1, n), flags(False, n), flags(False, n))
             self.caches = self.runtime.copy_page(
                 self.caches, 0, min(1, plan.n_pages - 1))
             if self.speculate_k > 0:
+                (blk,) = self._upload(
+                    np.zeros((n, self.speculate_k + 1), np.int32))
                 self.caches, _ = self.runtime.verify_block(
-                    self.caches, table,
-                    torch.zeros((n, self.speculate_k + 1), dtype=torch.int32,
-                                device=dev),
-                    ints(1, n), ints(0, n))
+                    self.caches, table, blk, ints(1, n), ints(0, n))
             self.caches = self.runtime.free_pages(
                 self.caches, flags(True, plan.n_pages + 1), flags(True, n))
         else:
@@ -578,11 +578,10 @@ class ContinuousScheduler:
                 self.caches, ints(0, n), ints(1, n), ints(0, n), ints(1, n),
                 flags(False, n), flags(False, n))
             if self.speculate_k > 0:
+                (blk,) = self._upload(
+                    np.zeros((n, self.speculate_k + 1), np.int32))
                 self.caches, _ = self.runtime.verify_block(
-                    self.caches,
-                    torch.zeros((n, self.speculate_k + 1), dtype=torch.int32,
-                                device=dev),
-                    ints(1, n), ints(0, n))
+                    self.caches, blk, ints(1, n), ints(0, n))
             self.caches = self.runtime.free_slots(self.caches, flags(True, n))
             snap_k, snap_v, snap_len = self.runtime.snapshot_slot(
                 self.caches, 0)
@@ -1352,8 +1351,7 @@ class ContinuousScheduler:
         start = slot.next_chunk
         C = self.plan.prefill_chunk
         is_last = start + C >= min(max(slot.plen, 1), self.plan.prompt_region)
-        chunk = torch.from_numpy(
-            np.ascontiguousarray(slot.ids[start:start + C])).to(self.device)
+        (chunk,) = self._upload(slot.ids[start:start + C])
         length_after = min(start + C, self.plan.prompt_region)
         last_index = max(0, min(slot.plen - 1 - start, C - 1))
         if self.paged:
@@ -1471,16 +1469,9 @@ class ContinuousScheduler:
 
     def _upload(self, *arrays: np.ndarray) -> List[torch.Tensor]:
         """Host int32/bool arrays → device tensors in ONE host-to-device
-        copy (bools travel as int32 and come back as bool)."""
-        flat = np.concatenate([a.astype(np.int32, copy=False).ravel()
-                               for a in arrays])
-        dev = torch.from_numpy(flat).to(self.device)
-        out, at = [], 0
-        for a in arrays:
-            part = dev[at:at + a.size].view(a.shape)
-            out.append(part.bool() if a.dtype == np.bool_ else part)
-            at += a.size
-        return out
+        copy, through the runtime (``upload``), so that under a
+        tensor-parallel server every rank makes its own copy of them."""
+        return self.runtime.upload(*arrays)
 
     @staticmethod
     def _download(*tensors: torch.Tensor) -> List[np.ndarray]:

@@ -16,6 +16,13 @@ model load once over its lifetime; this manager owns that lifetime:
 
 :meth:`reload` drops the backend and loads a fresh one on the same device
 (the batcher's failover hook); it never moves the model to the CPU.
+
+``mesh=`` (``--tp N``: a ``tp`` mesh over the server's ranks) is passed to
+``get_backend``, as JAX's residency does; the families that take no mesh
+drop it there.  Under a mesh every rank holds a residency of its own, and
+the server runs :meth:`acquire`, :meth:`reload`, :meth:`warmup` and
+:meth:`classify_batch` on all of them through its dispatch stream
+(``serving/tp_dispatch.py``), so a reload rebuilds every rank's shard.
 """
 
 from __future__ import annotations
@@ -58,12 +65,14 @@ class ModelResidency:
         weight_quant: Optional[str] = None,
         backend=None,
         device: DeviceLike = "cuda",
+        mesh=None,
         **backend_kwargs: Any,
     ) -> None:
         self.model = model
         self.mock = mock
         self.weight_quant = weight_quant
         self.device = device
+        self.mesh = mesh
         # Extra get_backend() options pinned at construction so a reload
         # rebuilds the same backend.
         self.backend_kwargs = backend_kwargs
@@ -98,6 +107,7 @@ class ModelResidency:
                     mock=self.mock,
                     weight_quant=self.weight_quant,
                     device=self.device,
+                    **({} if self.mesh is None else {"mesh": self.mesh}),
                     **self.backend_kwargs,
                 )
             load_s = time.perf_counter() - t0
@@ -174,6 +184,11 @@ class ModelResidency:
         :meth:`reload` swaps the backend under live ops."""
         backend = self._backend
         return backend if backend is not None else self.acquire()
+
+    def classify_batch(self, texts):
+        """Labels of ``texts`` from the resident backend (the batcher's
+        ``sentiment`` op)."""
+        return self.current().classify_batch(texts)
 
     def reload(self):
         """Drop the (poisoned) backend and load a fresh one on the same

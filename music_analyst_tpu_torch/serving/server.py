@@ -9,8 +9,21 @@ with the JAX package never answers one framework with the other's bytes.
 One repair: the ``shutdown`` op's drain begins only once its reply is
 queued (JAX begins it while parsing, so the writer can see the drain with
 that reply not yet queued and end the stream without it).
-Tensor parallelism (``--tp > 1``) is not ported yet; the replica router
-(``serving/router.py``) sits in the batcher seat of this same server.
+The replica router (``serving/router.py``) sits in the batcher seat of
+this same server.
+
+**Tensor parallelism** (``--tp N``, a mesh-capable model): the server
+runs as N ranks over one ``tp`` mesh (:func:`serve_mesh`), which the
+CLI launches (``parallel/launch.py:run_ranks``).  Rank 0 is this server;
+every call that touches the model's shards (the residency's load,
+warm-up and reload, ``classify_batch``, every device call of the decode
+runtime) goes to ranks 1..N-1 through one ordered dispatch stream
+(``serving/tp_dispatch.py``), and each of them runs :func:`run_follower`,
+replaying the stream on its own shard.  A follower runs no wire, journal,
+response cache, telemetry or flight record, and ignores SIGINT and
+SIGTERM: it ends on rank 0's ``stop`` after the drain, or with rank 0
+(``launch.exit_with_parent``).  A stream that breaks (a rank died, a
+collective failed) ends every rank and exits 1 (``launch.abort``).
 
 The reference's sentiment path is one process per invocation; this is
 the shape of a production stack instead — a process that loads the model
@@ -55,6 +68,7 @@ manifest's ``serving`` section.
 from __future__ import annotations
 
 import collections
+import contextlib
 import json
 import os
 import queue
@@ -141,9 +155,11 @@ def build_ops(clf) -> Dict[str, Any]:
 def build_resident_ops(residency: ModelResidency) -> Dict[str, Any]:
     """Op table that resolves the backend through ``residency`` PER CALL,
     so a failover :meth:`ModelResidency.reload` swaps the model under the
-    live batcher instead of pinning the poisoned instance."""
+    live batcher instead of pinning the poisoned instance.  Under ``--tp``
+    ``residency`` is the dispatch stream's view of it, so ``sentiment``
+    runs on every rank; ``wordcount`` is host-only and stays here."""
     def sentiment(texts: List[str]) -> List[Dict[str, Any]]:
-        labels = residency.current().classify_batch(texts)
+        labels = residency.classify_batch(texts)
         return [{"label": label} for label in labels]
 
     return {"sentiment": sentiment, "wordcount": _wordcount_batch}
@@ -160,9 +176,13 @@ class SentimentServer:
         decode=None,
         journal: Optional[RequestJournal] = None,
         router=None,
+        dispatch=None,
     ) -> None:
         self.batcher = batcher
         self.residency = residency
+        # The tensor-parallel dispatch stream (serving/tp_dispatch.py), for
+        # the ``stats`` reply's ``tp_stream`` section; None on one rank.
+        self.dispatch = dispatch
         # Durable request journal (serving/journal.py): admitted records
         # write ahead of dispatch, replied records fsync ahead of the
         # wire, and re-dispatched ids settle from the dedup index instead
@@ -555,6 +575,8 @@ class SentimentServer:
             out["journal"] = self.journal.stats()
         if self.router is not None:
             out["router"] = self.router.stats()
+        if self.dispatch is not None:
+            out["tp_stream"] = self.dispatch.stats()
         if self.launches_at_ready is not None:
             out["kernel_launches"] = self.kernel_launches_since_ready()
         # Response cache (serving/response_cache.py) — one instance is
@@ -662,17 +684,61 @@ def _stale_flight_witness() -> bool:
     return not reason.startswith("serve_drain")
 
 
-def serve_mesh(tp: Optional[int]):
-    """Mesh for ``--tp N``: None for the one-device layout; a width above
-    1 (tensor-parallel serving: a follower loop on every rank but the
-    coordinator) is not ported yet."""
+def serve_mesh(tp: Optional[int], device: str = "cuda"):
+    """Mesh for ``--tp N``: a 1-D ``tp`` axis over the N ranks of the
+    process group (attention heads and the KV head axis shard over it,
+    ``parallel/sharding.py:DECODE_KV_RULES``; a width that does not
+    divide the KV heads replicates them, as in JAX); None for the
+    one-device layout.  Ranks share a card, or the CPU, over gloo, as
+    ``--devices N`` does.  Every rank calls it alike."""
     width = resolve_tp(tp)
     if width <= 1:
         return None
-    raise NotImplementedError(
-        f"--tp {width} (tensor-parallel serving) is not yet ported to "
-        "music_analyst_tpu_torch"
+    from music_analyst_tpu_torch.parallel import multihost
+    from music_analyst_tpu_torch.parallel.mesh import MeshSpec, build_mesh
+
+    if multihost.process_count() != width:
+        raise RuntimeError(
+            f"--tp {width} serves as {width} ranks, one process each; this "
+            f"process group has {multihost.process_count()} (`python -m "
+            "music_analyst_tpu_torch serve --tp N` launches them)")
+    return build_mesh(MeshSpec((("tp", width),)), device=device)
+
+
+def run_follower(
+    model: str = "mock",
+    mock: bool = False,
+    weight_quant: Optional[str] = None,
+    tp: Optional[int] = None,
+    backend=None,
+    device: str = "cuda",
+) -> int:
+    """Rank 1..N-1 of ``serve --tp N``: build this rank's shard of the
+    mesh and its residency (``backend`` injects one built on the caller's
+    mesh), then replay rank 0's dispatch stream until ``stop`` (returns
+    0).  Signals are rank 0's to handle: a terminal's SIGINT reaches
+    every rank, and a follower must not die before rank 0 has drained.
+    It exits with rank 0 (``launch.exit_with_parent``)."""
+    import signal
+
+    from music_analyst_tpu_torch.engines.families import mesh_capable
+    from music_analyst_tpu_torch.parallel import launch
+    from music_analyst_tpu_torch.serving.tp_dispatch import follow
+
+    for signum in (signal.SIGINT, signal.SIGTERM):
+        try:
+            signal.signal(signum, signal.SIG_IGN)
+        except (ValueError, OSError):  # not the main thread
+            pass
+    launch.exit_with_parent()
+    mesh = (serve_mesh(tp, device)
+            if backend is None and mesh_capable(model, mock) else None)
+    residency = ModelResidency(
+        model=model, mock=mock, weight_quant=weight_quant, backend=backend,
+        device=device, mesh=mesh,
     )
+    return follow({"residency": residency},
+                  device=None if mesh is None else mesh.device)
 
 
 def device_identity(backend) -> str:
@@ -742,7 +808,7 @@ def run_server(
         metrics_interval_ms, directory=trace_dir, role="server"
     )
     resolved_batch = resolve_max_batch(max_batch)
-    with tel.run_scope("serve", None):
+    with tel.run_scope("serve", None), contextlib.ExitStack() as cleanup:
         # Crash-consistency first: open the journal (replaying its state)
         # and check both unclean witnesses BEFORE any work this run could
         # overwrite them — the journal's missing clean marker (SIGKILL
@@ -772,12 +838,36 @@ def run_server(
                     f"{len(unanswered)} journaled request(s) to replay",
                     file=sys.stderr,
                 )
-        serve_mesh(tp)
+        from music_analyst_tpu_torch.engines.families import mesh_capable
+
+        # --tp N builds its mesh here when the server loads the model; an
+        # injected backend was built on its caller's mesh.
+        mesh = (serve_mesh(tp, device)
+                if backend is None and mesh_capable(model, mock) else None)
         residency = ModelResidency(
             model=model, mock=mock, weight_quant=weight_quant,
-            backend=backend, device=device,
+            backend=backend, device=device, mesh=mesh,
         )
-        clf = residency.acquire()
+        # Under tp every device call goes to every rank, in one order.
+        from music_analyst_tpu_torch.parallel import multihost
+
+        stream = None
+        serving: Any = residency
+        if resolve_tp(tp) > 1 and multihost.process_count() > 1:
+            from music_analyst_tpu_torch.parallel import launch
+            from music_analyst_tpu_torch.serving.tp_dispatch import (
+                RESIDENCY_METHODS,
+                DispatchStream,
+            )
+
+            stream = DispatchStream({"residency": residency},
+                                    on_break=launch.abort)
+            serving = stream.remote(residency, RESIDENCY_METHODS)
+            # Every rank leaves the follower loop once the drain below is
+            # done (or this server raised); a broken stream has already
+            # ended them.
+            cleanup.callback(stream.close)
+        clf = serving.acquire()
         # Response cache (serving/response_cache.py): ONE instance shared
         # by every admission edge this server stands up.  The fingerprint
         # folds in everything that changes reply bytes — model identity,
@@ -805,7 +895,7 @@ def run_server(
                 ),
             )
         if warmup:
-            record = residency.warmup(resolved_batch)
+            record = serving.warmup(resolved_batch)
             if not quiet:
                 print(
                     f"serve: warmed {len(record['sizes'])} bucket shape(s) "
@@ -814,11 +904,11 @@ def run_server(
                     file=sys.stderr,
                 )
         batcher = DynamicBatcher(
-            build_resident_ops(residency),
+            build_resident_ops(serving),
             max_batch=resolved_batch,
             max_wait_ms=max_wait_ms,
             max_queue=max_queue,
-            failover=lambda exc: residency.reload() is not None,
+            failover=lambda exc: serving.reload() is not None,
             ttft_slo_ms=ttft_slo_ms,
             tenant_budget=tenant_budget,
             priority=priority,
@@ -866,7 +956,7 @@ def run_server(
             decode.start()
         server = SentimentServer(
             batcher, residency, mode="stdio" if stdio else "unix",
-            decode=decode, journal=journal,
+            decode=decode, journal=journal, dispatch=stream,
         )
         if metrics.enabled:
             metrics.attach(
@@ -894,6 +984,9 @@ def run_server(
             journal_dir=journal_path,
             response_cache_dir=rc_dir,
         )
+        if mesh is not None:
+            tel.annotate(mesh_shape=mesh.shape,
+                         mesh_backend=multihost.backend())
 
         # Graceful SIGTERM/SIGINT: drain instead of dying.  The flight
         # recorder's own handlers were installed by the CLI before this;
@@ -975,4 +1068,10 @@ def run_server(
                 print(f"serve: kernel launches since ready "
                       f"{json.dumps(served, sort_keys=True)}",
                       file=sys.stderr)
-    return 0
+                if stream is not None:
+                    print(f"serve: tp stream "
+                          f"{json.dumps(stream.stats(), sort_keys=True)}",
+                          file=sys.stderr)
+        # A server whose stream broke outside a launch (in process) carried
+        # on with failed requests only: it says so in its exit code.
+        return 1 if stream is not None and stream.broken else 0

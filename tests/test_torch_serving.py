@@ -10,7 +10,8 @@ removed (tolerance: none — labels, counts, greedy text and structured
 errors are exact).  Queue-full sheds with their ``retry_after_ms`` and
 poison isolation are held at the batcher.  ``serve --stdio --device cpu
 --mock`` answers the fixture's songs with the port's ``sentiment --mock``
-labels, and the unported serve flags refuse.
+labels, and the unported serve flags (quantized projections under
+``--tp``) refuse.
 """
 
 import collections
@@ -286,10 +287,15 @@ def test_cli_stdio_mock_matches_sentiment_cli(fixture_csv, tmp_path,
     assert [r["label"] for r in replies] == labels
 
 
-@pytest.mark.parametrize("flags", [["--tp", "2"]], ids=" ".join)
+@pytest.mark.parametrize("flags", [
+    ["--tp", "2", "--weight-quant", "int8", "--model", "distilbert"],
+    ["--tp", "2", "--model", "distilbert-int8"],
+], ids=" ".join)
 def test_cli_serve_refuses_unported(flags, capsys):
+    """Quantized projections under a tp mesh are not ported: a usage
+    error before any rank starts."""
     with pytest.raises(SystemExit):
-        port_main(["serve", "--stdio", "--device", "cpu", "--mock", *flags])
+        port_main(["serve", "--stdio", "--device", "cpu", *flags])
     assert "not yet ported" in capsys.readouterr().err
 
 
@@ -336,11 +342,13 @@ def test_signal_mid_batch_drains_gracefully(tmp_path, signame):
     assert record["reason"] == f"serve_drain:signal:{signame}"
 
 
-def test_cli_serve_runs_fault_injection_and_watchdog(monkeypatch, capsys):
+def test_cli_serve_runs_fault_injection_and_watchdog(monkeypatch, capsys,
+                                                     tmp_path):
     """``serve`` accepts ``--inject-faults`` (a transient fault at the
     dispatch seam is retried: the reply is the clean one) and a non-zero
-    ``--watchdog-timeout``; a malformed fault spec is a usage error; a
-    tensor-parallel mesh is refused by the server itself."""
+    ``--watchdog-timeout``; a malformed fault spec is a usage error;
+    ``serve_mesh(2)`` builds a ``tp`` mesh of 2 inside a group of two
+    ranks, and outside one says how to launch them."""
     from music_analyst_tpu_torch.observability.watchdog import stop_watchdog
     from music_analyst_tpu_torch.resilience.faults import configure_faults
 
@@ -361,6 +369,23 @@ def test_cli_serve_runs_fault_injection_and_watchdog(monkeypatch, capsys):
         port_main(["serve", "--stdio", "--device", "cpu", "--mock",
                    "--inject-faults", "serving.dispatch:explode"])
     configure_faults(None)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        ts.serve_mesh(2)
+    with pytest.raises(RuntimeError, match="serve --tp N"):
+        ts.serve_mesh(2, device="cpu")
     assert ts.serve_mesh(1) is None
+    from tests.torch_ranks import launch_ranks
+
+    outs = launch_ranks(_SERVE_MESH_CHILD, 2, [], tmp_path / "ranks")
+    assert [json.loads(o) for o in outs] == [
+        {"axes": [["tp", 2]], "size": 2, "rank": r} for r in range(2)]
+
+
+_SERVE_MESH_CHILD = r"""
+import json, sys
+from music_analyst_tpu_torch.parallel import multihost as mh
+from music_analyst_tpu_torch.serving import server as ts
+rank, n, port = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
+mh.initialize(f"localhost:{port}", n, rank, timeout_s=60)
+mesh = ts.serve_mesh(2, device="cpu")
+print(json.dumps(dict(axes=mesh.axes, size=mesh.size, rank=mesh.rank)))
+mh.shutdown()
+"""

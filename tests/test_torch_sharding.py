@@ -208,7 +208,8 @@ def _wq_llama():
 ])
 def test_what_stays_unported_under_a_mesh_is_refused(case, capsys):
     """weight_quant / quant / MoE under a mesh, training on a mesh
-    (mesh=, zero1=) and ``serve --tp 2`` raise "not yet ported"."""
+    (mesh=, zero1=) and ``serve --tp 2`` of a weight-quantized model raise
+    "not yet ported"."""
     from music_analyst_tpu_torch.cli.main import main as port_main
     from music_analyst_tpu_torch.engines import train as ttrain
 
@@ -235,8 +236,8 @@ def test_what_stays_unported_under_a_mesh_is_refused(case, capsys):
             ttrain.init_train_state(tl.LlamaModel(tl.LlamaConfig.tiny()),
                                     ttrain.make_optimizer(), zero1=True)
         else:
-            port_main(["serve", "--stdio", "--device", "cpu", "--mock",
-                       "--tp", "2"])
+            port_main(["serve", "--stdio", "--device", "cpu", "--model",
+                       "distilbert", "--weight-quant", "int8", "--tp", "2"])
     if exc.type is SystemExit:
         assert "not yet ported" in capsys.readouterr().err
     else:
