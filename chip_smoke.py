@@ -2376,9 +2376,11 @@ def llama_quant_path(torch, dev, card) -> dict:
     """Full-width Llama-3-8B with random weights drawn on the card and
     quantized kernel by kernel, each weight scheme built at all 32 layers
     for its init memory and then run at LLAMA_LAYERS: weight_quant int8
-    (generate, 9 songs on 8 continuous slots; score, 8), weight_quant
-    int4 (generate, 9) and dynamic int8 (score, 8), each through
-    ``run_sentiment`` once."""
+    (generate, 9 songs on 8 continuous slots; score, 8; step 8's 12
+    requests served), weight_quant int4 (generate, 9) and dynamic int8
+    (score, 8), each through ``run_sentiment`` once.  The served tokens
+    and each scheme's label scores are saved for step 13's tp-2 runs
+    (``llama_tp1_quantized.json``)."""
     import dataclasses
 
     from music_analyst_tpu_torch import kernels
@@ -2400,6 +2402,8 @@ def llama_quant_path(torch, dev, card) -> dict:
         generate_dataset(dataset, num_songs=LLAMA_SONGS, seed=13)
     prompts = [PROMPT_TEMPLATE.format(lyrics=t.strip()[:LYRICS_TRUNCATION])
                for _, _, t in iter_songs(dataset)]
+    score_texts = [t for _, _, t in iter_songs(dataset,
+                                               limit=LLAMA_Q_SCORE_SONGS)]
     full = LlamaConfig.llama3_8b()
     bf16_bytes = 2 * (2 * full.vocab_size * full.dim + full.n_layers * (
         2 * full.dim * full.dim + 2 * full.dim * full.head_dim
@@ -2474,6 +2478,22 @@ def llama_quant_path(torch, dev, card) -> dict:
                                         "wq_int8_generate")
     report["wq_int8"]["score"] = run(clf, "score", LLAMA_Q_SCORE_SONGS,
                                      "wq_int8_score")
+    # Step 13 serves the same requests and scores the same songs with the
+    # same weights at tp 2, and holds them to these.
+    with open(os.path.join(WORK, "llama_tp1_served.json")) as fh:
+        served_prompts = json.load(fh)["prompts"]
+    tp1 = {"wq_int8": label_scores(clf, score_texts)}
+    clf._slot_schedulers.clear()
+    served = serve_requests(torch, dev, clf, served_prompts)
+    _no_serve_threads("llama wq_int8 served")
+    if not served["ok"]:
+        fail(f"llama wq_int8 served: replies {served['texts'][:2]}")
+    tp1["wq_int8_served"] = dict(prompts=served_prompts,
+                                 tokens=served["tokens"])
+    report["wq_int8"]["served"] = {k: v for k, v in served.items()
+                                   if k not in ("texts", "tokens")}
+    log(f"llama wq_int8 served at tp 1 on {card}: "
+        f"{json.dumps(report['wq_int8']['served'])}")
     clf._slot_schedulers.clear()
     sched = _active_scheduler(torch, clf, prompts)
     report["wq_int8"]["decode_logits_paged_vs_dense"] = decode_logits_check(
@@ -2487,6 +2507,7 @@ def llama_quant_path(torch, dev, card) -> dict:
                              layer_check=llama_layer_check(torch, dev, clf))
     report["wq_int4"]["generate"] = run(clf, "generate", LLAMA_WQ_INT4_SONGS,
                                         "wq_int4_generate")
+    tp1["wq_int4"] = label_scores(clf, score_texts)
     clf._slot_schedulers.clear()
     sched = _active_scheduler(torch, clf, prompts)
     report["wq_int4"]["decode_breakdown"] = decode_breakdown(torch, sched)
@@ -2497,6 +2518,9 @@ def llama_quant_path(torch, dev, card) -> dict:
                                   layer_check=llama_layer_check(torch, dev, clf))
     report["int8_dynamic"]["score"] = run(clf, "score", LLAMA_Q_SCORE_SONGS,
                                           "int8_dynamic_score")
+    tp1["int8_dynamic"] = label_scores(clf, score_texts)
+    with open(os.path.join(WORK, "llama_tp1_quantized.json"), "w") as fh:
+        json.dump(tp1, fh)
     report["int8_dynamic"]["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
     del clf
     torch.cuda.empty_cache()
@@ -2618,6 +2642,72 @@ def _record_tokens(sched) -> dict:
 
     sched._settle = recording
     return got
+
+
+def serve_requests(torch, dev, backend, prompts, dispatch=None, **kw):
+    """Step 8's ``generate`` requests (one burst: 8 fill the slots, then
+    the rest) through ``SentimentServer`` over the continuous scheduler
+    on ``backend`` (8 slots, chunk 64, PAGED_NEW new tokens; ``kw`` to the
+    scheduler).  ``dispatch`` is the tp dispatch stream when ``backend``
+    is its remote view on rank 0.  Returns the replies' texts and token
+    ids, the launches since the server was ready, and the decode stats."""
+    from music_analyst_tpu_torch import kernels
+    from music_analyst_tpu_torch.serving.batcher import DynamicBatcher
+    from music_analyst_tpu_torch.serving.decode_loop import (
+        ContinuousScheduler,
+    )
+    from music_analyst_tpu_torch.serving.server import (
+        SentimentServer,
+        build_ops,
+    )
+
+    sched = ContinuousScheduler(backend, n_slots=PAGED_SLOTS,
+                                prefill_chunk=64, max_new_tokens=PAGED_NEW,
+                                max_queue=64, **kw)
+    ids = _record_tokens(sched)
+    sched.warmup()
+    batcher = DynamicBatcher(build_ops(backend), max_batch=PAGED_SLOTS,
+                             device=dev).start()
+    sched.start()
+    server = SentimentServer(batcher, mode="stdio", decode=sched,
+                             dispatch=dispatch)
+    lines = [json.dumps({"id": f"g{i}", "op": "generate", "text": p,
+                         "max_new_tokens": PAGED_NEW, "priority": 1,
+                         "deadline_ms": 600_000.0})
+             for i, p in enumerate(prompts)]
+    torch.cuda.synchronize()
+    at_ready = kernels.launches()
+    t0 = time.perf_counter()
+    replies = _stream(server, lines)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    st = sched.stats()
+    launches = kernels.launches()
+    return dict(
+        ok=all(r.get("ok") for r in replies) and len(replies) == len(lines),
+        texts=[r.get("text") for r in replies],
+        tokens=[ids.get(r.get("id")) for r in replies], wall_s=wall,
+        requests_per_s=len(lines) / wall,
+        launches={k: v - at_ready.get(k, 0) for k, v in launches.items()},
+        decode_steps=st["decode_steps"],
+        decode_dispatches=st["decode_dispatches"],
+        host_ms_per_decode_dispatch=(
+            st["decode_seconds"] / st["decode_dispatches"] * 1e3),
+        ttft=_quantiles(st["ttft"]), tpot=_quantiles(st["tpot"]),
+        prefix=st.get("prefix_cache"))
+
+
+def label_scores(clf, texts) -> dict:
+    """Score-mode labels and the label scores ``[len(texts), 3]`` of one
+    pass (``classify_batch``'s score mode, keeping the scores)."""
+    from music_analyst_tpu_torch.utils.labels import SUPPORTED_LABELS
+
+    ids, lens = clf._encode_prompts(texts)
+    scores = clf.score_labels(clf._tensor(ids), clf._tensor(lens))
+    scores = scores.float().cpu()
+    labels = ["Neutral" if not t.strip() else SUPPORTED_LABELS[int(i)]
+              for t, i in zip(texts, scores.argmax(dim=1))]
+    return dict(labels=labels, scores=scores.tolist())
 
 
 def _no_serve_threads(tag: str) -> None:
@@ -3064,10 +3154,12 @@ def serve_llama_path(torch, dev, clf, prompts, card) -> dict:
         del sched, batcher, server
         gc.collect()
         torch.cuda.empty_cache()
-        if name == "paged":
-            # Step 13 serves the same requests at tp 2 and holds them to
-            # these.
-            with open(os.path.join(WORK, "llama_tp1_served.json"), "w") as fh:
+        if name in ("paged", "int8"):
+            # Step 13 serves the same requests at tp 2 (bf16 pages, then
+            # int8 pages) and holds them to these.
+            tag = "" if name == "paged" else "_int8_pages"
+            with open(os.path.join(WORK, f"llama_tp1_served{tag}.json"),
+                      "w") as fh:
                 json.dump(dict(prompts=prompts, texts=texts, tokens=tokens),
                           fh)
         return out, texts
@@ -5218,6 +5310,13 @@ MESH_ANALYZE_RUNS = {            # analyze --devices N on step 6's corpus
     "d2_chunk_4096": ["--devices", "2", "--chunk-songs", "4096"],
 }
 MESH_API_ROWS = 2048             # DistilBERT API check: songs per forward
+#  - weight_quant int4's lin2 at tp 2 against one rank's: its f32 partial
+#    sums add in another order before the one bf16 rounding of the output.
+MESH_INT4_LAYER_REL = 1e-2
+# Songs of the int4 dp1 x tp2 check (its rank-local variant: half): each
+# row-parallel all-reduce carries f32 partials, 2.5 s of gloo for every
+# 512 songs on the one card.
+MESH_WQ_API_ROWS = 512
 MESH_BROKEN_ROWS = 512           # rows the broken variants run on
 #  - DistilBERT labels, --devices 2 vs one device: equal except on songs
 #    whose one-device confidence lies within 1e-2 of the neutral
@@ -5302,6 +5401,48 @@ for tag, mesh in (("dp2xtp2", grid), ("dp1xtp2", tp_only)):
         peak_memory_bytes=torch.cuda.max_memory_allocated(dev))
     del clf
     torch.cuda.empty_cache()
+
+# weight_quant int4 on this rank's tp line (dp1 x tp2).  Broken: the
+# row-parallel products (o_proj, lin2) take their activation scales from
+# the rank's own rows.
+from music_analyst_tpu_torch.ops import quant as Q
+torch.cuda.reset_peak_memory_stats(dev)
+t0 = time.perf_counter()
+clf = DistilBertClassifier.from_pretrained_or_random(
+    "distilbert", checkpoint_path=ckpt, weight_quant="int4", mesh=tp_only)
+init_s = time.perf_counter() - t0
+clf.classify_logits(texts[:64])                      # warm-up
+multihost.barrier("wq_int4")
+torch.cuda.synchronize()
+kernels.reset_launches()
+t0 = time.perf_counter()
+good = clf.classify_logits(texts[:cs.MESH_WQ_API_ROWS])
+torch.cuda.synchronize()
+wall = time.perf_counter() - t0
+launches = kernels.launches()
+probe = torch.load(os.path.join(work, "mesh_bert_int4_lin2.pt"))
+lin2 = clf.model.encoder.layers[0].ffn.lin2
+xs = probe["x"][:, lin2.rows.start:lin2.rows.start + lin2.in_features]
+xs = xs.to(dev)
+with torch.no_grad():
+    y_good = lin2(xs).float().cpu()
+kept = Q.row_absmax
+Q.row_absmax = lambda amax, rows: amax
+with torch.no_grad():
+    local = clf.classify_logits(texts[:cs.MESH_WQ_API_ROWS // 2])
+    y_local = lin2(xs).float().cpu()
+Q.row_absmax = kept
+if rank == 0:
+    torch.save(dict(good=good, local_absmax=local),
+               os.path.join(work, "mesh_bert_wq_int4.pt"))
+scale = float(probe["y"].abs().max())
+report["wq_int4"] = dict(init_s=init_s, forward_s=wall, launches=launches,
+                         bytes=Q.param_tree_bytes(clf.model),
+                         peak_memory_bytes=torch.cuda.max_memory_allocated(dev),
+                         lin2=dict(
+                             rel=float((y_good - probe["y"]).abs().max()) / scale,
+                             local_absmax_rel=float(
+                                 (y_local - probe["y"]).abs().max()) / scale))
 print("RESULT " + json.dumps(report), flush=True)
 multihost.shutdown()
 '''
@@ -5458,9 +5599,7 @@ torch.cuda.empty_cache()
 # the dispatch stream, rank 1 replays the stream on its shard.  Step 8's
 # 12 generate requests in one burst (8 fill the slots, then 4 more).
 from music_analyst_tpu_torch.serving import tp_dispatch as TD
-from music_analyst_tpu_torch.serving.batcher import DynamicBatcher
 from music_analyst_tpu_torch.serving.decode_loop import ContinuousScheduler
-from music_analyst_tpu_torch.serving.server import SentimentServer, build_ops
 with open(os.path.join(work, "llama_tp1_served.json")) as fh:
     tp1_served = json.load(fh)
 
@@ -5490,45 +5629,12 @@ def stream_over(skip=()):
     return None, None
 
 stream, backend = stream_over()
-served = {}
 if rank == 0:
-    sched = ContinuousScheduler(backend, n_slots=cs.PAGED_SLOTS,
-                                prefill_chunk=64, max_new_tokens=cs.PAGED_NEW,
-                                max_queue=64)
-    ids = cs._record_tokens(sched)
-    sched.warmup()
-    batcher = DynamicBatcher(build_ops(backend), max_batch=cs.PAGED_SLOTS,
-                             device=dev).start()
-    sched.start()
-    server = SentimentServer(batcher, mode="stdio", decode=sched,
-                             dispatch=stream)
-    lines = [json.dumps({"id": f"g{i}", "op": "generate", "text": p,
-                         "max_new_tokens": cs.PAGED_NEW, "priority": 1,
-                         "deadline_ms": 600_000.0})
-             for i, p in enumerate(tp1_served["prompts"])]
-    torch.cuda.synchronize()
-    at_ready = kernels.launches()
-    t0 = time.perf_counter()
-    replies = cs._stream(server, lines)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    st = sched.stats()
+    served = cs.serve_requests(torch, dev, backend, tp1_served["prompts"],
+                               dispatch=stream)
     stream.close()
-    launches = kernels.launches()
-    served = dict(
-        ok=all(r.get("ok") for r in replies) and len(replies) == len(lines),
-        texts=[r.get("text") for r in replies],
-        tokens=[ids.get(r.get("id")) for r in replies], wall_s=wall,
-        requests_per_s=len(lines) / wall,
-        launches={k: v - at_ready[k] for k, v in launches.items()},
-        launches_total=launches, decode_steps=st["decode_steps"],
-        decode_span=sched.plan.decode_span,
-        ttft=cs._quantiles(st["ttft"]), tpot=cs._quantiles(st["tpot"]),
-        host_ms_per_decode_dispatch=(
-            st["decode_seconds"] / st["decode_dispatches"] * 1e3),
-        decode_dispatches=st["decode_dispatches"],
-        prefix=st.get("prefix_cache"), stream=stream.stats())
-    del sched, batcher, server, backend, stream
+    served.update(launches_total=kernels.launches(), stream=stream.stats())
+    del backend, stream
 else:
     served = dict(launches_total=kernels.launches())
 report["served"] = served
@@ -5593,6 +5699,124 @@ for name, skip in (("faithful", ()), ("broken", ("copy_page", "free_pages"))):
         stream.close()
         del sched, backend, stream
 report["cow"] = cow
+
+t_quant = time.perf_counter()
+# int8 KV pages on this bf16 model, served: every page row's scale is the
+# maximum over both ranks' KV heads, so both ranks store one scale plane.
+# Each rank's paged runtime keeps the caches it wrote, to hash its planes.
+import hashlib
+from music_analyst_tpu_torch.ops import quant as Q
+
+def serve_tp(prompts, local_pages=False, **kw):
+    """Serve ``prompts`` at tp 2 (rank 0 the server, rank 1 replaying
+    the stream); with ``local_pages`` each rank's runtime scales its int8
+    page rows over its own KV heads (the code before the fix).  Returns
+    rank 0's result ({} on rank 1) with this rank's launches and the
+    last caches its runtime wrote."""
+    seen = {}
+    real = clf.paged_runtime
+    def keeping(*a, **k):
+        rt = real(*a, **k)
+        if local_pages:
+            rt.mesh = None
+        for name in ("prefill_chunk", "decode_step"):
+            method = getattr(rt, name)
+            def call(caches, *args, _m=method, **kws):
+                seen["caches"] = caches
+                return _m(caches, *args, **kws)
+            setattr(rt, name, call)
+        return rt
+    clf.paged_runtime = keeping
+    try:
+        stream, backend = stream_over()
+        out = {}
+        if rank == 0:
+            out = cs.serve_requests(torch, dev, backend, prompts,
+                                    dispatch=stream, **kw)
+            stream.close()
+            st = stream.stats()
+            out["stream"] = {k: st[k] for k in (
+                "dispatches", "descriptor_bytes_mean", "descriptor_bytes_max",
+                "send_ms_per_dispatch", "call_ms_per_dispatch",
+                "shipped_device_bytes")}
+    finally:
+        clf.__dict__.pop("paged_runtime", None)
+    torch.cuda.synchronize()
+    out["launches_total"] = kernels.launches()
+    return out, seen.get("caches")
+
+def plane_digest(caches):
+    h, rows = hashlib.sha256(), 0
+    for c in caches:
+        for plane in (c.key_scale, c.value_scale):
+            h.update(plane.float().cpu().numpy().tobytes())
+        rows += int((c.key_scale > 0).sum())
+    return dict(sha256=h.hexdigest(), rows_written=rows)
+
+with open(os.path.join(work, "llama_tp1_served_int8_pages.json")) as fh:
+    tp1_pages = json.load(fh)
+pages, caches = serve_tp(tp1_pages["prompts"], kv_quant="int8")
+pages["planes"] = plane_digest(caches)
+if rank == 0:
+    pages["tokens_equal"] = sum(a == b for a, b in zip(pages["tokens"],
+                                                       tp1_pages["tokens"]))
+    pages.pop("texts")
+local, caches = serve_tp(tp1_pages["prompts"][:2], local_pages=True,
+                         kv_quant="int8")
+report["int8_pages"] = dict(served=pages,
+                            local_scales=dict(planes=plane_digest(caches)))
+del caches
+clf = None
+gc.collect()
+torch.cuda.empty_cache()
+
+# Quantized projections at tp 2 from step 5's seeded draw: each scheme
+# scores step 5's songs; int8 serves step 8's requests too.  Broken: the
+# row-parallel products take their scales from the rank's own rows.
+with open(os.path.join(work, "llama_tp1_quantized.json")) as fh:
+    tp1_quant = json.load(fh)
+score_texts = texts[:cs.LLAMA_Q_SCORE_SONGS]
+quantized = {}
+for scheme, field in (("wq_int8", dict(weight_quant="int8")),
+                      ("wq_int4", dict(weight_quant="int4")),
+                      ("int8_dynamic", dict(quant="int8"))):
+    multihost.barrier(scheme)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    clf = LlamaZeroShotClassifier(config=dataclasses.replace(cfg, **field),
+                                  max_prompt_len=cs.PAGED_REGION, mesh=mesh,
+                                  seed=0, decode_mode="score")
+    torch.cuda.synchronize()
+    entry = dict(init_s=time.perf_counter() - t0,
+                 bytes=Q.param_tree_bytes(clf.model),
+                 init_peak_memory_bytes=torch.cuda.max_memory_allocated(dev))
+    Q.reset_quant_calls()
+    t0 = time.perf_counter()
+    entry["score"] = cs.label_scores(clf, score_texts)
+    torch.cuda.synchronize()
+    entry["score"]["wall_s"] = time.perf_counter() - t0
+    entry["int_mm_calls"] = Q.quant_calls()["int_mm"]
+    if scheme == "wq_int8":
+        kept = Q.row_absmax
+        Q.row_absmax = lambda amax, rows: amax
+        try:
+            entry["local_absmax_score"] = cs.label_scores(clf, score_texts)
+        finally:
+            Q.row_absmax = kept
+        served, _ = serve_tp(tp1_quant["wq_int8_served"]["prompts"])
+        if rank == 0:
+            served["tokens_equal"] = sum(
+                a == b for a, b in zip(served["tokens"],
+                                       tp1_quant["wq_int8_served"]["tokens"]))
+            served.pop("texts")
+        entry["served"] = served
+    entry["peak_memory_bytes"] = torch.cuda.max_memory_allocated(dev)
+    quantized[scheme] = entry
+    clf = None
+    gc.collect()
+    torch.cuda.empty_cache()
+report["quantized"] = quantized
+report["quantized_s"] = time.perf_counter() - t_quant
 report["peak_memory_bytes"] = torch.cuda.max_memory_allocated(dev)
 print("RESULT " + json.dumps(report), flush=True)
 multihost.shutdown()
@@ -5752,17 +5976,83 @@ def mesh_sentiment_path(torch, dev, card, dataset, checkpoint) -> dict:
     return report
 
 
+MESH_WQ_SONGS = 4096   # sentiment --devices 2 --weight-quant int8
+
+
+def mesh_quant_sentiment_path(torch, dev, card, dataset, checkpoint) -> dict:
+    """``sentiment --model distilbert --devices 2 --weight-quant int8`` at
+    full width on the first MESH_WQ_SONGS songs with the split
+    checkpoint, labels against one device's weight_quant int8 run on the
+    same songs (equal except on songs within MESH_BOUNDARY_TOL of the
+    neutral threshold, as for the bf16 mesh run)."""
+    import numpy as np
+
+    from music_analyst_tpu_torch.data.csv_io import iter_songs
+    from music_analyst_tpu_torch.engines.sentiment import run_sentiment
+    from music_analyst_tpu_torch.models.distilbert import DistilBertClassifier
+
+    texts = [t for _, _, t in iter_songs(dataset, limit=MESH_WQ_SONGS)]
+    clf = DistilBertClassifier.from_pretrained_or_random(
+        "distilbert", checkpoint_path=checkpoint, weight_quant="int8",
+        device=dev)
+    one_dir = os.path.join(WORK, "mesh_wq_sentiment_d1")
+    t0 = time.perf_counter()
+    run_sentiment(dataset, backend=clf, output_dir=one_dir, batch_size=BATCH,
+                  limit=MESH_WQ_SONGS, quiet=True)
+    one_s = time.perf_counter() - t0
+    want = _detail_labels(one_dir)
+    conf = torch.softmax(clf.classify_logits(texts), dim=-1).amax(dim=-1)
+    near = np.abs(conf.numpy() - clf.neutral_threshold) < MESH_BOUNDARY_TOL
+    del clf
+    torch.cuda.empty_cache()
+
+    out_dir = os.path.join(WORK, "mesh_wq_sentiment_d2")
+    proc, wall, launches = mesh_cli(
+        ["sentiment", dataset, "--model", "distilbert", "--weight-quant",
+         "int8", "--devices", "2", "--limit", str(MESH_WQ_SONGS),
+         "--batch-size", str(BATCH), "--output-dir", out_dir],
+        {"MUSICAAL_DISTILBERT_CKPT": checkpoint})
+    got = _detail_labels(out_dir)
+    if len(got) != len(want):
+        fail(f"mesh wq sentiment: {len(got)} rows, one device {len(want)}")
+    differ = [i for i, (a, b) in enumerate(zip(got, want)) if a != b]
+    outside = [i for i in differ if not near[i]]
+    if outside:
+        fail(f"mesh wq sentiment: {len(outside)} labels differ from one "
+             f"device away from the boundary (first rows {outside[:5]})")
+    flash = [launches.get(r, {}).get("flash_attention", 0) for r in range(2)]
+    if len(launches) != 2 or min(flash) == 0:
+        fail(f"mesh wq sentiment: per-rank launches {launches}")
+    manifest = _manifest(out_dir)
+    report = dict(
+        songs=len(want), process_wall_s=wall, songs_per_s=len(want) / wall,
+        engine_wall_s=manifest.get("wall_seconds"),
+        one_device_songs_per_s=len(want) / one_s,
+        labels_differ=len(differ), near_boundary=int(near.sum()),
+        flash_launches_per_rank=flash,
+        mesh_shape=manifest.get("context", {}).get("mesh_shape"))
+    log(f"mesh sentiment distilbert --devices 2 --weight-quant int8 on "
+        f"{card}: {json.dumps(report)}")
+    return report
+
+
 def mesh_distilbert_api_path(torch, dev, card, dataset, checkpoint) -> dict:
     """Full-width DistilBERT through the API on four ranks of the one
     card, as dp2 x tp2 and then as two dp1 x tp2 meshes (each tp line of
     the grid, computing the same rows): logits of 2,048 songs within
     LOGIT_REL_TOL of the one-rank logits; the row-parallel bias added
-    before the reduce and two ranks' head shards swapped must fail.  The
+    before the reduce and two ranks' head shards swapped must fail.  Then
+    weight_quant int4 at dp1 x tp2 on the first MESH_WQ_API_ROWS songs
+    against one rank's int4 logits, and its lin2 against one rank's on rows
+    whose outliers lie in one rank's half
+    (rank-local activation scales must fail there; on the model's logits
+    they are a reading: the halves' maxima are close for this model).  The
     split checkpoint's biases are zero, so the check runs on a copy whose
     every bias is drawn N(0, 1) from seed 13: a bias counted twice then
     shows."""
     from music_analyst_tpu_torch.data.csv_io import iter_songs
     from music_analyst_tpu_torch.models.distilbert import DistilBertClassifier
+    from music_analyst_tpu_torch.ops import quant
 
     state = torch.load(checkpoint, map_location="cpu", weights_only=True)
     gen = torch.Generator().manual_seed(13)
@@ -5779,7 +6069,24 @@ def mesh_distilbert_api_path(torch, dev, card, dataset, checkpoint) -> dict:
     clf = DistilBertClassifier.from_pretrained_or_random(
         "distilbert", checkpoint_path=checkpoint, device=dev)
     ref = clf.classify_logits(songs)
-    del clf, state
+    clf = DistilBertClassifier.from_pretrained_or_random(
+        "distilbert", checkpoint_path=checkpoint, weight_quant="int4",
+        device=dev)
+    ref_int4 = clf.classify_logits(songs[:MESH_WQ_API_ROWS])
+    int4_bytes = quant.param_tree_bytes(clf.model)["stored_bytes"]
+    # lin2 of layer 0 on its own: 64 bf16 rows whose first half (rank 0's
+    # contraction rows at tp 2) is 8x the rest, so each rank's own maxima
+    # are far from the row's.
+    lin2 = clf.model.encoder.layers[0].ffn.lin2
+    x = torch.randn(64, lin2.in_features, generator=torch.Generator()
+                    .manual_seed(17))
+    x[:, :lin2.in_features // 2] *= 8
+    x = x.to(dev, torch.bfloat16)
+    with torch.no_grad():
+        y = lin2(x).float().cpu()
+    torch.save(dict(x=x.cpu(), y=y),
+               os.path.join(WORK, "mesh_bert_int4_lin2.pt"))
+    del clf, state, lin2
     torch.cuda.empty_cache()
     scale = float(ref.abs().max())
     few = ref[:MESH_BROKEN_ROWS]
@@ -5814,11 +6121,46 @@ def mesh_distilbert_api_path(torch, dev, card, dataset, checkpoint) -> dict:
             init_s_per_rank=[r["init_s"] for r in runs],
             peak_memory_bytes_per_rank=[r["peak_memory_bytes"] for r in runs])
         log(f"mesh distilbert {tag} on {card}: {json.dumps(out[tag])}")
+    got = torch.load(os.path.join(WORK, "mesh_bert_wq_int4.pt"))
+    scale4 = float(ref_int4.abs().max())
+    diff = float((got["good"] - ref_int4).abs().max())
+    local = float((got["local_absmax"] - ref_int4[:MESH_WQ_API_ROWS // 2])
+                  .abs().max())
+    if diff > LOGIT_REL_TOL * scale4:
+        fail(f"mesh distilbert wq_int4 dp1xtp2: logits differ from one "
+             f"rank's int4 logits by {diff} (> {LOGIT_REL_TOL} x {scale4})")
+    runs = [r["wq_int4"] for r in ranks]
+    # The layer, where rank-local scales show whatever the activations:
+    # tp 2's f32 partial sums rounded once to bf16 against one rank's.
+    for r in runs:
+        row = r["lin2"]
+        if row["rel"] > MESH_INT4_LAYER_REL:
+            fail(f"mesh distilbert wq_int4 lin2 at tp 2: {row['rel']} of the "
+                 f"scale from one rank's (> {MESH_INT4_LAYER_REL})")
+        if row["local_absmax_rel"] <= MESH_INT4_LAYER_REL:
+            fail(f"mesh distilbert wq_int4 lin2: the limit passes rank-local "
+                 f"activation scales ({row['local_absmax_rel']})")
+    flash = [r["launches"]["flash_attention"] for r in runs]
+    if min(flash) == 0:
+        fail(f"mesh distilbert wq_int4: flash launches per rank {flash}")
+    out["wq_int4_dp1xtp2"] = dict(
+        max_abs_diff=diff, scale=scale4, local_absmax_max_abs_diff=local,
+        lin2_per_rank=[r["lin2"] for r in runs],
+        flash_launches_per_rank=flash,
+        stored_bytes_per_rank=[r["bytes"]["stored_bytes"] for r in runs],
+        one_rank_stored_bytes=int4_bytes,
+        forward_s_per_rank=[r["forward_s"] for r in runs],
+        songs=MESH_WQ_API_ROWS,
+        songs_per_s=MESH_WQ_API_ROWS / max(r["forward_s"] for r in runs),
+        init_s_per_rank=[r["init_s"] for r in runs],
+        peak_memory_bytes_per_rank=[r["peak_memory_bytes"] for r in runs])
+    log(f"mesh distilbert wq_int4 dp1xtp2 on {card}: "
+        f"{json.dumps(out['wq_int4_dp1xtp2'])}")
     out["wall_s"] = wall
     return out
 
 
-def mesh_llama_path(torch, card, llama) -> dict:
+def mesh_llama_path(torch, card, llama, llama_quant) -> dict:
     """Llama-3-8B at tp 2 (full width, LLAMA_LAYERS layers, random bf16
     weights from
     seed 0 drawn whole on each rank and sliced) as two ranks on the one
@@ -5871,6 +6213,7 @@ def mesh_llama_path(torch, card, llama) -> dict:
         fail(f"mesh llama: {len(r0['generate']['texts'])} texts")
     same_text = sum(a == b for a, b in zip(r0["generate"]["texts"], ref_texts))
     served = served_tp2_check(ranks)
+    quantized = mesh_quant_check(ranks, llama_quant)
     out = dict(
         wall_s=wall, score_labels_equal=True, score_max_abs_diff=score_diff,
         score_scale=score_scale,
@@ -5886,8 +6229,128 @@ def mesh_llama_path(torch, card, llama) -> dict:
                     "songs_per_s", "prefill_tokens_per_s",
                     "decode_tokens_per_s", "ms_per_decode_step",
                     "decode_steps", "launches")})
-            for r in ranks], served=served)
+            for r in ranks], served=served, **quantized)
     log(f"mesh llama3_8b tp 2 on {card}: {json.dumps(out)}")
+    return out
+
+
+# Quantized projections at tp 2: the int8 products (stored and dynamic)
+# sum exact int32 partials with scales over both ranks' rows, so the
+# model is tp 1's up to the bf16 attention's own rounding: label scores
+# within this share of their scale (int4: LLAMA_LOGIT_REL_TOL, its f32
+# group sums add in another order).
+QUANT_TP_INT8_REL = 1e-3
+
+
+def mesh_quant_check(ranks, llama_quant) -> dict:
+    """Step 13's int8 KV pages on the bf16 tp-2 model and its quantized
+    tp-2 models against step 8's and step 5's tp-1 runs: one page-scale
+    plane on both ranks (rank-local scales must give two); scores within
+    QUANT_TP_INT8_REL (int8) or LLAMA_LOGIT_REL_TOL (int4) of the scale of
+    tp 1's, labels equal but where tp 1's two labels lie within that limit,
+    the int8 scores with rank-local activation scales outside it; the
+    served tokens equal tp 1's but one row at most; paged launches equal
+    on both ranks."""
+    r0, r1 = ranks[0], ranks[1]
+    with open(os.path.join(WORK, "llama_tp1_quantized.json")) as fh:
+        tp1 = json.load(fh)
+
+    def served_checks(tag, sv, other):
+        if not sv["ok"]:
+            fail(f"mesh llama {tag}: replies failed")
+        paged = sv["launches"]["paged_attention"]
+        if paged != LLAMA_LAYERS * sv["decode_steps"] or paged == 0:
+            fail(f"mesh llama {tag}: {paged} paged launches for "
+                 f"{sv['decode_steps']} decode steps")
+        if other["launches_total"] != sv["launches_total"]:
+            fail(f"mesh llama {tag}: rank 1 launched "
+                 f"{other['launches_total']} against rank 0's "
+                 f"{sv['launches_total']}")
+        if sv["tokens_equal"] < len(sv["tokens"]) - 1:
+            fail(f"mesh llama {tag}: {sv['tokens_equal']} of "
+                 f"{len(sv['tokens'])} rows have tp 1's tokens")
+        if sv["stream"]["shipped_device_bytes"] != 0:
+            fail(f"mesh llama {tag}: the stream shipped device bytes")
+        out = {k: v for k, v in sv.items() if k != "tokens"}
+        out["paged_launches_per_rank"] = [
+            sv["launches_total"]["paged_attention"],
+            other["launches_total"]["paged_attention"]]
+        return out
+
+    pages, pages1 = r0["int8_pages"], r1["int8_pages"]
+    if pages["served"]["planes"] != pages1["served"]["planes"] or \
+            pages["served"]["planes"]["rows_written"] == 0:
+        fail(f"mesh llama int8 pages: rank 0's scale planes "
+             f"{pages['served']['planes']} differ from rank 1's "
+             f"{pages1['served']['planes']}")
+    if pages["local_scales"]["planes"] == pages1["local_scales"]["planes"]:
+        fail("mesh llama int8 pages: rank-local page scales give both ranks "
+             "the same planes")
+    out = {"quantized_s": r0["quantized_s"], "int8_pages": dict(
+        served_checks("int8 pages", pages["served"], pages1["served"]),
+        local_scales_planes=[pages["local_scales"]["planes"],
+                             pages1["local_scales"]["planes"]])}
+    for scheme in ("wq_int8", "wq_int4", "int8_dynamic"):
+        q0, q1 = r0["quantized"][scheme], r1["quantized"][scheme]
+        want = tp1[scheme]
+        scale = max(abs(a) for row in want["scores"] for a in row)
+
+        def diff(got):
+            return max(abs(a - b) for ra, rb in zip(got["scores"],
+                                                    want["scores"])
+                       for a, b in zip(ra, rb))
+
+        limit = (QUANT_TP_INT8_REL if scheme != "wq_int4"
+                 else LLAMA_LOGIT_REL_TOL) * scale
+        d = diff(q0["score"])
+        if d > limit:
+            fail(f"mesh llama {scheme}: scores differ from tp 1's by {d} "
+                 f"(> {limit})")
+        # A label may move only where tp 1's two labels lie within the
+        # limit of each other (a near-tie the score limit allows).
+        moved = [i for i, (a, b) in enumerate(zip(q0["score"]["labels"],
+                                                  want["labels"])) if a != b]
+        for i in moved:
+            row = want["scores"][i]
+            got = max(range(3), key=lambda j: q0["score"]["scores"][i][j])
+            gap = max(row) - row[got]
+            if gap > limit:
+                fail(f"mesh llama {scheme}: row {i}'s label "
+                     f"{q0['score']['labels'][i]} vs tp 1's "
+                     f"{want['labels'][i]}, {gap} apart at tp 1 (> {limit})")
+        if (q1["score"]["labels"], q1["score"]["scores"]) != (
+                q0["score"]["labels"], q0["score"]["scores"]):
+            fail(f"mesh llama {scheme}: rank 1's scores differ from rank 0's")
+        if q0["int_mm_calls"] == 0:
+            fail(f"mesh llama {scheme}: no quantized product ran")
+        tp1_bytes = llama_quant[scheme]["run_init"]["bytes"]["stored_bytes"] \
+            if "run_init" in llama_quant[scheme] \
+            else llama_quant[scheme]["bytes"]["stored_bytes"]
+        stored = [q["bytes"]["stored_bytes"] for q in (q0, q1)]
+        if stored[0] != stored[1] or stored[0] > 0.6 * tp1_bytes:
+            fail(f"mesh llama {scheme}: stored bytes per rank {stored}, tp 1 "
+                 f"{tp1_bytes}")
+        entry = dict(
+            score_labels_moved=moved, score_max_abs_diff=d, score_scale=scale,
+            score_limit=limit, stored_bytes_per_rank=stored,
+            tp1_stored_bytes=tp1_bytes,
+            stored_share_of_tp1=stored[0] / tp1_bytes,
+            init_s_per_rank=[q["init_s"] for q in (q0, q1)],
+            init_peak_memory_bytes_per_rank=[q["init_peak_memory_bytes"]
+                                             for q in (q0, q1)],
+            peak_memory_bytes_per_rank=[q["peak_memory_bytes"]
+                                        for q in (q0, q1)],
+            score_wall_s=q0["score"]["wall_s"],
+            int_mm_calls=q0["int_mm_calls"])
+        if scheme == "wq_int8":
+            bad = diff(q0["local_absmax_score"])
+            if bad <= limit:
+                fail(f"mesh llama wq_int8: the limit passes rank-local "
+                     f"activation scales ({bad} <= {limit})")
+            entry["local_absmax_max_abs_diff"] = bad
+            entry["served"] = served_checks("wq_int8 served", q0["served"],
+                                            q1["served"])
+        out[f"quant_{scheme}"] = entry
     return out
 
 
@@ -6315,6 +6778,8 @@ def main() -> int:
     report["keyword_check_s"] = mark.seconds["keyword"]
 
     os.makedirs(WORK, exist_ok=True)
+    # Quantized checkpoint loads keep their cache inside the checkout.
+    os.environ.setdefault("MUSICAAL_WQ_CACHE", os.path.join(WORK, "wq_cache"))
     dataset = os.path.join(WORK, "songs_16384.csv")
     generate_dataset(dataset, num_songs=N_SONGS, seed=11)
     from music_analyst_tpu_torch.data.csv_io import iter_songs
@@ -6433,14 +6898,18 @@ def main() -> int:
     report["mesh_sentiment"] = mesh_sentiment_path(torch, dev, card, dataset,
                                                    checkpoint)
     mark("mesh_sentiment")
+    report["mesh_wq_sentiment"] = mesh_quant_sentiment_path(
+        torch, dev, card, dataset, checkpoint)
+    mark("mesh_wq_sentiment")
     report["mesh_distilbert"] = mesh_distilbert_api_path(
         torch, dev, card, dataset, checkpoint)
     mark("mesh_distilbert")
-    report["mesh_llama"] = mesh_llama_path(torch, card, report["llama"])
+    report["mesh_llama"] = mesh_llama_path(torch, card, report["llama"],
+                                           report["llama_quant"])
     mark("mesh_llama")
     report["slice13_s"] = mark.sum("mesh_kernels", "mesh_analyze",
-                                   "mesh_sentiment", "mesh_distilbert",
-                                   "mesh_llama")
+                                   "mesh_sentiment", "mesh_wq_sentiment",
+                                   "mesh_distilbert", "mesh_llama")
     log(f"mesh phases (analyze/sentiment --devices, DistilBERT dp x tp, "
         f"Llama-3-8B tp 2 with its served run): "
         f"{report['slice13_s']:.1f} s")
@@ -6497,6 +6966,11 @@ def main() -> int:
                           ("flash_dp2", "flash_tp2", "flash_dp2xtp2")},
              serve_tp2_launches_per_rank=report["serve_tp"]["tp2"][
                  "flash_launches_per_rank"],
+             mesh_quant_launches_per_rank=dict(
+                 sentiment_devices_2_wq_int8=report["mesh_wq_sentiment"][
+                     "flash_launches_per_rank"],
+                 api_wq_int4_dp1xtp2=report["mesh_distilbert"][
+                     "wq_int4_dp1xtp2"]["flash_launches_per_rank"]),
              **{f"{name}_launches": report["distilbert_quant"][name][
                  "launches"]["flash_attention"]
                 for name in ("int8_dynamic", "wq_int8", "wq_int4")},
@@ -6535,6 +7009,12 @@ def main() -> int:
              tp2_shape=report["mesh_kernels"]["paged_tp2"],
              tp2_served_launches_per_rank=report["mesh_llama"]["served"][
                  "paged_launches_per_rank"],
+             wq_int8_served_launches=report["llama_quant"]["wq_int8"][
+                 "served"]["launches"]["paged_attention"],
+             tp2_int8_pages_served_launches_per_rank=report["mesh_llama"][
+                 "int8_pages"]["paged_launches_per_rank"],
+             tp2_wq_int8_served_launches_per_rank=report["mesh_llama"][
+                 "quant_wq_int8"]["served"]["paged_launches_per_rank"],
              max_abs_err=max([v["max_abs_err"] for v in report["paged"].values()]
                              + [report["mesh_kernels"]["paged_tp2"][
                                  "max_abs_err"]]),
@@ -6572,7 +7052,9 @@ def main() -> int:
         f"distilbert --devices 2 "
         f"{report['mesh_sentiment']['songs_per_s']:.1f} songs/s, llama3_8b "
         f"tp 2 {report['mesh_llama']['per_rank'][0]['ms_per_decode_step']:.1f}"
-        f" ms a decode step; total {report['seconds']:.1f} s")
+        f" ms a decode step, weight_quant int8 tp 2 served "
+        f"{report['mesh_llama']['quant_wq_int8']['served']['host_ms_per_decode_dispatch']:.1f}"
+        f" ms a decode dispatch; total {report['seconds']:.1f} s")
     print(json.dumps({"quant_gemm": report["quant_gemm"]}))
     print(json.dumps(kernels_line))
     print(card)

@@ -55,9 +55,6 @@ import os
 import sys
 from typing import List, Optional
 
-_NOT_PORTED = "is not yet ported to music_analyst_tpu_torch"
-
-
 def _int_list(text: str) -> List[int]:
     try:
         return [int(x) for x in text.split(",") if x.strip()]
@@ -164,18 +161,11 @@ def _check_run_flags(parser: argparse.ArgumentParser,
         return
     if devices < 1:
         parser.error(f"--devices must be >= 1, got {devices}")
-    if devices > 1 and getattr(args, "weight_quant", "none") != "none":
-        parser.error(f"--devices {devices} with --weight-quant "
-                     f"{args.weight_quant} {_NOT_PORTED} (weight_quant "
-                     "under a mesh)")
 
 
 def _check_serve_tp(parser: argparse.ArgumentParser,
                     args: argparse.Namespace) -> None:
-    """``--tp`` / ``--replicas`` (flags or their env) resolve, and a
-    tensor-parallel model has no quantized projections: those are not
-    ported under a mesh."""
-    from music_analyst_tpu_torch.engines.families import mesh_capable
+    """``--tp`` / ``--replicas`` (flags or their env) resolve."""
     from music_analyst_tpu_torch.serving.batcher import (
         resolve_replicas,
         resolve_tp,
@@ -183,17 +173,9 @@ def _check_serve_tp(parser: argparse.ArgumentParser,
 
     try:
         resolve_replicas(args.replicas)
-        tp = resolve_tp(args.tp)
+        resolve_tp(args.tp)
     except ValueError as exc:
         parser.error(str(exc))
-    if tp > 1 and mesh_capable(args.model, args.mock):
-        if args.weight_quant != "none":
-            parser.error(f"--tp {tp} with --weight-quant {args.weight_quant} "
-                         f"{_NOT_PORTED} (quantized projections under a "
-                         "mesh)")
-        if args.model.endswith("-int8"):
-            parser.error(f"--tp {tp} with --model {args.model} {_NOT_PORTED} "
-                         "(quantized projections under a mesh)")
 
 
 def _mesh_ranks(args: argparse.Namespace) -> int:

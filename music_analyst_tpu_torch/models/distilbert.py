@@ -28,7 +28,9 @@ as JAX's does on a mesh: weights shard by ``parallel/sharding.py``'s rules
 ``dp`` after JAX's padding (rows to a multiple of dp, with length 1), each
 rank tokenizes and classifies its own rows (all of them on the packed and
 length-bucket paths, which plan the whole batch), and the labels and
-confidences are all-gathered back in row order on every rank.
+confidences are all-gathered back in row order on every rank.  ``quant``
+and ``weight_quant`` shard too: the model is built, loaded and quantized
+whole, then each rank keeps its block of the codes and scales.
 
 Label contract: the sst2 head is 2-class; ``max softmax prob <
 neutral_threshold`` → ``Neutral``, else argmax → ``Positive``/``Negative``.

@@ -17,7 +17,10 @@ its bias once, after the reduce; :class:`VocabParallelEmbedding` looks up
 the ids of its vocabulary block (zeros elsewhere) and all-reduces;
 :class:`VocabParallelHead` all-gathers its f32 logits into the full
 vocabulary.  :func:`tensor_parallel_` installs them where
-``parallel/sharding.py`` split a parameter.
+``parallel/sharding.py`` split a parameter.  The quantized projections
+keep their class and take a role instead (:class:`_TensorParallel`): a
+row-parallel one takes its scales over every rank's rows, so its
+product is the unsharded one's.
 
 Layouts follow the JAX package at the function boundaries (``[B, S, H, D]``
 attention tensors, boolean masks broadcastable to ``[B, H, S, KV]``); the
@@ -40,6 +43,7 @@ from music_analyst_tpu_torch.parallel.mesh import all_gather, all_reduce
 from music_analyst_tpu_torch.ops.quant import (
     WQ_DEFAULT_GROUP,
     QuantizedParam,
+    RowShard,
     kernel_major_empty,
     quant_linear,
     quantize_array,
@@ -212,19 +216,41 @@ class LayerNorm(nn.Module):
         return y.to(x.dtype)
 
 
-class QuantLinear(nn.Linear):
+class _TensorParallel:
+    """The tensor-parallel role of a quantized projection, set by
+    :func:`tensor_parallel_`: ``None`` (whole, or column-parallel: its
+    output block needs no collective), ``"row"`` (its block of the
+    contraction rows, ``rows`` an ``ops/quant.RowShard``: maxima and sums
+    over the axis, the bias once after the reduce) or ``"vocab"`` (the
+    LM head's vocabulary block, all-gathered like
+    :class:`VocabParallelHead`)."""
+
+    tp_role: Optional[str] = None
+    rows: Optional[RowShard] = None
+    tp_mesh = None
+
+    def _gather(self, y: torch.Tensor) -> torch.Tensor:
+        if self.tp_role == "vocab":
+            return all_gather(y, self.tp_mesh, "tp", dim=-1)
+        return y
+
+
+class QuantLinear(_TensorParallel, nn.Linear):
     """``nn.Linear`` whose product runs the dynamic int8 path
     (``ops/quant.py``: weights per output channel, activations per row,
     int32 accumulation).  Parameters are ``nn.Linear``'s, so loaders and
     initialisers treat it as the float layer; output in the weight's
-    dtype, bias added in f32 (JAX ``QuantDenseGeneral``)."""
+    dtype, bias added in f32 (JAX ``QuantDenseGeneral``).  Row-parallel,
+    the weight's channel scales and the tokens' scales are maxima over
+    every rank's rows, so the product is the unsharded one's."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return quant_linear(x, self.weight, self.bias,
-                            out_dtype=self.weight.dtype)
+        return self._gather(quant_linear(
+            x, self.weight, self.bias, out_dtype=self.weight.dtype,
+            rows=self.rows))
 
 
-class WqLinear(nn.Module):
+class WqLinear(_TensorParallel, nn.Module):
     """A projection over a *stored* weight-quantized kernel (JAX
     ``WqDenseGeneral``).
 
@@ -242,6 +268,13 @@ class WqLinear(nn.Module):
     With a float kernel in the slot (:meth:`use_float_`) it computes the
     float product in ``dtype`` instead, as JAX does when the slot holds a
     float array.
+
+    Under tensor parallelism (:meth:`shard_`) the buffers hold this
+    rank's block of the codes and scales (``parallel/sharding.py``:
+    JAX's ``_quantized_specs``), ``kernel_shape`` and the feature counts
+    are the block's and ``full_kernel_shape`` the whole kernel's;
+    :meth:`set_quantized` and :meth:`quantize_from_` take the whole
+    kernel and keep the block, so the scales are the whole kernel's.
     """
 
     def __init__(self, in_features: int, out_features: int, scheme: str,
@@ -279,6 +312,9 @@ class WqLinear(nn.Module):
         self.weight = None
         self.bias = (nn.Parameter(torch.zeros(out_features, device=device))
                      if bias else None)
+        self.full_kernel_shape = shape
+        # name → ShardSlice of the buffers this rank holds a block of.
+        self.blocks: Dict[str, object] = {}
 
     @property
     def qparam(self) -> Optional[QuantizedParam]:
@@ -292,25 +328,60 @@ class WqLinear(nn.Module):
 
     @torch.no_grad()
     def set_quantized(self, qp: QuantizedParam) -> None:
-        """Copy a Flax-layout ``QuantizedParam`` into the buffers."""
+        """Copy a Flax-layout ``QuantizedParam`` of the whole kernel into
+        the buffers (this rank's block of it when sharded)."""
         if (qp.scheme, tuple(qp.shape), qp.n_contract, qp.group_size) != (
-                self.scheme, self.kernel_shape, self.n_contract,
+                self.scheme, self.full_kernel_shape, self.n_contract,
                 self.group_size):
             raise ValueError(
                 f"quantized kernel {qp.scheme} {tuple(qp.shape)} "
                 f"(n_contract {qp.n_contract}, group {qp.group_size}) does "
-                f"not fit this slot: {self.scheme} {self.kernel_shape} "
+                f"not fit this slot: {self.scheme} {self.full_kernel_shape} "
                 f"(n_contract {self.n_contract}, group {self.group_size})")
-        self.q.copy_(torch.as_tensor(qp.q))
-        self.scale.copy_(torch.as_tensor(qp.scale))
+        for name in ("q", "scale"):
+            value = torch.as_tensor(getattr(qp, name))
+            block = self.blocks.get(name)
+            if block is not None:
+                value = block.take(value.to(self.q.device))
+            getattr(self, name).copy_(value)
 
     @torch.no_grad()
     def quantize_from_(self, weight: torch.Tensor) -> None:
-        """Quantize a float ``[out, in]`` weight (``nn.Linear`` layout)
-        into the buffers, on the buffers' device."""
-        kernel = weight.t().reshape(self.kernel_shape).to(self.q.device)
+        """Quantize a float ``[out, in]`` weight (``nn.Linear`` layout) of
+        the whole kernel into the buffers, on the buffers' device."""
+        kernel = weight.t().reshape(self.full_kernel_shape).to(self.q.device)
         self.set_quantized(quantize_array(kernel, self.scheme,
                                           self.n_contract, self.group_size))
+
+    @property
+    def full_weight_shape(self) -> Tuple[int, int]:
+        """``[out, in]`` of the whole kernel (``nn.Linear`` layout)."""
+        shape = self.full_kernel_shape
+        return (math.prod(shape[self.n_contract:]),
+                math.prod(shape[:self.n_contract]))
+
+    @torch.no_grad()
+    def shard_(self, blocks: Dict[str, object]) -> None:
+        """Keep this rank's block of each buffer ``blocks`` names
+        (``parallel/sharding.py:ShardSlice``); the codes stay
+        kernel-major, so the card's int8 product keeps its fast layout."""
+        self.blocks = dict(blocks)
+        for name, block in blocks.items():
+            value = block.take(getattr(self, name))
+            if name == "q":
+                value = kernel_major_empty(value.shape, self.n_contract,
+                                           value.dtype, value.device
+                                           ).copy_(value)
+            self._buffers[name] = value
+        q_block = blocks.get("q")
+        if q_block is not None:
+            rows = q_block.bounds[0][1] - q_block.bounds[0][0]
+            if self.scheme == "int4":
+                rows *= 2
+            self.kernel_shape = (rows,) + tuple(
+                b - a for a, b in q_block.bounds[1:])
+        self.in_features = math.prod(self.kernel_shape[:self.n_contract])
+        self.out_features = math.prod(self.kernel_shape[self.n_contract:])
 
     def use_float_(self, weight: Optional[torch.Tensor] = None) -> None:
         """Hold a float ``[out, in]`` kernel instead of codes."""
@@ -326,8 +397,17 @@ class WqLinear(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.weight is not None:
             bias = None if self.bias is None else self.bias.to(self.dtype)
-            return F.linear(x.to(self.dtype), self.weight.to(self.dtype), bias)
-        return wq_linear(x, self.qparam, self.bias, out_dtype=self.dtype)
+            if self.rows is None:
+                y = F.linear(x.to(self.dtype), self.weight.to(self.dtype),
+                             bias)
+            else:
+                y = all_reduce(F.linear(x.to(self.dtype),
+                                        self.weight.to(self.dtype)),
+                               self.rows.mesh, self.rows.axis)
+                y = y if bias is None else y + bias
+            return self._gather(y)
+        return self._gather(wq_linear(x, self.qparam, self.bias,
+                                      out_dtype=self.dtype, rows=self.rows))
 
     def extra_repr(self) -> str:
         return (f"{self.in_features} -> {self.out_features}, {self.scheme}, "
@@ -365,12 +445,13 @@ def param_slots(model: nn.Module):
     """``(name, shape, module)`` for every float parameter slot in
     ``named_parameters`` order, with each ``WqLinear``'s kernel as a
     ``{name}.weight`` slot of ``nn.Linear`` shape ``[out, in]`` (so seeded
-    initialisers draw the same values with or without quantization)."""
+    initialisers draw the same values with or without quantization); a
+    sharded ``WqLinear``'s slot has the whole kernel's shape, which
+    :meth:`WqLinear.quantize_from_` takes."""
     for mname, module in model.named_modules():
         prefix = f"{mname}." if mname else ""
         if isinstance(module, WqLinear) and module.weight is None:
-            yield (f"{prefix}weight",
-                   (module.out_features, module.in_features), module)
+            yield f"{prefix}weight", module.full_weight_shape, module
         for pname, param in module.named_parameters(recurse=False):
             yield f"{prefix}{pname}", tuple(param.shape), module
 
@@ -570,23 +651,49 @@ class VocabParallelHead(nn.Module):
                           self.axis, dim=-1)
 
 
+def _out_rows(proj: nn.Module) -> int:
+    """Output features a (possibly sharded) projection computes."""
+    weight = getattr(proj, "weight", None)
+    return weight.shape[0] if weight is not None else proj.out_features
+
+
 def tensor_parallel_(model: nn.Module, mesh, layout) -> None:
     """Give the modules whose parameters ``layout`` split their
     tensor-parallel forms (in place; parameter names are unchanged):
     attention keeps its per-rank head counts, a linear whose input
     columns were split becomes :class:`RowParallelLinear`, a split
     embedding :class:`VocabParallelEmbedding` and the split ``lm_head``
-    :class:`VocabParallelHead`."""
+    :class:`VocabParallelHead`.  A quantized projection (``QuantLinear``,
+    ``WqLinear``) keeps its class and takes its role
+    (:class:`_TensorParallel`)."""
     for name, module in list(model.named_modules()):
         prefix = f"{name}." if name else ""
         if isinstance(module, MultiHeadAttention):
-            module.n_heads = module.q_proj.weight.shape[0] // module.head_dim
-            module.n_kv_heads = (module.k_proj.weight.shape[0]
-                                 // module.head_dim)
+            module.n_heads = _out_rows(module.q_proj) // module.head_dim
+            module.n_kv_heads = _out_rows(module.k_proj) // module.head_dim
         piece = layout.get(f"{prefix}weight")
+        parent_name, _, leaf = name.rpartition(".")
+        if isinstance(module, _TensorParallel):
+            if isinstance(module, WqLinear) and piece is None:
+                piece = layout.get(f"{prefix}q")
+            if piece is None:
+                continue
+            module.tp_mesh = mesh
+            if leaf == "lm_head":
+                module.tp_role = "vocab"
+            elif piece.bounds[0] != (0, piece.full_shape[0]) and (
+                    isinstance(module, WqLinear) and module.weight is None):
+                # Codes [*contract, *features]: a split contraction.
+                module.tp_role = "row"
+            elif piece.bounds[1] != (0, piece.full_shape[1]) and (
+                    module.weight is not None):
+                # A float [out, in] weight: a split input axis.
+                module.tp_role = "row"
+            if module.tp_role == "row":
+                module.rows = RowShard(mesh, "tp", _row_start(module, piece))
+            continue
         if piece is None:
             continue
-        parent_name, _, leaf = name.rpartition(".")
         parent = model.get_submodule(parent_name)
         if isinstance(module, nn.Embedding):
             setattr(parent, leaf, VocabParallelEmbedding(
@@ -596,3 +703,12 @@ def tensor_parallel_(model: nn.Module, mesh, layout) -> None:
         elif type(module) is nn.Linear and (
                 piece.bounds[1] != (0, piece.full_shape[1])):
             setattr(parent, leaf, RowParallelLinear(module, mesh))
+
+
+def _row_start(module: nn.Module, piece) -> int:
+    """The first flattened contraction row a row-parallel rank holds."""
+    if module.weight is not None:
+        return piece.bounds[1][0]
+    # Codes: a block of axis 0 (packed pairs for int4) of [*contract, ...].
+    start = piece.bounds[0][0] * (2 if module.scheme == "int4" else 1)
+    return start * math.prod(module.full_kernel_shape[1:module.n_contract])

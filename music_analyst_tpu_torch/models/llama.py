@@ -43,10 +43,14 @@ and of the vocabulary (``parallel/sharding.py``); ``o_proj`` and
 ``down_proj`` all-reduce, the embedding all-reduces its masked lookup
 and the f32 ``lm_head`` all-gathers the logits, so every rank sees the
 same full logits and takes the same greedy tokens and scheduling
-decisions.  KV caches and page pools hold the rank's own KV heads.
-Random weights draw each full tensor from the one generator and keep the
-rank's block, so every rank's weights are the unsharded model's.  Not
-yet ported under a mesh: ``quant``, ``weight_quant`` and MoE.
+decisions.  KV caches and page pools hold the rank's own KV heads (an
+int8 page row's scale is the maximum over every rank's heads).  Random
+weights draw each full tensor from the one generator and keep the rank's
+block, so every rank's weights are the unsharded model's.  ``quant`` and
+``weight_quant`` shard too: codes and scales by JAX's rule
+(``parallel/sharding.py:quantized_specs``), row-parallel products taking
+their scales over every rank's rows (``models/layers.py``).  Not yet
+ported under a mesh: MoE.
 """
 
 from __future__ import annotations
@@ -304,7 +308,10 @@ def init_random_(model: LlamaModel, seed: int) -> None:
     (nor, under ``weight_quant``, float) copy of the whole model exists.
     A tensor-parallel model (``model.tp_layout``) draws each sharded
     tensor whole and keeps its block, so the weights are the unsharded
-    model's on every rank."""
+    model's on every rank; a ``WqLinear`` quantizes the whole tensor and
+    then keeps its block of codes and scales, as JAX quantizes its whole
+    tree before placing it (a row-parallel int8 kernel's channel scales
+    are then maxima over every rank's rows)."""
     device = model.norm.weight.device
     gen = torch.Generator(device=device).manual_seed(seed)
     layout = getattr(model, "tp_layout", {})
@@ -595,12 +602,10 @@ class LlamaZeroShotClassifier(ClassifierBackend):
             raise TypeError(f"mesh must be a DeviceMesh, got "
                             f"{type(mesh).__name__}")
         cfg = config or LlamaConfig.tiny()
-        if mesh is not None and (cfg.quant != "none"
-                                 or cfg.weight_quant != "none"
-                                 or cfg.n_experts > 0):
+        if mesh is not None and cfg.n_experts > 0:
             raise NotImplementedError(
-                "quant, weight_quant and MoE (n_experts > 0) under a mesh "
-                "are not yet ported to music_analyst_tpu_torch")
+                "MoE (n_experts > 0) under a mesh is not yet ported to "
+                "music_analyst_tpu_torch")
         self.mesh = mesh
         if mesh is not None:
             device = mesh.device

@@ -43,7 +43,7 @@ import torch.nn.functional as F
 from music_analyst_tpu_torch.models.layers import KVCache
 from music_analyst_tpu_torch.ops.kv_slots import upload_arrays
 from music_analyst_tpu_torch.ops.paged_attention import PagedAttnView
-from music_analyst_tpu_torch.ops.quant import quantize_kv_page
+from music_analyst_tpu_torch.ops.quant import quantize_kv_pair
 from music_analyst_tpu_torch.parallel.sharding import local_kv_heads
 
 KV_QUANT_SCHEMES = ("none", "int8")
@@ -165,6 +165,8 @@ class PagedDecodeRuntime:
         # n_kv_heads / tp heads (parallel/sharding.py:kv_cache_spec): a
         # per-rank allocation, never a head slice of a full pool.
         self.n_kv_heads = local_kv_heads(mesh, config.n_kv_heads)
+        # int8 page rows take one scale over every rank's heads.
+        self.mesh = mesh
 
     # -------------------------------------------------------------- state
 
@@ -285,8 +287,7 @@ class PagedDecodeRuntime:
             pk = vk[0].reshape((pps, P) + vk.shape[2:])[lps]
             pv = vv[0].reshape((pps, P) + vv.shape[2:])[lps]
             if self.quantized:
-                pk, sk = quantize_kv_page(pk)
-                pv, sv = quantize_kv_page(pv)
+                (pk, sk), (pv, sv) = quantize_kv_pair(pk, pv, self.mesh)
                 c.key_scale[phys] = sk
                 c.value_scale[phys] = sv
             c.keys[phys] = pk
@@ -303,7 +304,7 @@ class PagedDecodeRuntime:
             key_scale=c.key_scale if self.quantized else None,
             value_scale=c.value_scale if self.quantized else None,
             table=page_table, length=c.length, page_size=plan.page_size,
-            total=plan.max_total) for c in caches]
+            total=plan.max_total, mesh=self.mesh) for c in caches]
 
     def _step(self, views, tokens, prompt_lens, steps, kv_pos):
         """One 1-wide step over every slot through the paged kernel: write

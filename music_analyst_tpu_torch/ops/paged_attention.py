@@ -38,7 +38,7 @@ import torch
 
 from music_analyst_tpu_torch import kernels
 from music_analyst_tpu_torch.models.layers import dot_product_attention
-from music_analyst_tpu_torch.ops.quant import quantize_kv_page
+from music_analyst_tpu_torch.ops.quant import quantize_kv_pair
 
 _HEAD_DIMS = (64, 128)
 _MAX_GROUP_COLUMNS = 8 * 128   # G * D the kernel's registers hold
@@ -272,7 +272,9 @@ class PagedAttnView:
     D]``), ``key_scale``/``value_scale`` its int8 scales or None, ``table``
     ``[n_slots, pps]`` int32 and ``length`` ``[n_slots]`` write offsets.
     The model's attention calls ``update`` (writes land in the pool, in
-    place) and then ``attend``.
+    place) and then ``attend``.  Under tensor parallelism ``mesh`` is the
+    model's: the pool holds this rank's KV heads, and an int8 row's scale
+    is taken over every rank's (``quantize_kv_pair``).
     """
 
     keys: torch.Tensor
@@ -283,6 +285,7 @@ class PagedAttnView:
     length: torch.Tensor
     page_size: int = 16
     total: int = 0
+    mesh: object = None
 
     def update(self, k_new: torch.Tensor, v_new: torch.Tensor) -> "PagedAttnView":
         """Write the step's row of each slot into physical page
@@ -304,8 +307,8 @@ class PagedAttnView:
             self.keys[phys, r] = k_new[:, 0].to(self.keys.dtype)
             self.values[phys, r] = v_new[:, 0].to(self.values.dtype)
         else:
-            qk, sk = quantize_kv_page(k_new[:, 0])
-            qv, sv = quantize_kv_page(v_new[:, 0])
+            (qk, sk), (qv, sv) = quantize_kv_pair(k_new[:, 0], v_new[:, 0],
+                                                  self.mesh)
             self.keys[phys, r] = qk
             self.values[phys, r] = qv
             self.key_scale[phys, r] = sk

@@ -57,6 +57,8 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from music_analyst_tpu_torch.parallel.mesh import all_reduce
+
 
 # ---------------------------------------------------------------------------
 # int8 KV pages (paged decode cache)
@@ -70,14 +72,31 @@ def _div_const(t: torch.Tensor, c: float) -> torch.Tensor:
     return t / torch.full((), c, dtype=t.dtype, device=t.device)
 
 
+def _kv_codes(x32: torch.Tensor, amax: torch.Tensor):
+    scale = _div_const(amax.clamp(min=1e-8), 127.0)
+    q = torch.round(x32 / scale[..., None, None]).clamp(-127, 127)
+    return q.to(torch.int8), scale
+
+
 def quantize_kv_page(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """``x [..., n_kv, D]`` → ``(codes int8 [..., n_kv, D], scale f32
     [...])`` with ``scale = max(|row|, 1e-8) / 127``."""
     x32 = x.float()
-    amax = x32.abs().amax(dim=(-2, -1))
-    scale = _div_const(amax.clamp(min=1e-8), 127.0)
-    q = torch.round(x32 / scale[..., None, None]).clamp(-127, 127)
-    return q.to(torch.int8), scale
+    return _kv_codes(x32, x32.abs().amax(dim=(-2, -1)))
+
+
+def quantize_kv_pair(k: torch.Tensor, v: torch.Tensor, mesh=None,
+                     axis: str = "tp"):
+    """:func:`quantize_kv_page` of a K and a V block whose head axis is
+    split over ``axis``: each row's scale is the maximum over *every*
+    rank's heads (one all-reduce MAX for K and V together), so every
+    rank stores the same scale plane, the one-device plane.  Returns
+    ``((k codes, k scale), (v codes, v scale))``."""
+    k32, v32 = k.float(), v.float()
+    amax = torch.stack([k32.abs().amax(dim=(-2, -1)),
+                        v32.abs().amax(dim=(-2, -1))])
+    amax = all_reduce(amax, mesh, axis, op="max")
+    return _kv_codes(k32, amax[0]), _kv_codes(v32, amax[1])
 
 
 def dequantize_kv_page(
@@ -149,9 +168,33 @@ def _symmetric_scale(value: torch.Tensor, dim, keepdim: bool = True):
     return _div_const(amax.clamp(min=1e-8), 127.0)
 
 
-def _quantize_rows(x32: torch.Tensor):
-    """Dynamic per-row int8: ``(codes, s_x [..., 1])``."""
-    s_x = _symmetric_scale(x32, -1)
+@dataclasses.dataclass(frozen=True)
+class RowShard:
+    """A row-parallel product's split: this rank holds the contraction
+    rows ``[start, start + K_local)`` of a kernel whose rows are split
+    over ``axis`` of ``mesh``.  Its maxima and sums run over the axis, so
+    the product is the unsharded one's (JAX computes every reduction over
+    the whole logical array)."""
+
+    mesh: Any
+    axis: str = "tp"
+    start: int = 0
+
+
+def row_absmax(amax: torch.Tensor, rows: RowShard) -> torch.Tensor:
+    """The maxima of a row-parallel product's operands over every rank's
+    block of the contraction axis: one all-reduce MAX."""
+    return all_reduce(amax, rows.mesh, rows.axis, op="max")
+
+
+def _quantize_rows(x32: torch.Tensor, rows: Optional[RowShard] = None):
+    """Dynamic per-row int8: ``(codes, s_x [..., 1])``; with ``rows``
+    each row's scale is taken over the whole contraction axis."""
+    if rows is None:
+        s_x = _symmetric_scale(x32, -1)
+    else:
+        amax = row_absmax(x32.abs().amax(dim=-1, keepdim=True), rows)
+        s_x = _div_const(amax.clamp(min=1e-8), 127.0)
     return torch.round(x32 / s_x).to(torch.int8), s_x
 
 
@@ -184,23 +227,34 @@ def _rowwise(x: torch.Tensor, F: int, per_row_bytes: int, chunk_fn,
 # Dynamic w8a8
 # ---------------------------------------------------------------------------
 
-def _quantize_weight_columns(w: torch.Tensor):
+def _quantize_weight_columns(w: torch.Tensor,
+                             rows: Optional[RowShard] = None):
     """``w [K, N]`` → (codes ``[K, N]`` K-contiguous, ``s_w [1, N]``),
-    per output channel.  Computed on ``w.t()`` so an ``nn.Linear``
-    ``weight.t()`` quantizes without a copy into the fast layout."""
+    per output channel (with ``rows``, over every rank's rows of the
+    channel).  Computed on ``w.t()`` so an ``nn.Linear`` ``weight.t()``
+    quantizes without a copy into the fast layout."""
     wt32 = w.t().float()                                  # [N, K]
-    s_w = _symmetric_scale(wt32, -1)                      # [N, 1]
+    amax = wt32.abs().amax(dim=-1, keepdim=True)          # [N, 1]
+    if rows is not None:
+        amax = row_absmax(amax, rows)
+    s_w = _div_const(amax.clamp(min=1e-8), 127.0)
     qw = torch.round(wt32 / s_w).to(torch.int8).contiguous()
     return qw.t(), s_w.reshape(1, -1)
 
 
-def _quant_forward(x, w, bias=None, out_dtype=torch.float32):
+def _quant_forward(x, w, bias=None, out_dtype=torch.float32,
+                   rows: Optional[RowShard] = None):
+    """The dynamic int8 product; a row-parallel one (``rows``) takes its
+    scales over every rank's rows and sums the int32 partial products
+    over the axis (exact), before the dequant and the bias."""
     K, N = w.shape
-    qw, s_w = _quantize_weight_columns(w)
+    qw, s_w = _quantize_weight_columns(w, rows)
 
     def chunk(x32):
-        qx, s_x = _quantize_rows(x32)
+        qx, s_x = _quantize_rows(x32, rows)
         acc = int8_matmul(qx, qw)
+        if rows is not None:
+            acc = all_reduce(acc, rows.mesh, rows.axis)
         return acc.float() * s_x * s_w
 
     return _rowwise(x, N, 4 * N, chunk, bias, out_dtype)
@@ -251,10 +305,12 @@ def quant_batched_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return acc.float() * s_x * s_w
 
 
-def quant_linear(x, weight, bias=None, out_dtype=None):
+def quant_linear(x, weight, bias=None, out_dtype=None,
+                 rows: Optional[RowShard] = None):
     """The dynamic int8 path over an ``nn.Linear`` weight ``[N, K]``:
-    ``[..., K]`` → ``[..., N]`` in ``out_dtype`` (bias added in f32)."""
-    return _quant_forward(x, weight.t(), bias, out_dtype or x.dtype)
+    ``[..., K]`` → ``[..., N]`` in ``out_dtype`` (bias added in f32,
+    once, after a row-parallel product's reduce)."""
+    return _quant_forward(x, weight.t(), bias, out_dtype or x.dtype, rows)
 
 
 def quant_dense_axis_last(x, kernel, bias=None, out_dtype=None):
@@ -483,42 +539,72 @@ def _group_partials_plain(qx: torch.Tensor, qw3: torch.Tensor
     return torch.bmm(qx3, qw3.double()).to(torch.int32)
 
 
+def _rank_groups(qp: QuantizedParam, rows: Optional[RowShard]):
+    """``(G, g, s_g [G, 1, F])``: the int4 groups this rank's rows fall
+    in.  Unsharded, ``qp``'s own.  A row-parallel rank holds rows
+    ``[start, start + K)`` of a kernel whose ``qp.scale`` covers every
+    group; cut into blocks of ``gcd(group, K)`` rows, each block lies in
+    one group and takes that group's scale, so a rank boundary inside a
+    group is exact."""
+    K, F = qp.K, qp.F
+    scale = torch.as_tensor(qp.scale).reshape(-1, F)
+    if rows is None:
+        G = K // qp.group_size
+        return G, qp.group_size, scale.reshape(G, 1, F)
+    g = math.gcd(qp.group_size, K)
+    first = torch.arange(rows.start, rows.start + K, g,
+                         device=scale.device) // qp.group_size
+    return K // g, g, scale[first].reshape(-1, 1, F)
+
+
 def wq_linear(x: torch.Tensor, qp: QuantizedParam, bias=None,
-              out_dtype=torch.float32) -> torch.Tensor:
+              out_dtype=torch.float32,
+              rows: Optional[RowShard] = None) -> torch.Tensor:
     """``[..., K]`` → ``[..., F]`` (features flattened) in ``out_dtype``,
-    bias added in f32: the stored-weight projection of ``WqLinear``."""
+    bias added in f32: the stored-weight projection of ``WqLinear``.
+
+    With ``rows`` (a row-parallel rank's block of the contraction) each
+    token's activation scale is its maximum over every rank's rows; int8
+    sums its int32 accumulators over the axis, then dequantizes once (an
+    exact sum, so the unsharded product bit for bit); int4 sums each
+    rank's scaled group partials in f32 and then over the axis.  The bias
+    is added once, after the reduce."""
     K, F = qp.K, qp.F
     if x.shape[-1] != K:
         raise ValueError(f"input's last axis is {x.shape[-1]}, the kernel "
                          f"contracts {K}")
-    scale = torch.as_tensor(qp.scale)
+
+    def reduced(partial):
+        if rows is None:
+            return partial
+        return all_reduce(partial, rows.mesh, rows.axis)
+
     if qp.scheme == "int8":
-        s_w = scale.reshape(1, F)
+        s_w = torch.as_tensor(qp.scale).reshape(1, F)
         w = (_card_weight_codes(qp) if x.is_cuda
              else torch.as_tensor(qp.q).reshape(K, F))
 
         def chunk(x32):
-            qx, s_x = _quantize_rows(x32)
-            return int8_matmul(qx, w).float() * s_x * s_w
+            qx, s_x = _quantize_rows(x32, rows)
+            return reduced(int8_matmul(qx, w)).float() * s_x * s_w
 
         return _rowwise(x, F, 4 * F, chunk, bias, out_dtype)
-    G = K // qp.group_size
-    s_g = scale.reshape(G, 1, F)
+    G, g, s_g = _rank_groups(qp, rows)
     if x.is_cuda:
         w = _card_weight_codes(qp)
 
         def partials(qx):
             return _group_partials_card(qx, w, G)
     else:
-        qw3 = _unpack_int4(torch.as_tensor(qp.q)).reshape(G, qp.group_size, F)
+        qw3 = _unpack_int4(torch.as_tensor(qp.q)).reshape(G, g, F)
 
         def partials(qx):
             return _group_partials_plain(qx, qw3)
 
     def chunk(x32):
-        qx, s_x = _quantize_rows(x32)
+        qx, s_x = _quantize_rows(x32, rows)
         acc = partials(qx)
-        return (acc.float() * s_g).sum(dim=0) * s_x.reshape(-1, 1)
+        return reduced((acc.float() * s_g).sum(dim=0)) * s_x.reshape(-1, 1)
 
     return _rowwise(x, F, 4 * G * F, chunk, bias, out_dtype)
 

@@ -258,10 +258,14 @@ def batch_sharding(mesh: DeviceMesh, batch, axis: str = "dp"):
 # ------------------------------------------------------------ collectives
 
 
+_REDUCE_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
+
+
 def all_reduce(tensor: torch.Tensor, mesh: Optional[DeviceMesh],
-               axis: str) -> torch.Tensor:
-    """Sum ``tensor`` over ``axis`` (identity on a size-1 axis).  Under
-    gloo a card tensor crosses host memory; the result comes back on
+               axis: str, op: str = "sum") -> torch.Tensor:
+    """Sum (``op="sum"``) or take the elementwise maximum (``"max"``) of
+    ``tensor`` over ``axis`` (identity on a size-1 axis).  Under gloo a
+    card tensor crosses host memory; the result comes back on
     ``tensor``'s device."""
     group = None if mesh is None else mesh.group(axis)
     if group is None:
@@ -269,7 +273,7 @@ def all_reduce(tensor: torch.Tensor, mesh: Optional[DeviceMesh],
     staged = tensor.to(multihost.transport_device(group))
     if staged is tensor:
         staged = tensor.clone()
-    dist.all_reduce(staged, op=dist.ReduceOp.SUM, group=group)
+    dist.all_reduce(staged, op=_REDUCE_OPS[op], group=group)
     return staged.to(tensor.device)
 
 

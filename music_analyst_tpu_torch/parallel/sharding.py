@@ -22,8 +22,11 @@ does.  A split that does not divide raises ``ValueError``, as JAX's
 collective into their tensor-parallel forms (``models/layers.py``):
 row-parallel projections, the vocab-parallel embedding and LM head; each
 ``MultiHeadAttention`` keeps ``n_heads / tp`` and ``n_kv_heads / tp``.
-Axes absent from the mesh (or of size 1) prune to replication, so a
-dp-only mesh leaves the model as it is.
+A stored quantized kernel (``WqLinear``'s ``q`` / ``scale`` buffers, in
+Flax's layout) is placed by :func:`quantized_specs`, JAX's
+``_quantized_specs``.  Axes absent from the mesh (or of size 1) prune to
+replication, so a dp-only mesh leaves the model as it is.  MoE layers
+under a split are refused (not yet ported).
 """
 
 from __future__ import annotations
@@ -168,29 +171,58 @@ def shard_slice(name: str, shape: Sequence[int], spec: Spec, mesh,
     return ShardSlice(tuple(shape), tuple(bounds)) if split else None
 
 
+def quantized_specs(weight_spec: Spec, kernel_shape: Sequence[int],
+                    n_contract: int) -> Tuple[Spec, Spec]:
+    """``(q spec, scale spec)`` of a stored quantized kernel (JAX's
+    ``_quantized_specs``) from the spec of its float ``nn.Linear`` weight
+    ``[out, in]``.  The codes keep Flax's ``[*contract, *features]``
+    layout, so the weight's ``out`` split lands on the first feature axis
+    (the heads of q/k/v, the hidden axis of gate/up/``lin1``, the
+    vocabulary of ``lm_head``) and its ``in`` split on axis 0 (the heads
+    of ``o_proj``, the hidden axis of down/``lin2``) — for int4 the packed
+    axis, whose block of byte rows is a block of code-row pairs.  The
+    scale ``[G, *features]`` replicates its group axis and takes the
+    features' placement."""
+    out_axis, in_axis = (tuple(weight_spec) + (None, None))[:2]
+    q = [None] * len(kernel_shape)
+    q[0], q[n_contract] = in_axis, out_axis
+    scale = [None] * (len(kernel_shape) - n_contract + 1)
+    scale[1] = out_axis
+    return tuple(q), tuple(scale)
+
+
 def shard_layout(model: nn.Module, mesh, rules=None) -> Dict[str, ShardSlice]:
-    """Every parameter this rank holds a block of, with its slice."""
+    """Every parameter this rank holds a block of, with its slice; a
+    ``WqLinear`` holding codes contributes its ``q`` and ``scale``
+    buffers, placed by :func:`quantized_specs`."""
+    from music_analyst_tpu_torch.models.layers import WqLinear
+
     names = set(mesh.axis_names)
     units = _head_units(model)
     layout = {}
-    for name, param in model.named_parameters():
-        spec = prune_spec(spec_for_path(name, rules), names)
-        piece = shard_slice(name, tuple(param.shape), spec, mesh,
-                            units.get(name, 1))
+    tensors = [(name, param, spec_for_path(name, rules))
+               for name, param in model.named_parameters()]
+    for mname, module in model.named_modules():
+        if isinstance(module, WqLinear) and module.weight is None:
+            prefix = f"{mname}." if mname else ""
+            specs = quantized_specs(spec_for_path(f"{prefix}weight", rules),
+                                    module.full_kernel_shape,
+                                    module.n_contract)
+            for leaf, spec in zip(("q", "scale"), specs):
+                tensors.append((f"{prefix}{leaf}", getattr(module, leaf),
+                                spec))
+    for name, tensor, spec in tensors:
+        piece = shard_slice(name, tuple(tensor.shape),
+                            prune_spec(spec, names), mesh, units.get(name, 1))
         if piece is not None:
             layout[name] = piece
     return layout
 
 
 def _check_supported(model: nn.Module) -> None:
-    from music_analyst_tpu_torch.models.layers import QuantLinear, WqLinear
     from music_analyst_tpu_torch.models.moe import MoESwiGLU
 
     for name, module in model.named_modules():
-        if isinstance(module, (WqLinear, QuantLinear)):
-            raise NotImplementedError(
-                f"{name}: quantized projections (quant / weight_quant) "
-                "under a mesh are not yet ported to music_analyst_tpu_torch")
         if isinstance(module, MoESwiGLU):
             raise NotImplementedError(
                 f"{name}: MoE layers (n_experts > 0) under a mesh are not "
@@ -209,12 +241,18 @@ def shard_params(model: nn.Module, mesh, rules=None) -> nn.Module:
     layout = shard_layout(model, mesh, rules)
     if layout:
         _check_supported(model)
+    buffers: Dict[str, Dict[str, ShardSlice]] = {}
     for name, piece in layout.items():
         owner_name, _, leaf = name.rpartition(".")
         owner = model.get_submodule(owner_name)
+        if leaf in owner._buffers:
+            buffers.setdefault(owner_name, {})[leaf] = piece
+            continue
         old = owner._parameters[leaf]
         owner._parameters[leaf] = nn.Parameter(
             piece.take(old.detach()), requires_grad=old.requires_grad)
+    for owner_name, blocks in buffers.items():
+        model.get_submodule(owner_name).shard_(blocks)
     if layout:
         from music_analyst_tpu_torch.models.layers import tensor_parallel_
 

@@ -20,8 +20,9 @@ every row where the two one-device runs agree (all but at most one).
 Float32 labels and logits are held to JAX's on the mesh in
 ``tests/test_torch_sharded_inference.py``.  ``--mock``
 builds no mesh and runs one process.  A killed rank makes the command
-exit non-zero with no output written, and what stays unported under a
-mesh is a usage error.
+exit non-zero with no output written, and a mesh of no ranks is a usage
+error (``--weight-quant`` under ``--devices N`` runs:
+``tests/test_torch_quant_mesh.py``).
 """
 
 import json
@@ -220,8 +221,6 @@ def test_killed_rank_exits_nonzero_and_writes_nothing(songs_600, tmp_path):
 
 
 @pytest.mark.parametrize("command,flags,message", [
-    ("sentiment", ["--model", "distilbert-tiny", "--devices", "2",
-                   "--weight-quant", "int8"], "weight_quant under a mesh"),
     ("analyze", ["--devices", "0"], "must be >= 1"),
 ])
 def test_mesh_refusals(command, flags, message, fixture_csv, tmp_path,

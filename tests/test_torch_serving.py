@@ -287,18 +287,6 @@ def test_cli_stdio_mock_matches_sentiment_cli(fixture_csv, tmp_path,
     assert [r["label"] for r in replies] == labels
 
 
-@pytest.mark.parametrize("flags", [
-    ["--tp", "2", "--weight-quant", "int8", "--model", "distilbert"],
-    ["--tp", "2", "--model", "distilbert-int8"],
-], ids=" ".join)
-def test_cli_serve_refuses_unported(flags, capsys):
-    """Quantized projections under a tp mesh are not ported: a usage
-    error before any rank starts."""
-    with pytest.raises(SystemExit):
-        port_main(["serve", "--stdio", "--device", "cpu", *flags])
-    assert "not yet ported" in capsys.readouterr().err
-
-
 @pytest.mark.parametrize("signame", ["SIGTERM", "SIGINT"])
 def test_signal_mid_batch_drains_gracefully(tmp_path, signame):
     """A signal with requests parked in a partial batch (deadline 60 s
