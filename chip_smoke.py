@@ -177,11 +177,12 @@
    masters and AdamW moments): 5 steps (lr
    1e-4) on one seeded batch and 3 packed batches, each through
    ``prefetch_batches``; every loss finite, the fifth below the first,
-   ``train_steps`` counting 8; the trained model's loss through flash
-   against dense (2 launches); ``save_train_state`` then
-   ``restore_train_state`` in a temporary directory must give back the
-   masters, moments and step bit for bit; step wall time by CUDA events,
-   tokens/s, peak memory, and one more step split into loading the
+   ``train_steps`` counting 8 (the fixed batch's second half an eighth to a
+   quarter long, and its losses saved for step 13); the trained model's
+   loss through flash against dense (2 launches); ``save_train_state``
+   then ``restore_train_state`` in a temporary directory must give back
+   the masters, moments, their step counts and the step bit for bit;
+   step wall time by CUDA events, tokens/s, peak memory, and one more step split into loading the
    masters, forward, backward and optimizer, each under
    ``torch.profiler``.  MoE at ``llama3_8b`` width (2 layers, 8 experts,
    top-2): sparse dispatch at lossless capacity against dense (last
@@ -250,7 +251,8 @@
    the one card over gloo.  Kernels 2 and 3 first, at the per-rank shapes
    of this step (flash at DistilBERT's dp 2, tp 2 and dp 2 x tp 2 rows
    and heads; paged with tp 2's 16 query and 4 KV heads), each against
-   its plain version, beside its bound and the library call.  (a)
+   its plain version, beside its bound and the library call; flash at the
+   tp-2 trainer's causal 16 / 4 heads too.  (a)
    ``analyze --devices 2`` and ``--devices 4`` (the CLI launching its
    ranks), plus ``--devices 2 --chunk-songs 4096``, on step 6's
    CSV: CSVs byte-identical to the oracle, one ``per_chip`` row per rank, the manifest naming the mesh
@@ -263,7 +265,8 @@
    --with-sentiment --devices 2`` on the same checkpoint (CSVs equal the
    oracle, labels equal (b)'s).  (c) Full-width DistilBERT through the
    API on four ranks, as dp 2 x tp 2 and then as a dp 1 x tp 2 mesh per
-   tp line, on 2,048 songs (the checkpoint with N(0, 1) biases): logits
+   tp line, on 1,024 songs (2,048 before step 13's mesh trainer; the
+   checkpoint with N(0, 1) biases): logits
    within 5e-2 of the scale of the one-rank logits; the row-parallel bias
    added before the reduce, and two ranks' head shards swapped, must
    each fail.  (d) Llama-3-8B at tp 2 as two ranks, full
@@ -290,7 +293,8 @@
    the tokens of a prompt that shares 40 tokens with an earlier one (8
    rows of its boundary page come from the page copy alone, prefill
    chunks of 8).  (e) ``serve --stdio --tp 2 --model distilbert`` as a
-   process beside ``--tp 1``, full width, step 9's split checkpoint: 4,096
+   process beside ``--tp 1``, full width, step 9's split checkpoint: 2,048
+   (4,096 before step 13's mesh trainer)
    ``sentiment`` requests in one burst at max_batch 256, then EOF; exit 0,
    labels equal the checkpoint's one-device labels away from a boundary
    (a label that moves at tp 2 is held to the checkpoint's logits at tp
@@ -299,7 +303,23 @@
    partials summed in f32 must move fewer labels), the gloo mesh and both
    ranks' equal flash launches named on stderr; requests/s and p50 / p99
    reply arrival beside tp 1's; how many labels the same checkpoint moves
-   on one device with dense attention in bf16 and in f32.
+   on one device with dense attention in bf16 and in f32.  (f) Training on
+   a mesh (``mesh_train``, after (d)): two ranks at step 10's width and
+   depth, seed 0, lr 1e-4.  dp 2 with ZeRO-1 takes three steps on step
+   10's fixed batch (its halves hold 2,048 and ~400 valid tokens), each
+   loss against step 10's one-device loss; the moments a rank half of one
+   device's; ms a step and the share in the gradient reduce-scatter and
+   the masters' all-gather; peak memory a rank.  A local mean with
+   gradients averaged over dp must break the loss limit at each of its
+   two steps.  The state is saved (one file, keyed by parameter name),
+   takes one more dp-2 step, and is restored onto a tp-2 mesh of the same
+   two processes: masters equal to the saved ones bit for bit, moments
+   and their step counts too where a rank's tp-2 block overlaps its dp-2
+   ZeRO-1 row, one tp-2 step against that dp-2 step (loss, and masters,
+   which a restore with the moments zeroed must break).  One tp-2 step from seed 0 against one device's first loss and
+   the dp-2 masters after their first step; without the f operator the
+   masters must leave them.  The tp-2 state's loss through kernel 2
+   against dense, ``TRAIN_LAYERS`` launches a rank.
 
 Prints the card's name and power limit, a ``{"quant_gemm": [...]}`` line,
 a ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
@@ -3717,6 +3737,8 @@ TRAIN_LAYERS = 2                 # llama3_8b width, depth cut to fit 80 GB
                                  # (4 before step 10's sweep over ranks)
 TRAIN_LR = 1e-4
 TRAIN_FIXED_STEPS, TRAIN_PACKED_STEPS = 5, 3
+TRAIN_FIXED_SEED = 41            # the fixed batch (short_half since step 13's
+                                 # mesh trainer, which steps it too)
 #  - flash at Llama's shapes: the bf16 elementwise bound above (one
 #    rounding of an f32 result), at q [8, 512, 32, 128], kv [8, 512, 8, 128].
 #  - the loss through flash against dense on the same bf16 weights: the two
@@ -3745,14 +3767,19 @@ MOE_INT8_REL_TOL = 5e-2
 MOE_PROMPTS = 8
 
 
-def llama_token_batch(np, seed, packed=False):
+def llama_token_batch(np, seed, packed=False, short_half=False):
     """A seeded ``[TRAIN_B, TRAIN_S]`` int32 batch over the 8B vocab with
-    lengths (and, ``packed``, two or three documents per row)."""
+    lengths (and, ``packed``, two or three documents per row).  The
+    second half's rows are shorter than the first's; ``short_half`` makes
+    them an eighth to a quarter of the row, so the two halves (the ranks
+    of a dp-2 mesh) hold very different valid-token counts."""
     rng = np.random.default_rng(seed)
     ids = rng.integers(1, 128_256, (TRAIN_B, TRAIN_S)).astype(np.int32)
     if not packed:
         lengths = np.full(TRAIN_B, TRAIN_S, np.int32)
-        lengths[TRAIN_B // 2:] = rng.integers(TRAIN_S // 2, TRAIN_S,
+        low, high = ((TRAIN_S // 8, TRAIN_S // 4) if short_half
+                     else (TRAIN_S // 2, TRAIN_S))
+        lengths[TRAIN_B // 2:] = rng.integers(low, high,
                                               TRAIN_B - TRAIN_B // 2)
         return ids, lengths
     seg = np.zeros((TRAIN_B, TRAIN_S), np.int32)
@@ -3765,11 +3792,12 @@ def llama_token_batch(np, seed, packed=False):
     return ids, (seg > 0).sum(axis=1).astype(np.int32), seg
 
 
-def check_flash_llama(torch, dev) -> dict:
+def check_flash_llama(torch, dev, H=32, Hkv=8) -> dict:
     """Kernel 2 against its plain version at Llama-3-8B's no-cache shapes
-    (q [8, 512, 32, 128], kv [8, 512, 8, 128], bf16): causal with lengths,
-    and causal with two packed documents per row; then its time beside the
-    plain version, SDPA (GQA, causal) and the bound."""
+    (q [8, 512, 32, 128], kv [8, 512, 8, 128], bf16; at tp 2 a rank's 16
+    and 4 heads): causal with lengths, and causal with two packed
+    documents per row; then its time beside the plain version, SDPA (GQA,
+    causal) and the bound."""
     import torch.nn.functional as F
 
     from music_analyst_tpu_torch.ops.flash_attention import (
@@ -3777,7 +3805,7 @@ def check_flash_llama(torch, dev) -> dict:
         flash_attention_reference,
     )
 
-    B, S, H, Hkv, D = 8, 512, 32, 8, 128
+    B, S, D = 8, 512, 128
     gen = torch.Generator().manual_seed(21)
     q = torch.randn(B, S, H, D, generator=gen).to(dev, torch.bfloat16)
     k, v = (torch.randn(B, S, Hkv, D, generator=gen).to(dev, torch.bfloat16)
@@ -3820,7 +3848,7 @@ def check_flash_llama(torch, dev) -> dict:
                   library_ms=library_ms, bound_ms=b_ms, bound_by=b_by,
                   bytes=bytes_moved, flops=flops, max_abs_err=max_err,
                   errors=out)
-    log(f"flash at Llama shapes: {json.dumps(timing)}")
+    log(f"flash at Llama shapes ({H} / {Hkv} heads): {json.dumps(timing)}")
     del q, k, v, qt, kt, vt
     torch.cuda.empty_cache()
     return timing
@@ -4058,7 +4086,7 @@ def train_path(torch, dev, card) -> dict:
     torch.cuda.synchronize()
     out = {"init_s": time.perf_counter() - t0,
            "params": sum(p.numel() for p in state.params.values())}
-    fixed = llama_token_batch(np, 41)
+    fixed = llama_token_batch(np, TRAIN_FIXED_SEED, short_half=True)
     batches = ([fixed] * TRAIN_FIXED_STEPS
                + [llama_token_batch(np, 50 + i, packed=True)
                   for i in range(TRAIN_PACKED_STEPS)])
@@ -4089,6 +4117,9 @@ def train_path(torch, dev, card) -> dict:
     if steps != len(batches) or int(state.step) != len(batches):
         fail(f"trainer: train_steps counted {steps}, state.step "
              f"{int(state.step)}, expected {len(batches)}")
+    # Step 13's mesh trainer holds its losses to these.
+    with open(os.path.join(WORK, "train_tp1.json"), "w") as fh:
+        json.dump({"fixed_losses": losses[:TRAIN_FIXED_STEPS]}, fh)
     tokens = TRAIN_B * (TRAIN_S - 1)
     steady = step_ms[1:]
     out.update(
@@ -4133,15 +4164,16 @@ def train_path(torch, dev, card) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
     if int(restored.step) != int(state.step):
         fail(f"checkpoint: step {int(restored.step)} != {int(state.step)}")
-    for name, master in state.params.items():
-        back = restored.params[name]
-        moments = state.opt_state.state[master]
-        back_m = restored.opt_state.state[back]
-        if not (torch.equal(back, master)
+    back_opt = restored.opt_tensors()
+    for name, stepped in state.opt_tensors().items():
+        moments = state.opt_state.state[stepped]
+        back_m = restored.opt_state.state[back_opt[name]]
+        if not (torch.equal(restored.params[name], state.params[name])
                 and torch.equal(back_m["exp_avg"], moments["exp_avg"])
-                and torch.equal(back_m["exp_avg_sq"], moments["exp_avg_sq"])):
+                and torch.equal(back_m["exp_avg_sq"], moments["exp_avg_sq"])
+                and float(back_m["step"]) == float(moments["step"])):
             fail(f"checkpoint: {name} did not round-trip")
-    del restored
+    del restored, back_opt
     torch.cuda.empty_cache()
     out["split"] = train_split(torch, model, opt, state, (ids, lengths))
     log(f"trainer llama3_8b width x {TRAIN_LAYERS} layers on {card}: "
@@ -5039,7 +5071,8 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def run_ranks(script: str, n: int, args, tag: str) -> list:
+def run_ranks(script: str, n: int, args, tag: str,
+              timeout: float = RANKS_TIMEOUT_S) -> list:
     """``n`` processes of ``script`` (written to ``WORK/<tag>.py``) as ranks
     of one gloo group on a free port; returns each rank's ``RESULT`` JSON.
     The moment one rank fails, or the deadline passes, every rank still
@@ -5055,7 +5088,7 @@ def run_ranks(script: str, n: int, args, tag: str) -> list:
             procs.append(subprocess.Popen(
                 [sys.executable, path, str(rank), str(n), port, *args],
                 cwd=ROOT, stdout=logs[-1], stderr=subprocess.STDOUT, text=True))
-        deadline = time.perf_counter() + RANKS_TIMEOUT_S
+        deadline = time.perf_counter() + timeout
         while any(p.poll() is None for p in procs):
             if (any(p.poll() not in (None, 0) for p in procs)
                     or time.perf_counter() > deadline):
@@ -5309,7 +5342,8 @@ MESH_ANALYZE_RUNS = {            # analyze --devices N on step 6's corpus
     "d4": ["--devices", "4"],
     "d2_chunk_4096": ["--devices", "2", "--chunk-songs", "4096"],
 }
-MESH_API_ROWS = 2048             # DistilBERT API check: songs per forward
+MESH_API_ROWS = 1024             # DistilBERT API check: songs per forward
+                                 # (2,048 until step 13's mesh trainer)
 #  - weight_quant int4's lin2 at tp 2 against one rank's: its f32 partial
 #    sums add in another order before the one bf16 rounding of the output.
 MESH_INT4_LAYER_REL = 1e-2
@@ -5357,8 +5391,8 @@ report = dict(rank=rank, backend=multihost.backend(), device=str(dev),
               coords=grid.coords, layouts={})
 
 def early_bias(self, x):
-    return layers.all_reduce(F.linear(x, self.weight, self.bias), self.mesh,
-                             self.axis)
+    return M.all_reduce(F.linear(x, self.weight, self.bias), self.mesh,
+                        self.axis)
 
 for tag, mesh in (("dp2xtp2", grid), ("dp1xtp2", tp_only)):
     torch.cuda.reset_peak_memory_stats(dev)
@@ -5556,15 +5590,16 @@ def timed(fn):
         calls[0] += 1
         return out
     return run
-plain = layers.all_reduce, layers.all_gather
-layers.all_reduce, layers.all_gather = timed(plain[0]), timed(plain[1])
+plain = layers.reduce_from_axis, layers.gather_from_axis
+layers.reduce_from_axis, layers.gather_from_axis = (timed(plain[0]),
+                                                    timed(plain[1]))
 multihost.barrier("dispatch_timed")
 torch.cuda.synchronize()
 t0 = time.perf_counter()
 sched.runtime.decode_step(sched.caches, *args)
 torch.cuda.synchronize()
 timed_ms = (time.perf_counter() - t0) * 1e3
-layers.all_reduce, layers.all_gather = plain
+layers.reduce_from_axis, layers.gather_from_axis = plain
 steps = sched.plan.decode_span
 report["dispatch"] = dict(
     steps=steps, ms=dispatch_ms, ms_per_step=dispatch_ms / steps,
@@ -6039,7 +6074,7 @@ def mesh_quant_sentiment_path(torch, dev, card, dataset, checkpoint) -> dict:
 def mesh_distilbert_api_path(torch, dev, card, dataset, checkpoint) -> dict:
     """Full-width DistilBERT through the API on four ranks of the one
     card, as dp2 x tp2 and then as two dp1 x tp2 meshes (each tp line of
-    the grid, computing the same rows): logits of 2,048 songs within
+    the grid, computing the same rows): logits of MESH_API_ROWS songs within
     LOGIT_REL_TOL of the one-rank logits; the row-parallel bias added
     before the reduce and two ranks' head shards swapped must fail.  Then
     weight_quant int4 at dp1 x tp2 on the first MESH_WQ_API_ROWS songs
@@ -6421,6 +6456,7 @@ def served_tp2_check(ranks) -> dict:
 
 
 SERVE_TP = 2   # serve --tp N of full DistilBERT through the CLI
+SERVE_TP_REQUESTS = 2048   # its requests (4,096 until step 13's mesh trainer)
 
 # The tp-N logits of the texts whose served label differs from one
 # device's: the same checkpoint on a tp mesh of N ranks, through the API;
@@ -6466,8 +6502,8 @@ def serve_tp_distilbert_path(torch, dev, card, dataset, checkpoint) -> dict:
     """``serve --stdio --tp 2 --model distilbert`` as a process (two ranks
     on the one card over gloo, rank 1 replaying rank 0's dispatch stream)
     beside ``--tp 1``, full width, loaded from step 9's split checkpoint
-    through ``$MUSICAAL_DISTILBERT_CKPT``: 4,096 ``sentiment`` requests in
-    one burst at max_batch 256, then EOF.  Each must exit 0 after its
+    through ``$MUSICAAL_DISTILBERT_CKPT``: SERVE_TP_REQUESTS ``sentiment``
+    requests in one burst at max_batch 256, then EOF.  Each must exit 0 after its
     drain; every label equals the checkpoint's one-device labels except
     within SERVE_FLIP_REL of the scale of a boundary; at tp 2 stderr names
     the gloo mesh and both ranks' flash launches, equal and above 0.  A
@@ -6484,7 +6520,7 @@ def serve_tp_distilbert_path(torch, dev, card, dataset, checkpoint) -> dict:
     labels (readings, not checks)."""
     from music_analyst_tpu_torch.data.csv_io import iter_songs
 
-    n = SERVE_DISTILBERT_REQUESTS
+    n = SERVE_TP_REQUESTS
     texts = [t for _, _, t in iter_songs(dataset, limit=n)]
     ref = distilbert_reference(torch, dev, texts, checkpoint,
                                f"serve --tp {SERVE_TP}")
@@ -6635,11 +6671,419 @@ def serve_tp_distilbert_path(torch, dev, card, dataset, checkpoint) -> dict:
     return report
 
 
+# ---------------------------------------------------------------------------
+# Step 13: training on a mesh — dp 2 with ZeRO-1, a checkpoint handed to tp 2
+# ---------------------------------------------------------------------------
+
+MESH_TRAIN_STEPS = 3             # dp-2 ZeRO-1 steps on step 10's fixed batch
+MESH_TRAIN_BROKEN_STEPS = 2      # the broken dp variant's steps
+MESH_TRAIN_TIMEOUT_S = 600
+#  - dp 2 against step 10's one-device losses, relative: step 1 to
+#    MESH_TRAIN_STEP1_REL (7.8e-8 measured on an H100), later steps to
+#    MESH_TRAIN_LATER_REL (3.5e-5, 2.0e-5; JAX's own limit is 2e-2); a
+#    local mean with gradients averaged over dp must break each step's
+#    (1.6e-3 at step 1, from its loss alone; 0.19 at step 2, from its
+#    gradients).  The tp-2 step 1 against one device's to
+#    MESH_TRAIN_TP_REL (2.4e-5), and the tp-2 step after the handover
+#    against one more dp-2 step to MESH_TRAIN_LATER_REL (1.6e-4).
+#  - the masters after that tp-2 step against those of the dp-2 step, the
+#    mean |difference| over lr: below MESH_TRAIN_HANDOVER_MEAN (1.46e-4
+#    measured); restored with its moments zeroed (a checkpoint that lost
+#    them) the step must break it.
+#  - masters after one tp-2 step against the dp-2 masters after their
+#    first step (each rank's tp-2 block): in every leaf, the share of
+#    elements more than lr apart (an AdamW first step moves each by about
+#    lr, so such an element stepped the other way) stays below
+#    MESH_TRAIN_FLIP_SHARE (0.55% measured in the worst leaf); without the
+#    f operator it must not (40-42% of attention_norm).
+MESH_TRAIN_STEP1_REL = 1e-4
+MESH_TRAIN_LATER_REL = 1e-3
+MESH_TRAIN_TP_REL = 1e-3
+MESH_TRAIN_FLIP_SHARE = 5e-2
+MESH_TRAIN_HANDOVER_MEAN = 1e-2
+
+_MESH_TRAIN_CHILD = r"""
+import contextlib, dataclasses, gc, json, os, sys, time
+sys.path.insert(0, os.getcwd())
+rank, n, port, work, ckpt = (int(sys.argv[1]), int(sys.argv[2]),
+                             sys.argv[3], sys.argv[4], sys.argv[5])
+import numpy as np
+import torch
+import chip_smoke as cs
+from music_analyst_tpu_torch import kernels
+from music_analyst_tpu_torch.engines import train as T
+from music_analyst_tpu_torch.engines.checkpoint import (
+    restore_train_state, save_train_state)
+from music_analyst_tpu_torch.models import layers
+from music_analyst_tpu_torch.models.llama import LlamaConfig, LlamaModel
+from music_analyst_tpu_torch.parallel import mesh as M, multihost
+from music_analyst_tpu_torch.parallel.sharding import shard_params
+multihost.initialize(f"localhost:{port}", n, rank, backend="gloo",
+                     timeout_s=600)
+dp = M.build_mesh(M.MeshSpec((("dp", n),)))
+tp = M.build_mesh(M.MeshSpec((("tp", n),)))
+dev = dp.device
+torch.cuda.set_device(dev)
+cfg = dataclasses.replace(LlamaConfig.llama3_8b(), n_layers=cs.TRAIN_LAYERS)
+lr = cs.TRAIN_LR
+opt = T.make_optimizer(lr)
+batch = cs.llama_token_batch(np, cs.TRAIN_FIXED_SEED, short_half=True)
+report = dict(rank=rank, backend=multihost.backend(), device=str(dev),
+              valid_tokens=int(M.batch_sharding(dp, batch[1] - 1).sum()))
+
+# The tp-2 layout, to hold dp-2 masters block by block on the host.
+with torch.device("meta"):
+    tmodel = LlamaModel(cfg)
+shard_params(tmodel, tp)
+layout = tmodel.tp_layout
+
+def tp_blocks(params):
+    return {k: (layout[k].take(v) if k in layout else v).to("cpu", copy=True)
+            for k, v in params.items()}
+
+def masters_vs(params, ref):
+    total, count, flipped, worst = 0.0, 0, 0, (0.0, "")
+    for k, v in params.items():
+        d = (v - ref[k].to(v.device)).abs()
+        total += float(d.sum()); count += d.numel()
+        f = int((d > lr).sum())
+        flipped += f
+        worst = max(worst, (f / d.numel(), k))
+    return dict(mean_abs_over_lr=total / count / lr,
+                flipped_share=flipped / count, worst_leaf=worst[1],
+                worst_leaf_flipped_share=worst[0])
+
+spent = {}
+@contextlib.contextmanager
+def phase(name):
+    torch.cuda.synchronize(dev)
+    t = time.perf_counter()
+    yield
+    torch.cuda.synchronize(dev)
+    spent[name] = spent.get(name, 0.0) + time.perf_counter() - t
+
+MOMENTS = ("exp_avg", "exp_avg_sq")
+
+# This rank's moments and step counts on the host, each moment as (its
+# first row in the whole tensor, the rows it holds): a ZeRO-1 row of the
+# flattened tensor is whole rows when dp divides the first axis.
+def held_moments(state):
+    out = {}
+    for name, t in state.opt_tensors().items():
+        st = state.opt_state.state[t]
+        shape, z = state.params[name].shape, state.zero1.get(name)
+        if z is not None and shape[0] % z.parts:
+            raise SystemExit(f"{name}: dp does not split {tuple(shape)}")
+        start = 0 if z is None else z.index * (shape[0] // z.parts)
+        for key in MOMENTS:
+            rows = st[key].view(-1, *shape[1:]).to("cpu", copy=True)
+            out[name, key] = (start, rows)
+        out[name, "step"] = float(st["step"])
+    return out
+
+# The moments (and step counts) of this rank's tp-2 state that differ
+# from the saved dp-2 ones where the two ranks' rows overlap, and the
+# number of elements compared.
+def moments_vs(state, saved):
+    unequal, compared = [], 0
+    for name, t in state.opt_tensors().items():
+        st = state.opt_state.state[t]
+        bounds = (layout[name].bounds if name in layout
+                  else [(0, size) for size in st["exp_avg"].shape])
+        (lo, hi), rest = bounds[0], bounds[1:]
+        for key in MOMENTS:
+            start, rows = saved[name, key]
+            a, z = max(lo, start), min(hi, start + rows.shape[0])
+            if a >= z:
+                continue
+            got = st[key][a - lo:z - lo].cpu()
+            want = rows[(slice(a - start, z - start),)
+                        + tuple(slice(b, e) for b, e in rest)]
+            compared += want.numel()
+            if not torch.equal(got, want):
+                unequal.append(f"{name}.{key}")
+        if float(st["step"]) != saved[name, "step"]:
+            unequal.append(f"{name}.step")
+    return unequal, compared
+
+def moment_bytes(state):
+    return sum(m.numel() * m.element_size() for st in state.opt_state.state.values()
+               for key, m in st.items() if key in ("exp_avg", "exp_avg_sq"))
+
+def run_steps(step, state, count, record=None):
+    losses, walls, phases = [], [], []
+    rows = list(T.prefetch_batches([batch] * count, mesh=state.mesh, depth=1))
+    for i, b in enumerate(rows):
+        spent.clear()
+        torch.cuda.synchronize(dev)
+        t = time.perf_counter()
+        state, loss = step(state, *b)
+        losses.append(float(loss))
+        walls.append((time.perf_counter() - t) * 1e3)
+        phases.append(dict(spent))
+        if record is not None:
+            record(i, state)
+    return state, losses, walls, phases
+
+# ---- dp 2, ZeRO-1: three steps on step 10's fixed batch.
+multihost.barrier("dp")
+torch.cuda.reset_peak_memory_stats(dev)
+t0 = time.perf_counter()
+model = cs._meta_llama(torch, cfg, dev)
+state = T.init_train_state(model, opt, seed=0, mesh=dp, zero1=True)
+torch.cuda.synchronize(dev)
+init_s = time.perf_counter() - t0
+params = sum(p.numel() for p in state.params.values())
+step = T.make_train_step(model, opt, mesh=dp, phase=phase)
+snap = {}
+M.reset_routes()
+def keep_first(i, st):
+    if i == 0:
+        snap["step1"] = tp_blocks(st.params)
+state, losses, walls, phases = run_steps(step, state, cs.MESH_TRAIN_STEPS,
+                                         keep_first)
+moments = moment_bytes(state)
+reduce_share = [(p.get("reduce_gradients", 0) + p.get("gather_masters", 0))
+                / (w / 1e3) for p, w in zip(phases, walls)]
+report["dp"] = dict(
+    init_s=init_s, params=params, losses=losses, step_ms=walls,
+    phases_s=phases, reduce_share=reduce_share, routes=dict(M.ROUTES),
+    moment_bytes=moments, moment_share=moments / (2 * 4 * params),
+    zero1_leaves=len(state.zero1), leaves=len(state.params),
+    peak_memory_bytes=torch.cuda.max_memory_allocated(dev))
+# The checkpoint, then one more dp-2 step.
+snap["saved"] = tp_blocks(state.params)
+snap["moments"] = held_moments(state)
+multihost.barrier("save")
+t0 = time.perf_counter()
+save_train_state(state, ckpt)
+report["save_s"] = time.perf_counter() - t0
+state, more, walls4, _ = run_steps(step, state, 1)
+report["dp"]["step4_loss"] = more[0]
+snap["step4"] = tp_blocks(state.params)
+del state
+gc.collect(); torch.cuda.empty_cache()
+
+# ---- broken: a local mean with gradients averaged over dp.
+real = T.causal_lm_loss
+T.causal_lm_loss = (lambda m, ids, lengths, segment_ids=None, mesh=None:
+                    real(m, ids, lengths, segment_ids) / mesh.axis_size("dp"))
+state = T.init_train_state(model, opt, seed=0, mesh=dp, zero1=True)
+state, bad, _, _ = run_steps(T.make_train_step(model, opt, mesh=dp), state,
+                             cs.MESH_TRAIN_BROKEN_STEPS)
+T.causal_lm_loss = real
+report["dp_local_mean"] = dict(losses=bad)
+del state, model, step
+gc.collect(); torch.cuda.empty_cache()
+
+# ---- tp 2: one step from seed 0, then the broken variant (no f).
+multihost.barrier("tp")
+torch.cuda.reset_peak_memory_stats(dev)
+tmodel = tmodel.to_empty(device=dev)
+tstep = T.make_train_step(tmodel, opt, mesh=tp, phase=phase)
+tstate = T.init_train_state(tmodel, opt, seed=0, mesh=tp)
+tstate, tl1, tw1, tp1 = run_steps(tstep, tstate, 1)
+report["tp"] = dict(step1_loss=tl1[0], step_ms=tw1[0], phases_s=tp1[0],
+                    moment_bytes=moment_bytes(tstate),
+                    step1_masters=masters_vs(tstate.params, snap["step1"]))
+del tstate
+gc.collect()
+copy = layers.copy_to_axis
+layers.copy_to_axis = lambda x, mesh, axis="tp": x
+tstate = T.init_train_state(tmodel, opt, seed=0, mesh=tp)
+tstate, tb1, _, _ = run_steps(tstep, tstate, 1)
+layers.copy_to_axis = copy
+report["tp_without_copy"] = dict(
+    step1_loss=tb1[0], step1_masters=masters_vs(tstate.params, snap["step1"]))
+
+# ---- the handover: the dp-2 checkpoint restored onto tp 2.
+t0 = time.perf_counter()
+tstate = restore_train_state(ckpt, like=tstate)
+torch.cuda.synchronize(dev)
+report["restore_s"] = time.perf_counter() - t0
+report["restored_step"] = int(tstate.step)
+report["restored_unequal"] = [
+    k for k, v in tstate.params.items() if not torch.equal(v.cpu(),
+                                                         snap["saved"][k])]
+(report["restored_moments_unequal"],
+ report["restored_moments_compared"]) = moments_vs(tstate, snap["moments"])
+for key in ("moments", "saved", "step1"):
+    del snap[key]
+tstate, tl4, tw4, _ = run_steps(tstep, tstate, 1)
+report["tp"].update(step4_loss=tl4[0], step4_ms=tw4[0],
+                    step4_masters=masters_vs(tstate.params, snap["step4"]),
+                    peak_memory_bytes=torch.cuda.max_memory_allocated(dev))
+
+# ---- the tp-2 state's loss through the flash kernel against dense.
+T.load_params_(tmodel, tstate.params)
+with torch.device("meta"):
+    twin = LlamaModel(dataclasses.replace(cfg, attn_impl="flash"))
+shard_params(twin, tp)
+twin.load_state_dict(tmodel.state_dict(), assign=True)
+ids, lengths = (torch.as_tensor(a, device=dev) for a in batch)
+with torch.no_grad():
+    kernels.reset_launches()
+    flash = float(T.causal_lm_loss(twin, ids, lengths, mesh=tp))
+    launches = kernels.launches()
+    dense = float(T.causal_lm_loss(tmodel, ids, lengths, mesh=tp))
+report["flash_eval"] = dict(loss=flash, dense_loss=dense, launches=launches,
+                            rel_diff=abs(flash - dense) / max(abs(dense), 1.0))
+
+# ---- broken handover: restored with its moments zeroed, then the step.
+del twin, ids, lengths
+tstate = restore_train_state(ckpt, like=tstate)
+for st in tstate.opt_state.state.values():
+    for key in MOMENTS:
+        st[key].zero_()
+tstate, tz4, _, _ = run_steps(tstep, tstate, 1)
+report["tp_zeroed_moments"] = dict(
+    step4_loss=tz4[0], step4_masters=masters_vs(tstate.params, snap["step4"]))
+del snap
+print("RESULT " + json.dumps(report), flush=True)
+multihost.shutdown()
+"""
+
+
+def mesh_train_path(card) -> dict:
+    """Training on a mesh of 2 ranks over gloo on the one card, at
+    llama3_8b's width with TRAIN_LAYERS layers: dp 2 with ZeRO-1 on step
+    10's fixed batch (its halves hold different valid-token counts)
+    against step 10's one-device losses, a broken variant (a local mean
+    with gradients averaged over dp) whose every step must break its
+    limit; the checkpoint restored onto tp 2 in the same processes, its
+    masters, moments and step counts bit for bit where the ranks' blocks
+    overlap, one tp-2 step against one more dp-2 step (the loss, and the
+    masters, which restored with zeroed moments must leave those of the
+    dp-2 step); one tp-2 step from seed 0
+    against the dp-2 masters after their first step, and without the f
+    operator (which must break it); the tp-2 state's loss through the
+    flash kernel against dense."""
+    import math
+    import tempfile
+
+    with open(os.path.join(WORK, "train_tp1.json")) as fh:
+        ref = json.load(fh)["fixed_losses"]
+    ckpt = tempfile.mkdtemp(prefix="mesh_train_state_")
+    t0 = time.perf_counter()
+    try:
+        ranks = run_ranks(_MESH_TRAIN_CHILD, 2, [WORK, ckpt], "mesh_train",
+                          timeout=MESH_TRAIN_TIMEOUT_S)
+        ckpt_bytes = os.path.getsize(os.path.join(ckpt, "train_state.pt"))
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    wall = time.perf_counter() - t0
+    for r in ranks:
+        log(f"mesh train rank {r['rank']}: {json.dumps(r)}")
+    r0 = ranks[0]
+    for r in ranks[1:]:
+        for key in ("losses",):
+            if r["dp"][key] != r0["dp"][key]:
+                fail(f"mesh train: rank {r['rank']} dp losses differ")
+        if r["tp"]["step1_loss"] != r0["tp"]["step1_loss"]:
+            fail(f"mesh train: rank {r['rank']} tp loss differs")
+
+    def rel(got, want):
+        return abs(got - want) / abs(want)
+
+    dp_rel = [rel(g, w) for g, w in zip(r0["dp"]["losses"], ref)]
+    bad_rel = [rel(g, w) for g, w in zip(r0["dp_local_mean"]["losses"], ref)]
+    limits = [MESH_TRAIN_STEP1_REL] + [MESH_TRAIN_LATER_REL] * (
+        max(len(dp_rel), len(bad_rel)) - 1)
+    out = dict(
+        wall_s=wall, one_device_losses=ref[:MESH_TRAIN_STEPS],
+        dp_losses=r0["dp"]["losses"], dp_rel=dp_rel,
+        dp_local_mean_losses=r0["dp_local_mean"]["losses"],
+        dp_local_mean_rel=bad_rel,
+        valid_tokens_per_rank=[r["valid_tokens"] for r in ranks],
+        tp_step1_loss=r0["tp"]["step1_loss"],
+        tp_step1_rel=rel(r0["tp"]["step1_loss"], ref[0]),
+        handover=dict(dp_step4_loss=r0["dp"]["step4_loss"],
+                      tp_step4_loss=r0["tp"]["step4_loss"],
+                      rel=rel(r0["tp"]["step4_loss"], r0["dp"]["step4_loss"]),
+                      restored_unequal=[r["restored_unequal"] for r in ranks],
+                      restored_moments_unequal=[
+                          r["restored_moments_unequal"] for r in ranks],
+                      restored_moments_compared=[
+                          r["restored_moments_compared"] for r in ranks],
+                      restored_step=r0["restored_step"],
+                      checkpoint_bytes=ckpt_bytes,
+                      save_s=r0["save_s"],
+                      restore_s=[r["restore_s"] for r in ranks]),
+        tp_masters={tag: [r[key]["step1_masters"] for r in ranks]
+                    for tag, key in (("f", "tp"),
+                                     ("without_f", "tp_without_copy"))},
+        tp_step4_masters=[r["tp"]["step4_masters"] for r in ranks],
+        tp_zeroed_moments=[r["tp_zeroed_moments"] for r in ranks],
+        flash_eval=r0["flash_eval"],
+        flash_launches_per_rank=[r["flash_eval"]["launches"][
+            "flash_attention"] for r in ranks],
+        per_rank=[dict(
+            rank=r["rank"], backend=r["backend"], device=r["device"],
+            dp_init_s=r["dp"]["init_s"], dp_step_ms=r["dp"]["step_ms"],
+            dp_reduce_share=r["dp"]["reduce_share"],
+            dp_phases_s=r["dp"]["phases_s"], routes=r["dp"]["routes"],
+            moment_bytes=r["dp"]["moment_bytes"],
+            moment_share=r["dp"]["moment_share"],
+            zero1_leaves=r["dp"]["zero1_leaves"], leaves=r["dp"]["leaves"],
+            dp_peak_memory_bytes=r["dp"]["peak_memory_bytes"],
+            tp_step_ms=r["tp"]["step_ms"], tp_phases_s=r["tp"]["phases_s"],
+            tp_moment_bytes=r["tp"]["moment_bytes"],
+            tp_peak_memory_bytes=r["tp"]["peak_memory_bytes"])
+            for r in ranks])
+    log(f"mesh train llama3_8b width x {TRAIN_LAYERS} layers on {card}: "
+        f"{json.dumps(out)}")
+    if not all(math.isfinite(x) for x in out["dp_losses"]):
+        fail(f"mesh train: non-finite dp losses {out['dp_losses']}")
+    if any(d > lim for d, lim in zip(dp_rel, limits)):
+        fail(f"mesh train: dp-2 losses {out['dp_losses']} off one device's "
+             f"{ref[:MESH_TRAIN_STEPS]} by {dp_rel} (limits {limits})")
+    if (len(bad_rel) != MESH_TRAIN_BROKEN_STEPS
+            or any(d <= lim for d, lim in zip(bad_rel, limits))):
+        fail(f"mesh train: a step of a local mean with averaged gradients "
+             f"passes its limit ({bad_rel}, limits {limits})")
+    if out["tp_step1_rel"] > MESH_TRAIN_TP_REL:
+        fail(f"mesh train: tp-2 step 1 loss {out['tp_step1_loss']} off one "
+             f"device's {ref[0]} by {out['tp_step1_rel']}")
+    h = out["handover"]
+    if any(h["restored_unequal"]) or h["restored_step"] != MESH_TRAIN_STEPS:
+        fail(f"mesh train: the restored tp-2 masters are not the saved dp-2 "
+             f"masters bit for bit ({h})")
+    if any(h["restored_moments_unequal"]) or not all(
+            h["restored_moments_compared"]):
+        fail(f"mesh train: the restored tp-2 moments are not the saved dp-2 "
+             f"moments bit for bit ({h})")
+    if h["rel"] > MESH_TRAIN_LATER_REL:
+        fail(f"mesh train: the tp-2 step after the handover {h}")
+    good = max(m["mean_abs_over_lr"] for m in out["tp_step4_masters"])
+    bad = min(r["step4_masters"]["mean_abs_over_lr"]
+              for r in out["tp_zeroed_moments"])
+    if good > MESH_TRAIN_HANDOVER_MEAN or bad <= MESH_TRAIN_HANDOVER_MEAN:
+        fail(f"mesh train: masters after the handover step vs dp 2's: "
+             f"{good} restored, {bad} with the moments zeroed (limit "
+             f"{MESH_TRAIN_HANDOVER_MEAN})")
+    good = max(m["worst_leaf_flipped_share"] for m in out["tp_masters"]["f"])
+    bad = min(m["worst_leaf_flipped_share"]
+              for m in out["tp_masters"]["without_f"])
+    if good > MESH_TRAIN_FLIP_SHARE or bad <= MESH_TRAIN_FLIP_SHARE:
+        fail(f"mesh train: tp-2 masters after one step vs dp 2's: "
+             f"{good} with f, {bad} without (limit {MESH_TRAIN_FLIP_SHARE})")
+    share = max(r["moment_share"] for r in out["per_rank"])
+    if not 0.45 <= share <= 0.55:
+        fail(f"mesh train: ZeRO-1 moments are {share} of one device's")
+    fe = out["flash_eval"]
+    if fe["rel_diff"] > FLASH_LOSS_REL_TOL or any(
+            x != TRAIN_LAYERS for x in out["flash_launches_per_rank"]):
+        fail(f"mesh train: tp-2 flash evaluation {fe}, launches "
+             f"{out['flash_launches_per_rank']}")
+    return out
+
+
 def mesh_kernel_shapes(torch, dev) -> dict:
     """Kernels 2 and 3 at the per-rank shapes of this step: flash at
     DistilBERT's dp2 / tp2 / dp2 x tp2 rows and heads, paged at the 8B
-    decode shape with tp 2's 16 query and 4 KV heads; each against its
-    plain version, with its bound and the library call."""
+    decode shape with tp 2's 16 query and 4 KV heads, flash at the tp-2
+    trainer's causal 16 / 4 heads; each against its plain version, with
+    its bound and the library call."""
     import torch.nn.functional as F
 
     from music_analyst_tpu_torch.ops.flash_attention import (
@@ -6722,6 +7166,10 @@ def mesh_kernel_shapes(torch, dev) -> dict:
         bound_ms=b_ms, bound_by=b_by, wall_s=time.perf_counter() - t0)
     del case
     torch.cuda.empty_cache()
+    # The tp-2 trainer's evaluation: a rank's 16 query and 4 KV heads.
+    t0 = time.perf_counter()
+    out["flash_tp2_causal"] = dict(check_flash_llama(torch, dev, H=16, Hkv=4),
+                                   wall_s=time.perf_counter() - t0)
     log(f"kernels at the mesh's per-rank shapes: {json.dumps(out)}")
     return out
 
@@ -6907,9 +7355,13 @@ def main() -> int:
     report["mesh_llama"] = mesh_llama_path(torch, card, report["llama"],
                                            report["llama_quant"])
     mark("mesh_llama")
+    torch.cuda.empty_cache()
+    report["mesh_train"] = mesh_train_path(card)
+    mark("mesh_train")
     report["slice13_s"] = mark.sum("mesh_kernels", "mesh_analyze",
                                    "mesh_sentiment", "mesh_wq_sentiment",
-                                   "mesh_distilbert", "mesh_llama")
+                                   "mesh_distilbert", "mesh_llama",
+                                   "mesh_train")
     log(f"mesh phases (analyze/sentiment --devices, DistilBERT dp x tp, "
         f"Llama-3-8B tp 2 with its served run): "
         f"{report['slice13_s']:.1f} s")
@@ -6963,7 +7415,10 @@ def main() -> int:
                      "flash_launches_per_rank"]
                     for tag in ("dp1xtp2", "dp2xtp2")}),
              mesh_shapes={name: report["mesh_kernels"][name] for name in
-                          ("flash_dp2", "flash_tp2", "flash_dp2xtp2")},
+                          ("flash_dp2", "flash_tp2", "flash_dp2xtp2",
+                           "flash_tp2_causal")},
+             mesh_train_eval_launches_per_rank=report["mesh_train"][
+                 "flash_launches_per_rank"],
              serve_tp2_launches_per_rank=report["serve_tp"]["tp2"][
                  "flash_launches_per_rank"],
              mesh_quant_launches_per_rank=dict(
@@ -6976,7 +7431,8 @@ def main() -> int:
                 for name in ("int8_dynamic", "wq_int8", "wq_int4")},
              max_abs_err=max(list(errs.values()) + [
                  report["mesh_kernels"][name]["max_abs_err"] for name in
-                 ("flash_dp2", "flash_tp2", "flash_dp2xtp2")]),
+                 ("flash_dp2", "flash_tp2", "flash_dp2xtp2",
+                  "flash_tp2_causal")]),
              **{key: timing["flash_attention"][key] for key in
                 ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}),
         dict(name="keyword_scan", route="cuda",
@@ -7054,7 +7510,9 @@ def main() -> int:
         f"tp 2 {report['mesh_llama']['per_rank'][0]['ms_per_decode_step']:.1f}"
         f" ms a decode step, weight_quant int8 tp 2 served "
         f"{report['mesh_llama']['quant_wq_int8']['served']['host_ms_per_decode_dispatch']:.1f}"
-        f" ms a decode dispatch; total {report['seconds']:.1f} s")
+        f" ms a decode dispatch; mesh train dp 2 ZeRO-1 "
+        f"{report['mesh_train']['per_rank'][0]['dp_step_ms'][-1]:.0f} ms a "
+        f"step; total {report['seconds']:.1f} s")
     print(json.dumps({"quant_gemm": report["quant_gemm"]}))
     print(json.dumps(kernels_line))
     print(card)

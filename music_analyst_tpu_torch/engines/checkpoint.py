@@ -5,9 +5,15 @@ Counterpart of ``music_analyst_tpu/engines/checkpoint.py``.
 :func:`save_train_state` / :func:`restore_train_state` keep a train state
 (``engines/train.py``: f32 master params, both AdamW moments, the step) in
 torch format, one file ``train_state.pt`` in the checkpoint directory,
-written atomically.  The JAX package writes orbax checkpoints, which only
-JAX can read; the port neither reads nor writes that format, so a state
-moves between the packages only as parameters (``params_from_jax``).
+written atomically, keyed by parameter name and holding the global
+tensors whatever mesh saved it, so it restores onto any mesh of the same
+model (JAX's orbax checkpoint restores onto any mesh with the same global
+shapes).  A file of the one-device layout written before format 2
+(the masters, the optimizer's ``state_dict`` and the step) still
+restores, onto one device or a mesh.  The JAX package writes orbax
+checkpoints, which only JAX can read; the port neither reads nor writes
+that format, so a state moves between the packages only as parameters
+(``params_from_jax``).
 
 ``load_quantized_params`` / ``last_load_stats``: HF torch tensors are read one layer-sized
 unit at a time (the model families' ``iter_hf_param_units``), quantized on
@@ -24,6 +30,7 @@ the prefetch stage retry re-runs a failed unit, as in JAX.
 
 from __future__ import annotations
 
+import dataclasses
 import math
 import os
 import threading
@@ -51,58 +58,170 @@ from music_analyst_tpu_torch.runtime.prefetch import (
 from music_analyst_tpu_torch.utils.atomic import atomic_write
 
 TRAIN_STATE_FILE = "train_state.pt"
+TRAIN_STATE_FORMAT = 2
+_MOMENTS = ("exp_avg", "exp_avg_sq")
+
+
+def _split_dim(piece) -> int:
+    """The dimension a tensor-parallel ``ShardSlice`` splits."""
+    return next(d for d, (lo, hi) in enumerate(piece.bounds)
+                if (lo, hi) != (0, piece.full_shape[d]))
+
+
+def _global(block: torch.Tensor, name: str, state: TrainState,
+            gather_tp: bool) -> torch.Tensor:
+    """The whole tensor of this rank's tp block of ``name`` (an all-gather
+    over ``tp`` when the parameter is split and ``gather_tp``)."""
+    piece = state.tp_layout.get(name)
+    if piece is None or not gather_tp:
+        return block
+    from music_analyst_tpu_torch.parallel.mesh import all_gather
+
+    return all_gather(block, state.mesh, "tp", dim=_split_dim(piece))
 
 
 def save_train_state(state: TrainState, path: str) -> str:
     """Save ``state`` into the directory ``path`` (absolute or
     cwd-relative; created if missing); returns its absolute path.  The
     file is staged and renamed into place, so a crash leaves the previous
-    checkpoint whole."""
+    checkpoint whole.
+
+    One file in one format whatever the mesh: the global f32 masters,
+    both AdamW moments and their step counts, each keyed by parameter
+    name, with the optimizer's settings and the step.  On a mesh every
+    rank calls this (a collective): ZeRO-1 slices are all-gathered over
+    ``dp`` and tensor-parallel blocks over ``tp``, one parameter at a
+    time, the coordinator (rank 0) writes the file, and every rank returns
+    once it is in place."""
+    from music_analyst_tpu_torch.parallel import multihost
+    from music_analyst_tpu_torch.parallel.mesh import all_gather_rows_
+
     path = os.path.abspath(path)
-    with atomic_write(os.path.join(path, TRAIN_STATE_FILE), "wb",
-                      encoding=None) as fh:
-        torch.save({"params": state.params,
-                    "opt_state": state.opt_state.state_dict(),
-                    "step": int(state.step)}, fh)
+    mesh = state.mesh
+    writer = mesh is None or mesh.rank == 0
+    # The ranks of dp row 0 hold every tp block; one tp line gathers.
+    gather_tp = mesh is None or mesh.coord("dp") == 0
+    saved = {"format": TRAIN_STATE_FORMAT, "params": {}, "adam_step": {},
+             **{key: {} for key in _MOMENTS}}
+    for name, stepped in state.opt_tensors().items():
+        master = state.params[name]
+        entry = state.opt_state.state.get(stepped, {})
+        values = {"params": master}
+        for key in _MOMENTS:
+            moment = entry.get(key)
+            if moment is None:              # before the first step
+                moment = torch.zeros_like(stepped)
+            zero1 = state.zero1.get(name)
+            if zero1 is not None:
+                whole = torch.empty_like(master)
+                zero1.take(whole).copy_(moment)
+                all_gather_rows_([whole], mesh, "dp")
+                moment = whole
+            values[key] = moment
+        for key, value in values.items():
+            value = _global(value, name, state, gather_tp)
+            if writer:
+                saved[key][name] = value.detach().to("cpu", copy=True)
+        if writer:
+            saved["adam_step"][name] = float(entry.get("step", 0.0))
+    if writer:
+        group = {k: v for k, v in state.opt_state.param_groups[0].items()
+                 if k != "params"}
+        saved.update(param_group=group, step=int(state.step))
+        with atomic_write(os.path.join(path, TRAIN_STATE_FILE), "wb",
+                          encoding=None) as fh:
+            torch.save(saved, fh)
+    if mesh is not None:
+        multihost.barrier("save_train_state")
     return path
+
+
+def _from_format_1(saved: Dict[str, Any]) -> Dict[str, Any]:
+    """A train state of the one-device layout written before format 2
+    (``params``, the optimizer's ``state_dict`` as ``opt_state``,
+    ``step``) in format 2's: the optimizer's per-index state under the
+    parameters' names, zero moments and step 0 where a parameter was never
+    stepped."""
+    opt = saved["opt_state"]
+    group = dict(opt["param_groups"][0])
+    ids = group.pop("params")
+    out = {"format": TRAIN_STATE_FORMAT, "params": saved["params"],
+           "adam_step": {}, **{key: {} for key in _MOMENTS},
+           "param_group": group, "step": saved["step"]}
+    for name, i in zip(saved["params"], ids):
+        entry = opt["state"].get(i, {})
+        out["adam_step"][name] = float(entry.get("step", 0.0))
+        for key in _MOMENTS:
+            out[key][name] = entry.get(key,
+                                       torch.zeros_like(saved["params"][name]))
+    return out
 
 
 def restore_train_state(path: str, like: Optional[TrainState] = None,
                         device: DeviceLike = "cuda") -> TrainState:
     """Restore the state saved in ``path``.  With ``like``, the saved
-    values are copied into ``like``'s tensors and optimizer (its devices
-    and structure; the names must match) and ``like`` is returned with the
-    saved step; otherwise a new state is built on ``device``."""
+    values are copied into ``like``'s tensors and optimizer (its devices,
+    mesh and layout; the names must match) and ``like`` is returned with
+    the saved step — each rank takes its tensor-parallel block and, under
+    ZeRO-1, its slice of the moments, so a state saved on one mesh
+    restores onto another or onto one device; otherwise a new one-device
+    state is built on ``device``."""
     path = os.path.join(os.path.abspath(path), TRAIN_STATE_FILE)
     saved = torch.load(path, map_location="cpu", weights_only=True,
                        mmap=True)
-    opt_saved = saved["opt_state"]
+    if "format" not in saved and "opt_state" in saved:
+        saved = _from_format_1(saved)
+    if saved.get("format") != TRAIN_STATE_FORMAT:
+        raise ValueError(f"{path} is not a train state of format "
+                         f"{TRAIN_STATE_FORMAT}")
     if like is not None:
         if list(saved["params"]) != list(like.params):
             raise ValueError(
                 f"{path} holds other parameters than the state to restore "
                 "into"
             )
-        with torch.no_grad():
-            for name, value in saved["params"].items():
-                like.params[name].copy_(value)
-        params, opt = like.params, like.opt_state
         dev = like.step.device
+
+        def block(name, full):
+            piece = like.tp_layout.get(name)
+            return piece.take(full) if piece is not None else full
+
+        with torch.no_grad():
+            for name, master in like.params.items():
+                master.copy_(block(name, saved["params"][name]))
+        params, opt, zero1 = like.params, like.opt_state, like.zero1
     else:
         dev = resolve_device(device)
         params = {name: value.detach().to(dev, copy=True)
                   for name, value in saved["params"].items()}
-        group = opt_saved["param_groups"][0]
+        group = saved["param_group"]
         opt = AdamW(group["lr"], group["weight_decay"], *group["betas"],
                     group["eps"]).init(params.values())
+        zero1 = {}
+
+        def block(name, full):
+            return full
+
+    moments = {}
+    for i, name in enumerate(params):
+        entry = {"step": torch.tensor(saved["adam_step"][name],
+                                      dtype=torch.float32)}
+        for key in _MOMENTS:
+            value = block(name, saved[key][name])
+            if name in zero1:
+                value = zero1[name].take(value.contiguous())
+            entry[key] = value.to(dev, copy=True)
+        moments[i] = entry
     # The fused update runs only on the card: keep this optimizer's own
     # choice, take every other saved setting and the moments.
-    for saved_group, group in zip(opt_saved["param_groups"],
-                                  opt.param_groups):
-        saved_group["fused"] = group["fused"]
-    opt.load_state_dict(opt_saved)
+    group = dict(saved["param_group"], fused=opt.param_groups[0]["fused"],
+                 params=list(range(len(params))))
+    opt.load_state_dict({"state": moments, "param_groups": [group]})
     step = torch.tensor(saved["step"], dtype=torch.int32, device=dev)
+    if like is not None:
+        return dataclasses.replace(like, step=step)
     return TrainState(params=params, opt_state=opt, step=step)
+
 
 _LOAD_LOCK = threading.Lock()
 _LAST_LOAD_STATS: Dict[str, Any] = {}

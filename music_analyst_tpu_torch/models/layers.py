@@ -10,13 +10,17 @@ int8) and ``WqLinear`` (JAX ``WqDenseGeneral``, stored int8 / int4 codes),
 picked by ``pick_dense_cls`` as JAX does.
 
 Tensor parallelism (Megatron's pieces, plain torch, no kernel of their
-own): a column-parallel projection is an ``nn.Linear`` holding this
-rank's output rows and needs no communication; :class:`RowParallelLinear`
-sums its partial products with one ``all_reduce`` over ``tp`` and adds
-its bias once, after the reduce; :class:`VocabParallelEmbedding` looks up
-the ids of its vocabulary block (zeros elsewhere) and all-reduces;
-:class:`VocabParallelHead` all-gathers its f32 logits into the full
-vocabulary.  :func:`tensor_parallel_` installs them where
+own), trainable: a column-parallel projection is an ``nn.Linear`` holding
+this rank's output rows and needs no communication, and attention and the
+gated MLP pass their input through f (``parallel/mesh.copy_to_axis``: identity
+forward, gradient summed over ``tp``); :class:`RowParallelLinear` sums its
+partial products with g (``reduce_from_axis``: one ``all_reduce``,
+identity backward) and adds its bias once, after the reduce;
+:class:`VocabParallelEmbedding` looks up the ids of its vocabulary block
+(zeros elsewhere) and sums with g; :class:`VocabParallelHead` passes its
+input through f and all-gathers its f32 logits into the full vocabulary
+(``gather_from_axis``: backward keeps this rank's slice), or returns its
+local block for the vocab-parallel loss.  :func:`tensor_parallel_` installs them where
 ``parallel/sharding.py`` split a parameter.  The quantized projections
 keep their class and take a role instead (:class:`_TensorParallel`): a
 row-parallel one takes its scales over every rank's rows, so its
@@ -39,7 +43,11 @@ import torch.nn.functional as F
 from torch import nn
 
 from music_analyst_tpu_torch.ops.flash_attention import flash_attention
-from music_analyst_tpu_torch.parallel.mesh import all_gather, all_reduce
+from music_analyst_tpu_torch.parallel.mesh import (
+    copy_to_axis,
+    gather_from_axis,
+    reduce_from_axis,
+)
 from music_analyst_tpu_torch.ops.quant import (
     WQ_DEFAULT_GROUP,
     QuantizedParam,
@@ -231,7 +239,7 @@ class _TensorParallel:
 
     def _gather(self, y: torch.Tensor) -> torch.Tensor:
         if self.tp_role == "vocab":
-            return all_gather(y, self.tp_mesh, "tp", dim=-1)
+            return gather_from_axis(y, self.tp_mesh, "tp", dim=-1)
         return y
 
 
@@ -401,9 +409,9 @@ class WqLinear(_TensorParallel, nn.Module):
                 y = F.linear(x.to(self.dtype), self.weight.to(self.dtype),
                              bias)
             else:
-                y = all_reduce(F.linear(x.to(self.dtype),
-                                        self.weight.to(self.dtype)),
-                               self.rows.mesh, self.rows.axis)
+                y = reduce_from_axis(F.linear(x.to(self.dtype),
+                                              self.weight.to(self.dtype)),
+                                     self.rows.mesh, self.rows.axis)
                 y = y if bias is None else y + bias
             return self._gather(y)
         return self._gather(wq_linear(x, self.qparam, self.bias,
@@ -468,7 +476,10 @@ class MultiHeadAttention(nn.Module):
     first and attention runs over the whole cache (dense), or, for a cache
     that has an ``attend`` method (``ops/paged_attention.PagedAttnView``),
     through that method; ``forward`` then returns ``(out, new_cache)``.
+    Under tensor parallelism (``tp_mesh``) the input passes f.
     """
+
+    tp_mesh = None
 
     def __init__(
         self,
@@ -518,6 +529,7 @@ class MultiHeadAttention(nn.Module):
         positions: Optional[torch.Tensor] = None,
         cache=None,
     ):
+        x = copy_to_axis(x, self.tp_mesh)
         B, S, _ = x.shape
         q = self.q_proj(x).view(B, S, self.n_heads, self.head_dim)
         k = self.k_proj(x).view(B, S, self.n_kv_heads, self.head_dim)
@@ -577,7 +589,10 @@ class SwiGLU(nn.Module):
         self.up_proj = dense(dim, hidden_dim, False, dtype)
         self.down_proj = dense(hidden_dim, dim, False, dtype)
 
+    tp_mesh = None   # tensor_parallel_: the input passes f
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = copy_to_axis(x, self.tp_mesh)
         return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
 
 
@@ -598,9 +613,9 @@ class GeluMLP(nn.Module):
 
 class RowParallelLinear(nn.Module):
     """``nn.Linear`` over this rank's input columns: the partial products
-    are summed over ``tp`` (one ``all_reduce``), then the bias is added
-    once — added on every rank before the reduce it would count tp
-    times."""
+    are summed over ``tp`` (g: one ``all_reduce``, identity backward),
+    then the bias is added once — added on every rank before the reduce
+    it would count tp times."""
 
     def __init__(self, linear: nn.Linear, mesh, axis: str = "tp") -> None:
         super().__init__()
@@ -609,14 +624,15 @@ class RowParallelLinear(nn.Module):
         self.mesh, self.axis = mesh, axis
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = all_reduce(F.linear(x, self.weight), self.mesh, self.axis)
+        y = reduce_from_axis(F.linear(x, self.weight), self.mesh, self.axis)
         return y if self.bias is None else y + self.bias
 
 
 class VocabParallelEmbedding(nn.Module):
     """Embedding over this rank's vocabulary block ``[start, start +
     rows)``: ids outside it give zero rows, and the all-reduce over
-    ``tp`` adds the one rank's row to zeros — exact."""
+    ``tp`` (g) adds the one rank's row to zeros — exact; each rank's
+    weight gradient is its block's rows."""
 
     def __init__(self, embedding: nn.Embedding, start: int, mesh,
                  axis: str = "tp") -> None:
@@ -631,24 +647,30 @@ class VocabParallelEmbedding(nn.Module):
         outside = (local < 0) | (local >= rows)
         out = F.embedding(local.clamp(0, rows - 1), self.weight)
         out = out.masked_fill(outside[..., None], 0)
-        return all_reduce(out, self.mesh, self.axis)
+        return reduce_from_axis(out, self.mesh, self.axis)
 
 
 class VocabParallelHead(nn.Module):
-    """LM head over this rank's vocabulary rows: local logits (in the
-    weight's dtype, f32 for Llama), then one all-gather along the
+    """LM head over this rank's vocabulary rows ``[start, start + rows)``:
+    the input passes f (its gradient sums over ``tp``), local logits in
+    the weight's dtype (f32 for Llama), then one all-gather along the
     vocabulary into the full ``[..., V]`` — so a greedy argmax ties to
-    the lowest index exactly as on one rank."""
+    the lowest index exactly as on one rank; the gather's backward keeps
+    this rank's slice.  ``gather=False`` returns the local logits (the
+    vocab-parallel loss, ``models/llama.py:token_nll``)."""
 
-    def __init__(self, linear: nn.Linear, mesh, axis: str = "tp") -> None:
+    def __init__(self, linear: nn.Linear, mesh, axis: str = "tp",
+                 start: int = 0) -> None:
         super().__init__()
         self.weight = linear.weight
         self.bias = linear.bias
         self.mesh, self.axis = mesh, axis
+        self.start = int(start)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return all_gather(F.linear(x, self.weight, self.bias), self.mesh,
-                          self.axis, dim=-1)
+    def forward(self, x: torch.Tensor, gather: bool = True) -> torch.Tensor:
+        x = copy_to_axis(x, self.mesh, self.axis)
+        y = F.linear(x, self.weight, self.bias)
+        return gather_from_axis(y, self.mesh, self.axis) if gather else y
 
 
 def _out_rows(proj: nn.Module) -> int:
@@ -660,7 +682,8 @@ def _out_rows(proj: nn.Module) -> int:
 def tensor_parallel_(model: nn.Module, mesh, layout) -> None:
     """Give the modules whose parameters ``layout`` split their
     tensor-parallel forms (in place; parameter names are unchanged):
-    attention keeps its per-rank head counts, a linear whose input
+    attention keeps its per-rank head counts, attention and the gated MLP
+    pass their input through f (``tp_mesh``), a linear whose input
     columns were split becomes :class:`RowParallelLinear`, a split
     embedding :class:`VocabParallelEmbedding` and the split ``lm_head``
     :class:`VocabParallelHead`.  A quantized projection (``QuantLinear``,
@@ -671,6 +694,8 @@ def tensor_parallel_(model: nn.Module, mesh, layout) -> None:
         if isinstance(module, MultiHeadAttention):
             module.n_heads = _out_rows(module.q_proj) // module.head_dim
             module.n_kv_heads = _out_rows(module.k_proj) // module.head_dim
+        if isinstance(module, (MultiHeadAttention, SwiGLU)):
+            module.tp_mesh = mesh
         piece = layout.get(f"{prefix}weight")
         parent_name, _, leaf = name.rpartition(".")
         if isinstance(module, _TensorParallel):
@@ -699,7 +724,8 @@ def tensor_parallel_(model: nn.Module, mesh, layout) -> None:
             setattr(parent, leaf, VocabParallelEmbedding(
                 module, piece.bounds[0][0], mesh))
         elif type(module) is nn.Linear and leaf == "lm_head":
-            setattr(parent, leaf, VocabParallelHead(module, mesh))
+            setattr(parent, leaf, VocabParallelHead(
+                module, mesh, start=piece.bounds[0][0]))
         elif type(module) is nn.Linear and (
                 piece.bounds[1] != (0, piece.full_shape[1])):
             setattr(parent, leaf, RowParallelLinear(module, mesh))

@@ -43,7 +43,9 @@ and of the vocabulary (``parallel/sharding.py``); ``o_proj`` and
 ``down_proj`` all-reduce, the embedding all-reduces its masked lookup
 and the f32 ``lm_head`` all-gathers the logits, so every rank sees the
 same full logits and takes the same greedy tokens and scheduling
-decisions.  KV caches and page pools hold the rank's own KV heads (an
+decisions; each collective has a stated backward, and the training loss
+reads the rank's own vocabulary block (:func:`token_nll`, a
+vocab-parallel cross-entropy).  KV caches and page pools hold the rank's own KV heads (an
 int8 page row's scale is the maximum over every rank's heads).  Random
 weights draw each full tensor from the one generator and keep the rank's
 block, so every rank's weights are the unsharded model's.  ``quant`` and
@@ -72,6 +74,7 @@ from music_analyst_tpu_torch.models.layers import (
     MultiHeadAttention,
     RMSNorm,
     SwiGLU,
+    VocabParallelHead,
     WqLinear,
     causal_mask,
     padding_mask,
@@ -85,7 +88,11 @@ from music_analyst_tpu_torch.models.tokenization import (
 )
 from music_analyst_tpu_torch.models.tree import as_tensor, f32, put_kernel
 from music_analyst_tpu_torch.ops.quant import WQ_DEFAULT_GROUP
-from music_analyst_tpu_torch.parallel.mesh import DeviceMesh
+from music_analyst_tpu_torch.parallel.mesh import (
+    DeviceMesh,
+    all_reduce,
+    reduce_from_axis,
+)
 from music_analyst_tpu_torch.parallel.sharding import (
     local_kv_heads,
     shard_params,
@@ -266,7 +273,8 @@ class LlamaModel(nn.Module):
                                      dtype=torch.float32)
 
     def forward(self, token_ids, positions, mask, caches=None,
-                last_position=None, lengths=None, segment_ids=None):
+                last_position=None, lengths=None, segment_ids=None,
+                gather_logits=True):
         x = self.tok_embeddings(token_ids.long())
         new_caches = []
         for i, layer in enumerate(self.layers):
@@ -279,8 +287,39 @@ class LlamaModel(nn.Module):
         if last_position is not None:
             idx = last_position.long()[:, None, None].expand(-1, 1, x.shape[-1])
             x = torch.gather(x, 1, idx)
-        logits = self.lm_head(x.float())
+        if isinstance(self.lm_head, VocabParallelHead):
+            logits = self.lm_head(x.float(), gather=gather_logits)
+        else:
+            logits = self.lm_head(x.float())
         return logits, (new_caches if caches is not None else None)
+
+
+def token_nll(model: LlamaModel, logits: torch.Tensor,
+              targets: torch.Tensor) -> torch.Tensor:
+    """Per-token cross-entropy ``[B, S]`` of ``targets`` under ``logits``
+    (f32, from ``model(..., gather_logits=False)``).
+
+    With a vocab-parallel head the logits are this rank's vocabulary
+    block, and the cross-entropy is vocab-parallel: each row's maximum,
+    sum of exponentials and target logit are reduced over ``tp`` (three
+    ``[B, S]`` tensors) instead of gathering ``[B, S, V]``.  The maximum
+    only shifts the exponentials (no gradient); the two sums are g
+    (``reduce_from_axis``), so each rank's logit gradient is its block of
+    the softmax less the one-hot target."""
+    head = model.lm_head
+    if not isinstance(head, VocabParallelHead):
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        return -logp.gather(-1, targets[..., None])[..., 0]
+    logits = logits.float()
+    mesh, axis = head.mesh, head.axis
+    peak = all_reduce(logits.detach().amax(dim=-1), mesh, axis, op="max")
+    shifted = logits - peak[..., None]
+    sum_exp = reduce_from_axis(shifted.exp().sum(dim=-1), mesh, axis)
+    local = targets - head.start
+    inside = (local >= 0) & (local < logits.shape[-1])
+    picked = shifted.gather(-1, local.clamp(0, logits.shape[-1] - 1)[..., None])
+    target = reduce_from_axis(picked[..., 0] * inside, mesh, axis)
+    return torch.log(sum_exp) - target
 
 
 def init_caches(cfg: LlamaConfig, batch: int, max_len: int,

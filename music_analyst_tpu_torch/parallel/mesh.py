@@ -20,6 +20,13 @@ Without a process group a mesh has one device, and every collective of
 this module is the identity: engine code runs unchanged on one device.
 Collectives over an axis stage through host memory when the group's
 backend is gloo (``multihost.transport_device``).
+
+For training: :func:`copy_to_axis`, :func:`reduce_from_axis` and
+:func:`gather_from_axis` are the tensor-parallel collectives with a
+stated backward (Megatron's f and g, and the vocabulary gather), and
+:func:`reduce_scatter_rows`, :func:`all_gather_rows_` and
+:func:`all_reduce_many` move a whole model's gradients and masters over
+``dp`` in bounded buckets (ZeRO-1 and the plain gradient sum).
 """
 
 from __future__ import annotations
@@ -288,3 +295,262 @@ def all_gather(tensor: torch.Tensor, mesh: Optional[DeviceMesh], axis: str,
     parts = [torch.empty_like(staged) for _ in range(mesh.axis_size(axis))]
     dist.all_gather(parts, staged, group=group)
     return torch.cat(parts, dim=dim).to(tensor.device)
+
+
+# ----------------------------------------- collectives with a stated backward
+#
+# Megatron's f / g pair and the vocabulary gather, as autograd functions
+# over one mesh axis (``tp``).  Each is the identity on a size-1 axis, and
+# outside autograd (no grad, or an input that needs none) it is the plain
+# collective above, so inference runs exactly what it ran before.
+
+
+class _CopyToAxis(torch.autograd.Function):
+    """f: identity forward; backward sums the gradient over the axis (the
+    input of a column-parallel region, whose ranks each hold a partial
+    gradient of the replicated activation)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_reduce(grad, ctx.mesh, ctx.axis), None, None
+
+
+class _ReduceFromAxis(torch.autograd.Function):
+    """g: sum over the axis forward (the output of a row-parallel region);
+    identity backward, since what follows is replicated."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        return all_reduce(x, mesh, axis)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None, None
+
+
+class _GatherFromAxis(torch.autograd.Function):
+    """All-gather along ``dim`` forward; backward keeps this rank's slice
+    of the gradient."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim):
+        ctx.mesh, ctx.axis = mesh, axis
+        ctx.dim, ctx.size = dim % x.dim(), x.shape[dim]
+        return all_gather(x, mesh, axis, dim=dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        start = ctx.mesh.coord(ctx.axis) * ctx.size
+        return grad.narrow(ctx.dim, start, ctx.size), None, None, None
+
+
+def _plain(x: torch.Tensor, mesh: Optional[DeviceMesh], axis: str) -> bool:
+    """Whether the collective needs no autograd node: a size-1 axis, or
+    an input outside the graph."""
+    return (mesh is None or mesh.group(axis) is None
+            or not (torch.is_grad_enabled() and x.requires_grad))
+
+
+def copy_to_axis(x: torch.Tensor, mesh: Optional[DeviceMesh],
+                 axis: str = "tp") -> torch.Tensor:
+    """f: ``x`` itself; its gradient is summed over ``axis``."""
+    return x if _plain(x, mesh, axis) else _CopyToAxis.apply(x, mesh, axis)
+
+
+def reduce_from_axis(x: torch.Tensor, mesh: Optional[DeviceMesh],
+                     axis: str = "tp") -> torch.Tensor:
+    """g: the sum of ``x`` over ``axis``; the gradient passes unchanged."""
+    if _plain(x, mesh, axis):
+        return all_reduce(x, mesh, axis)
+    return _ReduceFromAxis.apply(x, mesh, axis)
+
+
+def gather_from_axis(x: torch.Tensor, mesh: Optional[DeviceMesh],
+                     axis: str = "tp", dim: int = -1) -> torch.Tensor:
+    """Every rank's ``x`` concatenated along ``dim``; the gradient goes
+    back as this rank's slice."""
+    if _plain(x, mesh, axis):
+        return all_gather(x, mesh, axis, dim=dim)
+    return _GatherFromAxis.apply(x, mesh, axis, dim)
+
+
+# ------------------------------------------- bucketed collectives (ZeRO-1)
+#
+# The gradient sum over ``dp`` and the ZeRO-1 pair (reduce-scatter of the
+# gradients, all-gather of the stepped masters) move every parameter of
+# the model.  They run over a list of tensors in column buckets of at most
+# BUCKET_BYTES, so under gloo a card's tensors cross host memory one
+# bucket at a time (through reused pinned buffers) and never whole.  A
+# "rows" tensor is viewed as ``[parts, numel / parts]``: row ``i`` is the
+# flat slice that rank ``i`` of the axis owns.
+#
+# Routes: the reduce-scatter and the all-gather are one all-to-all each,
+# which moves a row to its owner (the reduce-scatter then sums the rows
+# it received on the tensor's device), on any backend: gloo's own
+# reduce-scatter and all-gather ran at a third to two thirds of its
+# all-to-all's rate on the same buckets, on an H100 host
+# (`tools/gloo_routes_time.py`; PERF.md §6).  NCCL's own pair has not
+# been measured against it.
+
+BUCKET_BYTES = 256 << 20
+
+# How each bucketed collective ran ("all_to_all+sum", "all_to_all",
+# "all_reduce"): counts of buckets, and bytes under "<route>.bytes".
+ROUTES: Dict[str, int] = {}
+_PINNED: Dict[Tuple[torch.dtype, str], torch.Tensor] = {}
+
+
+def reset_routes() -> None:
+    ROUTES.clear()
+
+
+def _route(name: str, nbytes: int) -> None:
+    ROUTES[name] = ROUTES.get(name, 0) + 1
+    ROUTES[f"{name}.bytes"] = ROUTES.get(f"{name}.bytes", 0) + nbytes
+
+
+def _pinned(numel: int, dtype: torch.dtype, slot: str) -> torch.Tensor:
+    """A reused pinned host buffer of at least ``numel`` elements."""
+    key = (dtype, slot)
+    buf = _PINNED.get(key)
+    if buf is None or buf.numel() < numel:
+        buf = torch.empty(max(numel, BUCKET_BYTES // _itemsize(dtype)),
+                          dtype=dtype, pin_memory=True)
+        _PINNED[key] = buf
+    return buf[:numel]
+
+
+def _host_side(tensor: torch.Tensor, group) -> bool:
+    """Whether ``tensor`` must cross host memory for ``group``'s backend
+    (gloo, a card's tensor)."""
+    return tensor.is_cuda and multihost.transport_device(group).type == "cpu"
+
+
+def _buffer(shape, like: torch.Tensor, group, slot: str) -> torch.Tensor:
+    """An empty tensor of ``shape`` where ``group``'s backend wants it: a
+    reused pinned host buffer for a card's tensor under gloo."""
+    if _host_side(like, group):
+        return _pinned(math.prod(shape), like.dtype, slot).view(shape)
+    return torch.empty(shape, dtype=like.dtype,
+                       device=multihost.transport_device(group))
+
+
+def _staged(tensor: torch.Tensor, group, slot: str) -> torch.Tensor:
+    """``tensor`` where ``group``'s backend wants it: the tensor itself, or
+    a copy in a reused pinned host buffer."""
+    if _host_side(tensor, group):
+        return _buffer(tensor.shape, tensor, group, slot).copy_(tensor)
+    return tensor.to(multihost.transport_device(group))
+
+
+def _column_buckets(widths: Sequence[int], limit: int):
+    """Split the columns of items of ``widths`` columns into buckets of at
+    most ``limit`` columns: lists of ``(item, start, stop)``."""
+    bucket, room = [], limit
+    for i, width in enumerate(widths):
+        start = 0
+        while start < width:
+            take = min(width - start, room)
+            bucket.append((i, start, start + take))
+            start += take
+            room -= take
+            if room == 0:
+                yield bucket
+                bucket, room = [], limit
+    if bucket:
+        yield bucket
+
+
+def _itemsize(dtype: torch.dtype) -> int:
+    return torch.empty((), dtype=dtype).element_size()
+
+
+def _rows(tensor: torch.Tensor, parts: int) -> torch.Tensor:
+    return tensor.view(parts, -1)
+
+
+def _scatter_back(bucket, targets, source: torch.Tensor) -> None:
+    """Copy the columns of ``source [..., w]`` back into each item's
+    ``targets[i][..., a:b]``."""
+    offset = 0
+    for i, a, b in bucket:
+        targets[i][..., a:b].copy_(source[..., offset:offset + b - a])
+        offset += b - a
+
+
+def reduce_scatter_rows(tensors: Sequence[torch.Tensor],
+                        mesh: Optional[DeviceMesh], axis: str
+                        ) -> List[torch.Tensor]:
+    """For each tensor, this rank's row of its sum over ``axis`` (the
+    tensor viewed as ``[parts, numel / parts]``), in f32 on the tensor's
+    device; the sum runs in f32."""
+    group = None if mesh is None else mesh.group(axis)
+    parts = mesh.axis_size(axis) if group is not None else 1
+    rows = [_rows(t, parts) for t in tensors]
+    if group is None:
+        return [r[0].to(torch.float32, copy=True) for r in rows]
+    out = [torch.empty(r.shape[1], dtype=torch.float32, device=r.device)
+           for r in rows]
+    limit = max(1, BUCKET_BYTES // (parts * _itemsize(torch.float32)))
+    for bucket in _column_buckets([r.shape[1] for r in rows], limit):
+        send = torch.cat([rows[i][:, a:b].float() for i, a, b in bucket],
+                         dim=1)
+        staged = _staged(send, group, "send")
+        recv = _buffer(send.shape, send, group, "recv")
+        dist.all_to_all_single(recv.view(-1), staged.view(-1), group=group)
+        _route("all_to_all+sum", send.numel() * send.element_size())
+        _scatter_back(bucket, out, recv.to(send.device).sum(dim=0))
+    return out
+
+
+def all_reduce_many(tensors: Sequence[torch.Tensor],
+                    mesh: Optional[DeviceMesh], axis: str
+                    ) -> List[torch.Tensor]:
+    """Each tensor summed over ``axis`` in f32 (a new tensor on its
+    device), in buckets."""
+    group = None if mesh is None else mesh.group(axis)
+    out = [torch.empty(t.shape, dtype=torch.float32, device=t.device)
+           for t in tensors]
+    if group is None:
+        for o, t in zip(out, tensors):
+            o.copy_(t)
+        return out
+    flats = [t.view(-1) for t in tensors]
+    limit = max(1, BUCKET_BYTES // _itemsize(torch.float32))
+    for bucket in _column_buckets([f.numel() for f in flats], limit):
+        send = torch.cat([flats[i][a:b].float() for i, a, b in bucket])
+        staged = _staged(send, group, "send")
+        dist.all_reduce(staged, group=group)
+        _route("all_reduce", staged.numel() * staged.element_size())
+        _scatter_back(bucket, [o.view(-1) for o in out], staged)
+    return out
+
+
+def all_gather_rows_(tensors: Sequence[torch.Tensor],
+                     mesh: Optional[DeviceMesh], axis: str) -> None:
+    """Fill every row of each tensor (viewed as ``[parts, numel /
+    parts]``) from the rank of ``axis`` that owns it, in place, in
+    buckets: the ZeRO-1 all-gather of the stepped masters."""
+    group = None if mesh is None else mesh.group(axis)
+    if group is None or not tensors:
+        return
+    parts = mesh.axis_size(axis)
+    me = mesh.coord(axis)
+    rows = [_rows(t, parts) for t in tensors]
+    limit = max(1, BUCKET_BYTES // (parts * rows[0].element_size()))
+    for bucket in _column_buckets([r.shape[1] for r in rows], limit):
+        send = torch.cat([rows[i][me, a:b] for i, a, b in bucket])
+        shape = (parts, send.numel())
+        # Every rank sends its row to every rank, its own included.
+        staged = _buffer(shape, send, group, "send")
+        staged[0].copy_(send)
+        staged[1:].copy_(staged[0].expand(parts - 1, -1))
+        recv = _buffer(shape, send, group, "recv")
+        dist.all_to_all_single(recv.view(-1), staged.view(-1), group=group)
+        _route("all_to_all", recv.numel() * recv.element_size())
+        _scatter_back(bucket, rows, recv.to(send.device))

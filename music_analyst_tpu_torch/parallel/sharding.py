@@ -27,6 +27,11 @@ Flax's layout) is placed by :func:`quantized_specs`, JAX's
 ``_quantized_specs``.  Axes absent from the mesh (or of size 1) prune to
 replication, so a dp-only mesh leaves the model as it is.  MoE layers
 under a split are refused (not yet ported).
+
+ZeRO-1 (:func:`zero1_slices`, JAX's ``zero1_shard_opt_state``): the
+AdamW moments of a parameter with a free axis that ``dp`` divides, in
+Flax's layout (``_flax_axes``), shard over ``dp``; each rank steps one
+flat row of its block.
 """
 
 from __future__ import annotations
@@ -270,3 +275,82 @@ def shard_state_dict(state_dict, layout: Dict[str, ShardSlice]):
             value = piece.take(torch.as_tensor(value))
         out[name] = value
     return out
+
+
+# ----------------------------------------------------------------- ZeRO-1
+
+
+def _flax_axes(model: nn.Module, mesh, rules=None
+              ) -> Dict[str, List[Tuple[int, Optional[str]]]]:
+    """Each parameter's axes in Flax's layout, as ``(global size, mesh
+    axis or None)``: an ``nn.Linear`` weight ``[out, in]`` is a Flax
+    kernel ``[in, out]``, with the head axis apart for attention (q/k/v
+    ``[dim, H, Dh]``, ``o_proj`` ``[H, Dh, dim]``, q/k/v biases ``[H,
+    Dh]``); embeddings, norms and other biases keep their layout."""
+    from music_analyst_tpu_torch.models.layers import VocabParallelEmbedding
+
+    names = set(mesh.axis_names)
+    layout = getattr(model, "tp_layout", {})
+    units = _head_units(model)
+    out = {}
+    for mname, module in model.named_modules():
+        for pname, param in module.named_parameters(recurse=False):
+            name = f"{mname}.{pname}" if mname else pname
+            piece = layout.get(name)
+            shape = piece.full_shape if piece else tuple(param.shape)
+            spec = prune_spec(spec_for_path(name, rules), names)
+            axes = list(zip(shape, tuple(spec) + (None,) * (
+                len(shape) - len(spec))))
+            unit = units.get(name)
+            linear = (len(shape) == 2 and pname == "weight"
+                      and not isinstance(module, (nn.Embedding,
+                                                  VocabParallelEmbedding)))
+            if linear:
+                (n_out, a_out), (n_in, a_in) = axes
+                if unit and name.endswith("o_proj.weight"):
+                    axes = [(n_in // unit, a_in), (unit, None),
+                            (n_out, a_out)]
+                elif unit:
+                    axes = [(n_in, a_in), (n_out // unit, a_out),
+                            (unit, None)]
+                else:
+                    axes = [(n_in, a_in), (n_out, a_out)]
+            elif unit and not name.endswith("o_proj.bias"):
+                (n, a), = axes
+                axes = [(n // unit, a), (unit, None)]
+            out[name] = axes
+    return out
+
+
+@dataclasses.dataclass(frozen=True)
+class Zero1Slice:
+    """This rank's ZeRO-1 share of one parameter's optimizer state: the
+    rank's (tp) block flattened and cut into ``parts`` equal rows, of
+    which the rank steps row ``index``."""
+
+    parts: int
+    index: int
+
+    def take(self, block: torch.Tensor) -> torch.Tensor:
+        """This rank's row of ``block``: a view of a contiguous block."""
+        return block.view(self.parts, -1)[self.index]
+
+
+def zero1_slices(model: nn.Module, mesh, rules=None
+                 ) -> Dict[str, Zero1Slice]:
+    """The parameters whose AdamW moments shard over ``dp`` under ZeRO-1,
+    with this rank's :class:`Zero1Slice` of each.
+
+    JAX's rule (``engines/train.py:zero1_shard_opt_state``): ``dp`` goes
+    on the first axis of the leaf, in Flax's layout (``_flax_axes``),
+    that is still unsharded and whose global size ``dp`` divides; a leaf
+    with no such axis keeps its moments as the parameter's.  The port cuts
+    its own ``[out, in]`` block flatly instead of along that axis: the
+    share holds as many elements as JAX's addressable shard (the axis is
+    whole in the block, so ``dp`` divides the block)."""
+    dp = mesh.axis_size("dp")
+    if dp <= 1:
+        return {}
+    share = Zero1Slice(dp, mesh.coord("dp"))
+    return {name: share for name, axes in _flax_axes(model, mesh, rules).items()
+            if any(axis is None and size % dp == 0 for size, axis in axes)}

@@ -859,3 +859,72 @@ def test_moe_sparse_equals_dense_on_the_card(dev):
         moe.dispatch = "dense"
         dense = moe(x)
     torch.testing.assert_close(sparse, dense, rtol=1e-4, atol=1e-4)
+
+
+# The train step on a mesh of two gloo ranks sharing the card (dp 2 with
+# ZeRO-1, then tp 2) against the one-device step on the CPU: bf16 weights
+# and activations on both sides, so each loss within 2^-7 relative (bf16
+# products summed in another order, on another device).
+_MESH_TRAIN_CHILD = r"""
+import json, sys
+import numpy as np, torch
+rank, n, port, work = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4]
+from music_analyst_tpu_torch.engines import train as T
+from music_analyst_tpu_torch.models.llama import LlamaConfig, LlamaModel
+from music_analyst_tpu_torch.parallel import mesh as M, multihost as mh
+mh.initialize(f"localhost:{port}", n, rank, backend="gloo", timeout_s=120)
+data = np.load(f"{work}/batch.npz")
+weights = torch.load(f"{work}/weights.pt")
+cfg = LlamaConfig(**json.loads(open(f"{work}/cfg.json").read()))
+out = {}
+for tag, axes, zero1 in (("dp2_zero1", (("dp", 2),), True),
+                         ("tp2", (("tp", 2),), False)):
+    mesh = M.build_mesh(M.MeshSpec(axes))
+    torch.cuda.set_device(mesh.device)
+    model = LlamaModel(cfg)
+    model.load_state_dict(weights)
+    model = model.to(mesh.device)
+    opt = T.make_optimizer(1e-3)
+    state = T.init_train_state(model, opt, seed=None, mesh=mesh, zero1=zero1)
+    step = T.make_train_step(model, opt, mesh=mesh)
+    losses = []
+    for batch in T.prefetch_batches([(data["ids"], data["lengths"])] * 2,
+                                    mesh=mesh):
+        state, loss = step(state, *batch)
+        losses.append(float(loss))
+    out[tag] = losses
+print(json.dumps(out))
+mh.shutdown()
+"""
+
+
+def test_mesh_train_steps_on_the_card_match_the_cpu(dev, tmp_path):
+    import json
+
+    from music_analyst_tpu_torch.engines import train
+    from music_analyst_tpu_torch.models.llama import LlamaConfig, LlamaModel
+    # By its own name: pytest puts tests/ on the path, and a machine may
+    # have another top-level package called "tests".
+    from torch_ranks import launch_ranks
+
+    cfg = dict(vocab_size=512, dim=256, n_layers=2, n_heads=4, n_kv_heads=2,
+               hidden_dim=384, rope_theta=1e4, max_seq_len=128)
+    rng = np.random.default_rng(2)
+    ids = rng.integers(1, 512, (4, 65)).astype(np.int32)
+    lengths = np.array([65, 64, 20, 9], np.int32)   # dp halves: 127 vs 27
+    model = LlamaModel(LlamaConfig(**cfg))
+    opt = train.make_optimizer(1e-3)
+    state = train.init_train_state(model, opt, seed=3)
+    np.savez(tmp_path / "batch.npz", ids=ids, lengths=lengths)
+    torch.save(model.state_dict(), tmp_path / "weights.pt")
+    (tmp_path / "cfg.json").write_text(json.dumps(cfg))
+    step = train.make_train_step(model, opt)
+    want = []
+    for _ in range(2):
+        state, loss = step(state, torch.tensor(ids), torch.tensor(lengths))
+        want.append(float(loss))
+    outs = launch_ranks(_MESH_TRAIN_CHILD, 2, [tmp_path], tmp_path / "ranks")
+    got = [json.loads(o.strip().splitlines()[-1]) for o in outs]
+    assert got[0] == got[1]
+    for tag in ("dp2_zero1", "tp2"):
+        np.testing.assert_allclose(got[0][tag], want, rtol=2.0 ** -7)

@@ -204,8 +204,9 @@ def test_rules_name_the_same_mesh_axes_as_jax(port_name, jax_path):
 ])
 def test_what_stays_unported_under_a_mesh_is_refused(case):
     """MoE under a mesh (with dynamic int8 experts too: weight_quant
-    does not cover the expert stacks on any mesh) and training on a mesh
-    (mesh=, zero1=) raise "not yet ported"."""
+    does not cover the expert stacks on any mesh), training on a mesh
+    with an ``sp`` or ``ep`` axis, and a MoE model trained on a mesh
+    (ZeRO-1 too) raise "not yet ported"."""
     from music_analyst_tpu_torch.engines import train as ttrain
 
     mesh = _port_mesh(MESHES["tp2"], 0)
@@ -218,11 +219,15 @@ def test_what_stays_unported_under_a_mesh_is_refused(case):
                 n_experts=4, quant="int8")), mesh)
         elif case == "train_step_mesh":
             ttrain.make_train_step(tl.LlamaModel(tl.LlamaConfig.tiny()),
-                                   ttrain.make_optimizer(), mesh=mesh)
+                                   ttrain.make_optimizer(),
+                                   mesh=_port_mesh((("dp", 2), ("sp", 2)), 0))
         elif case == "train_state_mesh":
             ttrain.init_train_state(tl.LlamaModel(tl.LlamaConfig.tiny()),
-                                    ttrain.make_optimizer(), mesh=mesh)
+                                    ttrain.make_optimizer(),
+                                    mesh=_port_mesh((("ep", 2), ("tp", 2)), 0))
         else:
-            ttrain.init_train_state(tl.LlamaModel(tl.LlamaConfig.tiny()),
-                                    ttrain.make_optimizer(), zero1=True)
+            ttrain.init_train_state(
+                tl.LlamaModel(tl.LlamaConfig.tiny(n_experts=4)),
+                ttrain.make_optimizer(), mesh=_port_mesh((("dp", 2),), 0),
+                zero1=True)
     assert "not yet ported" in str(exc.value)

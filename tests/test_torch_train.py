@@ -307,17 +307,27 @@ def test_prefetch_batches_narrow_and_count_bytes():
 
 
 def test_refusals():
+    """What stays refused: a differentiated flash kernel, a mesh with an
+    ``sp`` or ``ep`` axis (step, state, batches) and a MoE model on a
+    mesh (ZeRO-1 too)."""
+    from music_analyst_tpu_torch.parallel.mesh import DeviceMesh
+
+    def mesh(*axes):
+        return DeviceMesh((torch.device("cpu"),) * 4, axes, 0)
+
     model = tl.LlamaModel(tl.LlamaConfig(**dict(CFG, attn_impl="flash")))
     opt = ttrain.make_optimizer()
     with pytest.raises(NotImplementedError, match="JAX cannot differentiate"):
         ttrain.make_train_step(model, opt)
     dense = tl.LlamaModel(tl.LlamaConfig(**CFG))
+    with pytest.raises(NotImplementedError, match="'sp' axis is not yet ported"):
+        ttrain.make_train_step(dense, opt, mesh=mesh(("dp", 2), ("sp", 2)))
+    with pytest.raises(NotImplementedError, match="'ep' axis is not yet ported"):
+        ttrain.init_train_state(dense, opt, mesh=mesh(("dp", 2), ("ep", 2)))
+    moe = tl.LlamaModel(tl.LlamaConfig(**dict(CFG, n_experts=4)))
+    with pytest.raises(NotImplementedError, match="MoE .* not yet ported"):
+        ttrain.init_train_state(moe, opt, mesh=mesh(("dp", 4),), zero1=True)
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        ttrain.make_train_step(dense, opt, mesh=object())
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        ttrain.init_train_state(dense, opt, mesh=object())
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        ttrain.init_train_state(dense, opt, zero1=True)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        next(iter(ttrain.prefetch_batches([], mesh=object(), device="cpu")))
+        next(iter(ttrain.prefetch_batches(
+            [], mesh=mesh(("sp", 2), ("tp", 2)), device="cpu")))
     assert dataclasses.is_dataclass(ttrain.TrainState)

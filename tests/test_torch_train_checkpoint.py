@@ -4,7 +4,9 @@ A tiny bf16 Llama trained two steps: the f32 masters, both AdamW moments,
 the optimizer's settings and the step must come back exactly (bit for
 bit), with and without ``like=``, and training resumed from the restored
 state must take the same next step as the state that was saved (losses
-equal exactly: the same arithmetic on the same values).
+equal exactly: the same arithmetic on the same values).  A file of the
+layout written before format 2 (the masters, the optimizer's
+``state_dict``, the step) restores the same way.
 """
 
 import os
@@ -104,3 +106,22 @@ def test_save_overwrites_atomically(tmp_path):
     save_train_state(later, str(tmp_path))
     assert int(restore_train_state(str(tmp_path), device="cpu").step) == 2
     assert os.listdir(tmp_path) == [TRAIN_STATE_FILE]
+
+
+@pytest.mark.parametrize("into", ["device", "like"])
+def test_the_layout_before_format_2_restores(tmp_path, into):
+    _, _, state, step = _trained()
+    os.makedirs(tmp_path / "ckpt")
+    torch.save({"params": state.params,
+                "opt_state": state.opt_state.state_dict(),
+                "step": int(state.step)}, tmp_path / "ckpt" / TRAIN_STATE_FILE)
+    if into == "device":
+        restored = restore_train_state(str(tmp_path / "ckpt"), device="cpu")
+    else:
+        restored = restore_train_state(str(tmp_path / "ckpt"),
+                                       like=_trained(steps=1)[2])
+    _assert_same(state, restored)
+    state, want = step(state, *_batch())
+    restored, got = step(restored, *_batch())
+    assert float(got) == float(want)
+    _assert_same(state, restored)
