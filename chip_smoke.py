@@ -40,7 +40,7 @@
    per row must break the limits.
 4. Drives the main path: ``run_sentiment`` with full-size DistilBERT
    (``DistilBertConfig()``, flash attention, seeded random weights) over a
-   generated 16,384-song CSV at batch 8192, flat and packed (three runs
+   generated 16,384-song CSV at batch 8192, flat and packed (two runs
    each, median reported), then the
    ``sentiment --mock`` CLI.  Launch counts are zeroed just before each run
    and read just after; every kernel of the path must have launched (the
@@ -65,9 +65,9 @@
    decode dispatch.
 6. Drives the word-count slice (run between steps 4 and 5):
    ``python -m music_analyst_tpu_torch analyze --ingest native`` as a
-   process on a generated 57,650-song CSV (the real dataset's row count,
-   ~10 M tokens) in three layouts — auto (the word histogram streamed in
-   chunks), ``--chunk-songs 0`` (host-shard) and ``--chunk-songs 0
+   process on a generated 28,825-song CSV (half the real dataset's row
+   count, ~5 M tokens) in three layouts — auto (the word histogram
+   streamed in chunks), ``--chunk-songs 0`` (host-shard) and ``--chunk-songs 0
    --count-mode device-ids`` — one process each (``ANALYZE_REPEATS``),
    songs/s, tokens/s and stage seconds reported.  Every run's ``word_counts.csv`` and
    ``top_artists.csv`` must equal a host ``np.bincount`` oracle over the
@@ -93,11 +93,9 @@
    weight with its nibbles swapped, or one group's scale dropped, must
    break the limit).  After step 4, full DistilBERT ``-int8`` and
    ``weight_quant`` int8 / int4 through ``run_sentiment`` once each on
-   4,096 songs (8,192 before step 10's sweep over ranks, 16,384 before
-   step 13; flash must launch), logits on the first 8,192 against the
+   2,048 songs (flash must launch), logits on the same 2,048 against the
    bf16 model on the same weights, stored bytes and peak memory.  After step 6,
-   ``wordcount-per-song`` as one process on a 4,096-song CSV (16,384
-   songs until step 10's sweep over ranks, 57,650 until step 13) (global
+   ``wordcount-per-song`` as one process on a 2,048-song CSV (global
    counts sum to the per-song counts, ranked by count, one row group per
    song with tokens).  After step 5 (whose bf16 generate phase runs once
    now), Llama-3-8B with weights drawn on the card and quantized kernel by
@@ -118,7 +116,7 @@
    ``shutdown``; labels equal the reference heuristic, word counts the
    tokenizer contract, the process exits 0 after its drain, and the
    scan's launches are the ones the process counted in that session.
-   Inside step 4, the flat DistilBERT model serves 4,096 classify
+   Inside step 4, the flat DistilBERT model serves 2,048 classify
    requests at max_batch 256 through ``SentimentServer.handle_stream``
    under ``torch.profiler`` (``flash_wgmma_kernel`` must launch), with the
    neutral threshold at the median confidence so the labels split: the
@@ -147,7 +145,7 @@
    run manifest).  (b) ``serve --replicas 2 --socket --model distilbert``
    as a process (full width; each worker loads, through
    ``$MUSICAAL_DISTILBERT_CKPT``, a seeded checkpoint written here whose
-   head splits the labels about 25/50/25) over 4,096 requests at
+   head splits the labels about 25/50/25) over 2,048 requests at
    max_batch 256: labels held against the same checkpoint loaded here
    (replies rotated by one request must fail that check), the workers'
    flash launches summed, ``monitor --once``
@@ -155,7 +153,7 @@
    halfway (every request answered; the manifest's ``serving.router``
    records the transition; the supervised respawn comes back before the
    drain).  (c) ``sentiment --model distilbert --profile-dir D
-   --telemetry-dir T`` on one 8,192-song batch as a process: D's
+   --telemetry-dir T`` on one 4,096-song batch as a process: D's
    ``torch_trace.json`` names ``flash_wgmma_kernel`` and D holds
    ``trace_spans.json``; T's manifest names the card; then
    ``telemetry-report`` over the run dirs of an ``analyze`` run, (a), (b)
@@ -173,8 +171,7 @@
    32-layer ``llama3_8b`` (random bf16 weights) through flash against
    dense on the same weights, B = 8, S = 513, unpacked and packed; flash
    launches once per layer per forward.  The trainer at ``llama3_8b``'s
-   full width with 2 layers (4 before step 10's sweep over ranks; f32
-   masters and AdamW moments): 5 steps (lr
+   full width with 1 layer (f32 masters and AdamW moments): 5 steps (lr
    1e-4) on one seeded batch and 3 packed batches, each through
    ``prefetch_batches``; every loss finite, the fifth below the first,
    ``train_steps`` counting 8 (the fixed batch's second half an eighth to a
@@ -215,12 +212,11 @@
    ``checkpoint.load:error@2;h2d.transfer:error@3`` (every code and scale
    equal bit for bit).  (b) A WordPiece vocabulary (at most 30,522
    entries) built from the corpus, then full-width DistilBERT
-   ``run_sentiment`` under ``$MUSICAAL_BERT_VOCAB`` over 4,096 of the songs
-   (8,192 before step 10's sweep over ranks, 16,384 before step 13) with
-   the native tokenizer and with the Python one: the ids of every batch
-   equal (and of the edge rows, encoded apart), the native run's
+   ``run_sentiment`` under ``$MUSICAAL_BERT_VOCAB`` over 2,048 of the
+   songs with the native tokenizer and with the Python one: the ids of
+   every batch equal (and of the edge rows, encoded apart), the native run's
    manifest counting every song on the native path, labels identical;
-   each run's first 4,096-song batch times its tokenizer, and each run's
+   each run's first 2,048-song batch times its tokenizer, and each run's
    songs/s is reported.
 
 12. Drives the multi-process paths, after step 11, with every rank a
@@ -228,8 +224,7 @@
    device), the kernels built before the first rank starts; a rank that
    fails or overstays kills its peers and fails the run.  (a)
    ``distributed_wordcount`` (``parallel/distributed.py``) on step 6's
-   57,650-song CSV at np 2 and 4 (1 too before step 10's sweep over
-   ranks): the coordinator's CSVs byte-identical
+   corpus at np 2 and 4: the coordinator's CSVs byte-identical
    to the single-process ``analyze`` output and the ``np.bincount``
    oracle, every rank's totals equal, one ``per_chip`` row per process;
    at np 2 a variant whose last rank starts one record late must break
@@ -265,8 +260,7 @@
    --with-sentiment --devices 2`` on the same checkpoint (CSVs equal the
    oracle, labels equal (b)'s).  (c) Full-width DistilBERT through the
    API on four ranks, as dp 2 x tp 2 and then as a dp 1 x tp 2 mesh per
-   tp line, on 1,024 songs (2,048 before step 13's mesh trainer; the
-   checkpoint with N(0, 1) biases): logits
+   tp line, on 512 songs (the checkpoint with N(0, 1) biases): logits
    within 5e-2 of the scale of the one-rank logits; the row-parallel bias
    added before the reduce, and two ranks' head shards swapped, must
    each fail.  (d) Llama-3-8B at tp 2 as two ranks, full
@@ -293,8 +287,7 @@
    the tokens of a prompt that shares 40 tokens with an earlier one (8
    rows of its boundary page come from the page copy alone, prefill
    chunks of 8).  (e) ``serve --stdio --tp 2 --model distilbert`` as a
-   process beside ``--tp 1``, full width, step 9's split checkpoint: 2,048
-   (4,096 before step 13's mesh trainer)
+   process beside ``--tp 1``, full width, step 9's split checkpoint: 1,024
    ``sentiment`` requests in one burst at max_batch 256, then EOF; exit 0,
    labels equal the checkpoint's one-device labels away from a boundary
    (a label that moves at tp 2 is held to the checkpoint's logits at tp
@@ -305,7 +298,7 @@
    reply arrival beside tp 1's; how many labels the same checkpoint moves
    on one device with dense attention in bf16 and in f32.  (f) Training on
    a mesh (``mesh_train``, after (d)): two ranks at step 10's width and
-   depth, seed 0, lr 1e-4.  dp 2 with ZeRO-1 takes three steps on step
+   depth, seed 0, lr 1e-4.  dp 2 with ZeRO-1 takes two steps on step
    10's fixed batch (its halves hold 2,048 and ~400 valid tokens), each
    loss against step 10's one-device loss; the moments a rank half of one
    device's; ms a step and the share in the gradient reduce-scatter and
@@ -319,7 +312,28 @@
    which a restore with the moments zeroed must break).  One tp-2 step from seed 0 against one device's first loss and
    the dp-2 masters after their first step; without the f operator the
    masters must leave them.  The tp-2 state's loss through kernel 2
-   against dense, ``TRAIN_LAYERS`` launches a rank.
+   against dense, ``TRAIN_LAYERS`` launches a rank.  (g) MoE on a mesh
+   (``mesh_moe``, after (f)): step 10's one-device MoE trainer (1 layer x
+   4 experts, top-2, capacity 1.25, three steps) runs in this process and
+   is freed; then two ranks: step 10's MoE (2 layers x 8 experts) at ep 2
+   against step 10's saved one-device runs (last-prompt logits at
+   lossless capacity and at 1.25, the first layer's drops exactly, int8
+   experts, greedy tokens of 12 prompts through the paged kernel with
+   equal launches on both ranks, the prompt forward through the flash
+   kernel with equal launches on both ranks; a rank that skips the ep
+   sum, experts on the wrong rank and int8 experts with their
+   neighbour's weights must fail), one 8B-width MoE layer of 4 experts at dp 2 against the
+   same layer on every row (output and drops; local capacity and slots
+   must change a rank's drops), and the trainer at ep 2 against one
+   device's (losses, the router's masters after step 1; a router
+   gradient not summed over ep must fail); peak memory, ms a step and
+   the ep collectives' share.
+
+Each phase logs its wall and the running total as it ends.  Six rank
+groups of steps 12 and 13 (the np-4 word count, the ring, the DistilBERT
+API check, the tp-2 Llama, ``mesh_train`` and ``mesh_moe``) are spawned
+a phase ahead (``spawn_ranks``): they import while the phase before them
+runs and start when ``run_ranks`` hands them their arguments.
 
 Prints the card's name and power limit, a ``{"quant_gemm": [...]}`` line,
 a ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
@@ -330,6 +344,7 @@ report goes to ``chiprun_out/chip_smoke.json``.
 
 from __future__ import annotations
 
+import atexit
 import contextlib
 import csv
 import gc
@@ -376,7 +391,7 @@ LOGIT_REL_TOL = 5e-2
 
 N_SONGS = 16_384
 BATCH = 8192
-REPEATS = 3      # main-path runs per mode; the median is reported
+REPEATS = 2      # main-path runs per mode; the median is reported
 MOCK_BATCH = 4096  # the --mock CLI's batch (run_sentiment's default)
 
 
@@ -1026,9 +1041,10 @@ def main_path(torch, dev, dataset, card) -> dict:
 
 # ------------------------------------------- word count and joint (slice 6)
 
-# The real dataset's row count (spotify_millsongdata.csv): ~10 M tokens of
-# the synthetic corpus, which `--chunk-songs auto` streams in ~5 chunks.
-ANALYZE_SONGS = 57_650
+# Half the real dataset's row count (spotify_millsongdata.csv, 57,650),
+# for the chip budget: ~5 M tokens of the synthetic corpus, which
+# `--chunk-songs auto` streams in 3 chunks.
+ANALYZE_SONGS = 28_825
 ANALYZE_REPEATS = 1   # analyze processes per layout
 ANALYZE_LAYOUTS = {
     "auto_streaming": [],
@@ -2029,9 +2045,8 @@ QUANT_REL_TOL = 1e-6
 #    (tests/test_quant.py:54-77, a dynamic int8 bound).  The JAX package
 #    holds int4 to no such bound: its step (max|w| / 7 per group of 128)
 #    is ~18x int8's, and its max |diff| is reported.
-DQ_SONGS = 4096              # songs of each quantized DistilBERT run (8,192
-                             # before step 10's sweep over ranks, 16,384
-                             # before step 13)
+DQ_SONGS = 2048              # songs of each quantized DistilBERT run and of
+                             # its logit check
 QUANT_LOGIT_CORR = 0.99
 QUANT_LOGIT_SPREAD = 0.1
 #  - one quantized layer (DistilBERT encoder layer 0 on 8 x 128 tokens;
@@ -2301,7 +2316,7 @@ def distilbert_quant_path(torch, dev, dataset, card) -> dict:
     from music_analyst_tpu_torch.ops import quant
     from music_analyst_tpu_torch.runtime.wire import to_device
 
-    texts = [t for _, _, t in iter_songs(dataset, limit=BATCH)]
+    texts = [t for _, _, t in iter_songs(dataset, limit=DQ_SONGS)]
     cfg = DistilBertConfig(attn_impl="flash")
     ref = DistilBertClassifier(config=cfg, seed=0, device=dev)
     ids, lens = ref.tokenizer.encode_batch(texts, ref.max_len)
@@ -2556,7 +2571,7 @@ def llama_quant_path(torch, dev, card) -> dict:
     return report
 
 
-PERSONG_SONGS = 4096   # 16,384 until step 10's sweep over ranks
+PERSONG_SONGS = 2048   # songs of the wordcount-per-song CSV
 
 
 def persong_path(card) -> dict:
@@ -2611,7 +2626,7 @@ def persong_path(card) -> dict:
 # ----------------------------------------------------- serve (slice 8)
 
 SERVE_MOCK_REQUESTS = 2048
-SERVE_DISTILBERT_REQUESTS = 4096
+SERVE_DISTILBERT_REQUESTS = 2048
 SERVE_MAX_BATCH = 256
 SERVE_PROMPTS = 12        # generate requests per Llama serve variant (16
                           # before step 10's sweep over ranks): 8 fill the
@@ -3223,7 +3238,7 @@ def serve_llama_path(torch, dev, clf, prompts, card) -> dict:
 # Slice 9: the replica router and the run-manifest tools on the card.
 ROUTER_REPLICAS = 2
 ROUTER_TRACE_SAMPLE = 0.05   # head-sampled request traces in (b)
-PROFILED_SONGS = 8192        # (c): one flat batch under --profile-dir
+PROFILED_SONGS = 4096        # (c): one flat batch under --profile-dir
 
 
 def _fleet_env(tmp: str, **extra) -> dict:
@@ -3733,8 +3748,8 @@ def manifest_tools_path(torch, card, dataset, run_dirs, trace_dir) -> dict:
 # ---------------------------------------------------------------------------
 
 TRAIN_B, TRAIN_S = 8, 513        # token rows: 512 inputs and 512 targets
-TRAIN_LAYERS = 2                 # llama3_8b width, depth cut to fit 80 GB
-                                 # (4 before step 10's sweep over ranks)
+TRAIN_LAYERS = 1                 # llama3_8b width, depth cut to fit 80 GB
+                                 # and the chip budget
 TRAIN_LR = 1e-4
 TRAIN_FIXED_STEPS, TRAIN_PACKED_STEPS = 5, 3
 TRAIN_FIXED_SEED = 41            # the fixed batch (short_half since step 13's
@@ -3765,6 +3780,7 @@ FLASH_LOSS_REL_TOL = 2e-4
 #    (check_expert_product) holds those.
 MOE_INT8_REL_TOL = 5e-2
 MOE_PROMPTS = 8
+MOE_GEN_PROMPTS = 12     # greedy generate: 8 fill the slots, then 4
 
 
 def llama_token_batch(np, seed, packed=False, short_half=False):
@@ -4191,7 +4207,8 @@ def _int8_experts_rolled():
     from music_analyst_tpu_torch.models import moe
 
     real = moe.quant_batched_matmul
-    moe.quant_batched_matmul = lambda x, w: real(x, w.roll(1, dims=0))
+    moe.quant_batched_matmul = lambda x, w, **kw: real(x, w.roll(1, dims=0),
+                                                       **kw)
     try:
         yield
     finally:
@@ -4233,6 +4250,46 @@ def check_expert_product(torch, dev) -> dict:
     return out
 
 
+def moe_prompts(n: int) -> list:
+    """The first ``n`` songs of the main dataset as zero-shot prompts."""
+    from music_analyst_tpu_torch.data.csv_io import iter_songs
+    from music_analyst_tpu_torch.models.llama import (
+        LYRICS_TRUNCATION,
+        PROMPT_TEMPLATE,
+    )
+
+    return [PROMPT_TEMPLATE.format(lyrics=t.strip()[:LYRICS_TRUNCATION])
+            for _, _, t in iter_songs(os.path.join(WORK, "songs_16384.csv"),
+                                      limit=n)]
+
+
+def moe_generate(torch, clf) -> dict:
+    """Greedy generate of MOE_GEN_PROMPTS prompts through the continuous
+    paged scheduler on ``clf`` (8 slots: two waves, chunk 64, PAGED_NEW
+    new tokens): each prompt's token ids and the paged launches."""
+    from music_analyst_tpu_torch import kernels
+    from music_analyst_tpu_torch.serving.decode_loop import (
+        ContinuousScheduler,
+    )
+
+    sched = ContinuousScheduler(clf, n_slots=PAGED_SLOTS, prefill_chunk=64,
+                                max_new_tokens=PAGED_NEW, max_queue=64)
+    ids = _record_tokens(sched)
+    prompts = moe_prompts(MOE_GEN_PROMPTS)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    reqs = [sched.submit(f"m{i}", p, max_new_tokens=PAGED_NEW)
+            for i, p in enumerate(prompts)]
+    sched.run_until_idle()
+    torch.cuda.synchronize()
+    launches = kernels.launches()["paged_attention"]
+    if not all((r.response or {}).get("ok") for r in reqs) or not launches:
+        fail(f"moe generate: {[r.response for r in reqs]}, {launches} paged "
+             f"launches")
+    return dict(tokens=[ids[f"m{i}"] for i in range(len(prompts))],
+                launches=launches)
+
+
 def moe_path(torch, dev, card) -> dict:
     """MoE at llama3_8b width (2 layers, 8 experts, top-2, bf16): last
     prompt logits and label scores over MOE_PROMPTS prompts with sparse
@@ -4266,8 +4323,8 @@ def moe_path(torch, dev, card) -> dict:
         with torch.no_grad():
             logits, _ = clf.model(ids, pos, mask, last_position=lens - 1)
             # Assignments the prompt forward dropped past capacity.
-            drops = sum(int(layer.feed_forward_moe.last_dropped)
-                        for layer in clf.model.layers)
+            drops = [int(layer.feed_forward_moe.last_dropped)
+                     for layer in clf.model.layers]
             scores = clf.score_labels(ids, lens)
         torch.cuda.synchronize()
         return logits[:, 0].float(), scores.float(), S, drops
@@ -4278,9 +4335,16 @@ def moe_path(torch, dev, card) -> dict:
     torch.cuda.synchronize()
     out["init_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    sparse, sparse_scores, S, out["sparse_lossless_drops"] = run(clf)
+    sparse, sparse_scores, S, drops = run(clf)
+    out["sparse_lossless_drops"] = sum(drops)
     out["sparse_s"] = time.perf_counter() - t0
     out["prompt_len"] = S
+    # Greedy generate through the paged kernel (two waves on 8 slots),
+    # which step 13's ep-2 ranks repeat.
+    t0 = time.perf_counter()
+    gen = moe_generate(torch, clf)
+    out["generate"] = dict(wall_s=time.perf_counter() - t0,
+                           paged_launches=gen["launches"])
     for layer in clf.model.layers:
         layer.feed_forward_moe.dispatch = "dense"
     t0 = time.perf_counter()
@@ -4298,7 +4362,9 @@ def moe_path(torch, dev, card) -> dict:
     for layer in clf.model.layers:
         layer.feed_forward_moe.dispatch = "sparse"
         layer.feed_forward_moe.capacity_factor = 1.25
-    capped, _, _, out["capacity_1_25_drops"] = run(clf)
+    capped, _, _, capped_drops = run(clf)
+    out["capacity_1_25_drops"] = sum(capped_drops)
+    out["capacity_1_25_drops_per_layer"] = capped_drops
     out["capacity_1_25_max_abs"] = float((capped - dense).abs().max())
     out["assignments"] = 2 * MOE_PROMPTS * S * cfg.n_layers
     del clf
@@ -4321,6 +4387,12 @@ def moe_path(torch, dev, card) -> dict:
     if out["int8_experts_rolled_max_abs"] <= MOE_INT8_REL_TOL * scale:
         fail(f"moe int8: the limit passes each expert's product taken with "
              f"its neighbour's weights: {out}")
+    # Step 13's ep-2 ranks hold their own against these.
+    torch.save(dict(lossless=sparse.cpu(), capped=capped.cpu(),
+                    capped_drops=capped_drops, int8=quant.cpu(),
+                    tokens=gen["tokens"], scale=scale,
+                    assignments_per_layer=2 * MOE_PROMPTS * S),
+               os.path.join(WORK, "moe_tp1.pt"))
     del clf
     gc.collect()
     torch.cuda.empty_cache()
@@ -4443,7 +4515,8 @@ _HF_NAMES = (
 DRILL_DELAY_S = 3.0          # the injected prefetch-stage stall ...
 DRILL_WATCHDOG_S = 1.0       # ... against this watchdog timeout
 WP_VOCAB_MAX = 30_522        # bert-base-uncased's vocabulary size
-WP_BATCH = 4096              # the timed tokenization batch (8,192 before
+WP_BATCH = 2048              # the timed tokenization batch (4,096 until
+                             # step 13's MoE under a mesh, 8,192 before
                              # step 10's sweep over ranks)
 WP_SONGS = WP_BATCH          # songs of each WordPiece run (one batch)
 WP_EDGE_ROWS = [
@@ -4917,7 +4990,7 @@ RING_HEADS, RING_KV_HEADS, RING_HEAD_DIM = 32, 8, 128   # Llama-3-8B attention
 # Five packed documents of uneven length; the second and the fourth cross
 # a rank boundary (8,192 and 24,576), the third ends on one.
 RING_DOC_BOUNDS = (0, 6_000, 13_000, 16_384, 29_000, RING_SEQ)
-RING_REPEATS = 2               # timed ring calls per case (3 until step 13)
+RING_REPEATS = 1               # timed ring calls per case
 RING_WINDOW = 64               # rows per window held against the f32 plain version
 RING_WINDOWS = 4               # windows per rank: 256 sampled query rows
 RANKS_TIMEOUT_S = 300
@@ -4932,11 +5005,13 @@ RING_VS_FLASH_REL = 2 * FLASH_BF16_REL
 _WORDCOUNT_CHILD = r'''
 import json, os, sys, time
 sys.path.insert(0, os.getcwd())
-rank, n, port = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
-dataset, out, broken_out = sys.argv[4], sys.argv[5], sys.argv[6]
 import torch
+import chip_smoke as cs
 from music_analyst_tpu_torch.parallel import distributed, multihost
 from music_analyst_tpu_torch.telemetry import get_telemetry
+sys.argv = cs.rank_argv(sys.argv)
+rank, n, port = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
+dataset, out, broken_out = sys.argv[4], sys.argv[5], sys.argv[6]
 multihost.initialize(f"localhost:{port}", n, rank, backend="gloo", timeout_s=300)
 torch.zeros(1, device=f"cuda:{rank % torch.cuda.device_count()}")  # context first
 multihost.barrier("start")
@@ -4968,12 +5043,13 @@ multihost.shutdown()
 _RING_CHILD = r'''
 import hashlib, json, os, statistics, sys, time
 sys.path.insert(0, os.getcwd())
-rank, n, port, work = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4]
 import torch
 import chip_smoke as cs
 from music_analyst_tpu_torch import kernels
 from music_analyst_tpu_torch.ops import ring_attention as ra
 from music_analyst_tpu_torch.parallel import multihost
+sys.argv = cs.rank_argv(sys.argv)
+rank, n, port, work = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4]
 multihost.initialize(f"localhost:{port}", n, rank, backend="gloo", timeout_s=300)
 dev = torch.device("cuda", rank % torch.cuda.device_count())
 torch.cuda.set_device(dev)
@@ -5071,23 +5147,74 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def run_ranks(script: str, n: int, args, tag: str,
-              timeout: float = RANKS_TIMEOUT_S) -> list:
-    """``n`` processes of ``script`` (written to ``WORK/<tag>.py``) as ranks
-    of one gloo group on a free port; returns each rank's ``RESULT`` JSON.
-    The moment one rank fails, or the deadline passes, every rank still
-    running is killed and the run fails."""
+GO_ENV = "CHIP_SMOKE_GO"
+_SPAWNED = []     # rank groups started and not yet run: killed at exit
+
+
+def rank_argv(argv: list) -> list:
+    """In a rank child of :func:`run_ranks`, once its modules are
+    imported: wait until the group may start, then return its argv: the
+    rank and world size it was started with, then the port and the
+    script's arguments, which ``run_ranks`` writes into the group's go
+    file when it runs the group.  A group spawned ahead of its phase
+    (:func:`spawn_ranks`) so imports while the phase before it runs; it
+    exits if its parent died."""
+    go, parent = os.environ[GO_ENV], os.environ[GO_ENV + "_PARENT"]
+    while not os.path.exists(go):
+        if os.getppid() != int(parent):
+            sys.exit(3)
+        time.sleep(0.02)
+    with open(go) as fh:
+        return argv[:3] + json.load(fh)
+
+
+def _kill_spawned() -> None:
+    for group in _SPAWNED:
+        for p in group["procs"]:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+
+
+def spawn_ranks(script: str, n: int, tag: str) -> dict:
+    """Start ``n`` processes of ``script`` (written to ``WORK/<tag>.py``)
+    as the ranks of one gloo group, which import their modules and then
+    wait in :func:`rank_argv` for :func:`run_ranks`."""
     path = os.path.join(WORK, f"{tag}.py")
     with open(path, "w") as fh:
         fh.write(script)
-    port = str(_free_port())
-    logs, procs = [], []
+    go = os.path.join(WORK, f"{tag}.go")
+    if os.path.exists(go):
+        os.remove(go)
+    env = dict(os.environ, **{GO_ENV: go,
+                              GO_ENV + "_PARENT": str(os.getpid())})
+    if not _SPAWNED:
+        atexit.register(_kill_spawned)
+    group = dict(tag=tag, n=n, go=go, procs=[], logs=[])
+    _SPAWNED.append(group)
+    for rank in range(n):
+        group["logs"].append(open(os.path.join(WORK, f"{tag}_rank{rank}.log"),
+                                  "w+"))
+        group["procs"].append(subprocess.Popen(
+            [sys.executable, path, str(rank), str(n)], cwd=ROOT,
+            env=env, stdout=group["logs"][-1], stderr=subprocess.STDOUT,
+            text=True))
+    return group
+
+
+def run_ranks(script: str, n: int, args, tag: str,
+              timeout: float = RANKS_TIMEOUT_S, spawned=None) -> list:
+    """Run ``n`` ranks of ``script`` with ``args`` (the group
+    :func:`spawn_ranks` started ahead, or a new one) on a port free now;
+    returns each rank's ``RESULT`` JSON.  The moment one rank fails, or
+    the deadline passes, every rank still running is killed and the run
+    fails."""
+    group = spawned or spawn_ranks(script, n, tag)
+    procs, logs = group["procs"], group["logs"]
     try:
-        for rank in range(n):
-            logs.append(open(os.path.join(WORK, f"{tag}_rank{rank}.log"), "w+"))
-            procs.append(subprocess.Popen(
-                [sys.executable, path, str(rank), str(n), port, *args],
-                cwd=ROOT, stdout=logs[-1], stderr=subprocess.STDOUT, text=True))
+        with open(group["go"] + ".tmp", "w") as fh:
+            json.dump([str(_free_port())] + [str(a) for a in args], fh)
+        os.replace(group["go"] + ".tmp", group["go"])
         deadline = time.perf_counter() + timeout
         while any(p.poll() is None for p in procs):
             if (any(p.poll() not in (None, 0) for p in procs)
@@ -5116,11 +5243,12 @@ def run_ranks(script: str, n: int, args, tag: str,
             p.wait()
         for log_fh in logs:
             log_fh.close()
+        _SPAWNED.remove(group)
 
 
 def distributed_wordcount_path(card, analyze, oracle) -> dict:
     """The distributed word count at np 2 and 4 on the one card over
-    gloo, on step 6's 57,650-song CSV: CSVs byte-identical to the
+    gloo, on step 6's CSV: CSVs byte-identical to the
     single-process ``analyze`` output and the ``np.bincount`` oracle,
     every rank's totals equal, one ``per_chip`` row per process; at np 2,
     a variant whose last rank starts one record late must break the
@@ -5131,7 +5259,13 @@ def distributed_wordcount_path(card, analyze, oracle) -> dict:
         fail("distributed: the single-process analyze output differs from "
              "the oracle")
     report = {}
-    for n in DIST_NPS:
+    # Each np's group imports while the one before it runs.
+    groups = {DIST_NPS[0]: spawn_ranks(_WORDCOUNT_CHILD, DIST_NPS[0],
+                                       f"wordcount_np{DIST_NPS[0]}")}
+    for i, n in enumerate(DIST_NPS):
+        if i + 1 < len(DIST_NPS):
+            m = DIST_NPS[i + 1]
+            groups[m] = spawn_ranks(_WORDCOUNT_CHILD, m, f"wordcount_np{m}")
         out = os.path.join(WORK, f"distributed_np{n}")
         broken = os.path.join(WORK, f"distributed_np{n}_broken")
         for d in (out, broken):
@@ -5139,7 +5273,7 @@ def distributed_wordcount_path(card, analyze, oracle) -> dict:
         t0 = time.perf_counter()
         ranks = run_ranks(_WORDCOUNT_CHILD, n,
                           [dataset, out, broken if n == 2 else "-"],
-                          f"wordcount_np{n}")
+                          f"wordcount_np{n}", spawned=groups[n])
         launch_s = time.perf_counter() - t0
         if read_outputs(out) != oracle:
             fail(f"distributed np {n}: CSVs differ from the single-process "
@@ -5229,7 +5363,7 @@ def ring_hop_timing(torch, q, k, v) -> dict:
                 bytes=bytes_moved, flops=flops)
 
 
-def ring_path(torch, dev, card) -> dict:
+def ring_path(torch, dev, card, spawned=None) -> dict:
     """Ring attention over 4 ranks on the one card (gloo, host-staged hops)
     at Llama-3-8B's attention width, S = 32,768, causal and causal +
     packed: each rank's output against the whole-sequence flash kernel
@@ -5251,7 +5385,8 @@ def ring_path(torch, dev, card) -> dict:
         whole_ms = time_ms(torch, lambda: flash_attention(q, k, v, causal=True),
                            5)
     torch.cuda.synchronize()
-    ranks = run_ranks(_RING_CHILD, RING_RANKS, [WORK], "ring")
+    ranks = run_ranks(_RING_CHILD, RING_RANKS, [WORK], "ring",
+                      spawned=spawned)
     kf, vf = k.float(), v.float()
     gen = torch.Generator().manual_seed(31)
     errors = {}
@@ -5342,16 +5477,15 @@ MESH_ANALYZE_RUNS = {            # analyze --devices N on step 6's corpus
     "d4": ["--devices", "4"],
     "d2_chunk_4096": ["--devices", "2", "--chunk-songs", "4096"],
 }
-MESH_API_ROWS = 1024             # DistilBERT API check: songs per forward
-                                 # (2,048 until step 13's mesh trainer)
+MESH_API_ROWS = 512              # DistilBERT API check: songs per forward
 #  - weight_quant int4's lin2 at tp 2 against one rank's: its f32 partial
 #    sums add in another order before the one bf16 rounding of the output.
 MESH_INT4_LAYER_REL = 1e-2
 # Songs of the int4 dp1 x tp2 check (its rank-local variant: half): each
 # row-parallel all-reduce carries f32 partials, 2.5 s of gloo for every
 # 512 songs on the one card.
-MESH_WQ_API_ROWS = 512
-MESH_BROKEN_ROWS = 512           # rows the broken variants run on
+MESH_WQ_API_ROWS = 256
+MESH_BROKEN_ROWS = 256           # rows the broken variants run on
 #  - DistilBERT labels, --devices 2 vs one device: equal except on songs
 #    whose one-device confidence lies within 1e-2 of the neutral
 #    threshold (the only label boundary a song can cross: both classes
@@ -5364,9 +5498,6 @@ MESH_BOUNDARY_TOL = 1e-2
 _MESH_BERT_CHILD = r'''
 import json, os, sys, time
 sys.path.insert(0, os.getcwd())
-rank, n, port, work, ckpt, texts_path = (
-    int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4], sys.argv[5],
-    sys.argv[6])
 import torch
 import torch.nn.functional as F
 import chip_smoke as cs
@@ -5374,6 +5505,10 @@ from music_analyst_tpu_torch import kernels
 from music_analyst_tpu_torch.models import layers
 from music_analyst_tpu_torch.models.distilbert import DistilBertClassifier
 from music_analyst_tpu_torch.parallel import mesh as M, multihost
+sys.argv = cs.rank_argv(sys.argv)
+rank, n, port, work, ckpt, texts_path = (
+    int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4], sys.argv[5],
+    sys.argv[6])
 multihost.initialize(f"localhost:{port}", n, rank, backend="gloo", timeout_s=300)
 grid = M.build_mesh(M.MeshSpec((("dp", 2), ("tp", 2))))
 dev = grid.device
@@ -5484,8 +5619,6 @@ multihost.shutdown()
 _MESH_LLAMA_CHILD = r'''
 import dataclasses, gc, json, os, sys, time
 sys.path.insert(0, os.getcwd())
-rank, n, port, work, songs_csv = (int(sys.argv[1]), int(sys.argv[2]),
-                                  sys.argv[3], sys.argv[4], sys.argv[5])
 import torch
 import chip_smoke as cs
 from music_analyst_tpu_torch import kernels
@@ -5495,6 +5628,9 @@ from music_analyst_tpu_torch.models.llama import (
     LYRICS_TRUNCATION, PROMPT_TEMPLATE, LlamaConfig, LlamaZeroShotClassifier)
 from music_analyst_tpu_torch.parallel import mesh as M, multihost
 from music_analyst_tpu_torch.utils.labels import SUPPORTED_LABELS
+sys.argv = cs.rank_argv(sys.argv)
+rank, n, port, work, songs_csv = (int(sys.argv[1]), int(sys.argv[2]),
+                                  sys.argv[3], sys.argv[4], sys.argv[5])
 multihost.initialize(f"localhost:{port}", n, rank, backend="gloo", timeout_s=300)
 mesh = M.build_mesh(M.MeshSpec((("tp", n),)))
 dev = mesh.device
@@ -6011,7 +6147,7 @@ def mesh_sentiment_path(torch, dev, card, dataset, checkpoint) -> dict:
     return report
 
 
-MESH_WQ_SONGS = 4096   # sentiment --devices 2 --weight-quant int8
+MESH_WQ_SONGS = 2048   # sentiment --devices 2 --weight-quant int8
 
 
 def mesh_quant_sentiment_path(torch, dev, card, dataset, checkpoint) -> dict:
@@ -6071,7 +6207,8 @@ def mesh_quant_sentiment_path(torch, dev, card, dataset, checkpoint) -> dict:
     return report
 
 
-def mesh_distilbert_api_path(torch, dev, card, dataset, checkpoint) -> dict:
+def mesh_distilbert_api_path(torch, dev, card, dataset, checkpoint,
+                             spawned=None) -> dict:
     """Full-width DistilBERT through the API on four ranks of the one
     card, as dp2 x tp2 and then as two dp1 x tp2 meshes (each tp line of
     the grid, computing the same rows): logits of MESH_API_ROWS songs within
@@ -6128,7 +6265,7 @@ def mesh_distilbert_api_path(torch, dev, card, dataset, checkpoint) -> dict:
     out = {}
     t0 = time.perf_counter()
     ranks = run_ranks(_MESH_BERT_CHILD, 4, [WORK, checkpoint, texts],
-                      "mesh_bert")
+                      "mesh_bert", spawned=spawned)
     wall = time.perf_counter() - t0
     for tag, n in (("dp2xtp2", 4), ("dp1xtp2", 2)):
         got = torch.load(os.path.join(WORK, f"mesh_bert_{tag}.pt"))
@@ -6195,7 +6332,7 @@ def mesh_distilbert_api_path(torch, dev, card, dataset, checkpoint) -> dict:
     return out
 
 
-def mesh_llama_path(torch, card, llama, llama_quant) -> dict:
+def mesh_llama_path(torch, card, llama, llama_quant, spawned=None) -> dict:
     """Llama-3-8B at tp 2 (full width, LLAMA_LAYERS layers, random bf16
     weights from
     seed 0 drawn whole on each rank and sliced) as two ranks on the one
@@ -6206,7 +6343,7 @@ def mesh_llama_path(torch, card, llama, llama_quant) -> dict:
     t0 = time.perf_counter()
     ranks = run_ranks(_MESH_LLAMA_CHILD, 2,
                       [WORK, os.path.join(WORK, f"songs_{LLAMA_SONGS}.csv")],
-                      "mesh_llama_tp2")
+                      "mesh_llama_tp2", spawned=spawned)
     wall = time.perf_counter() - t0
     r0 = ranks[0]
     for r in ranks:
@@ -6456,7 +6593,7 @@ def served_tp2_check(ranks) -> dict:
 
 
 SERVE_TP = 2   # serve --tp N of full DistilBERT through the CLI
-SERVE_TP_REQUESTS = 2048   # its requests (4,096 until step 13's mesh trainer)
+SERVE_TP_REQUESTS = 1024   # its requests
 
 # The tp-N logits of the texts whose served label differs from one
 # device's: the same checkpoint on a tp mesh of N ranks, through the API;
@@ -6466,12 +6603,14 @@ SERVE_TP_REQUESTS = 2048   # its requests (4,096 until step 13's mesh trainer)
 _TP_BERT_CHILD = r'''
 import json, os, sys
 sys.path.insert(0, os.getcwd())
-rank, n, port, work, ckpt, texts_path = (
-    int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4], sys.argv[5],
-    sys.argv[6])
 import torch
 from music_analyst_tpu_torch.models.distilbert import DistilBertClassifier
 from music_analyst_tpu_torch.parallel import mesh as M, multihost
+import chip_smoke as cs
+sys.argv = cs.rank_argv(sys.argv)
+rank, n, port, work, ckpt, texts_path = (
+    int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4], sys.argv[5],
+    sys.argv[6])
 multihost.initialize(f"localhost:{port}", n, rank, backend="gloo", timeout_s=300)
 mesh = M.build_mesh(M.MeshSpec((("tp", n),)))
 torch.cuda.set_device(mesh.device)
@@ -6675,7 +6814,7 @@ def serve_tp_distilbert_path(torch, dev, card, dataset, checkpoint) -> dict:
 # Step 13: training on a mesh — dp 2 with ZeRO-1, a checkpoint handed to tp 2
 # ---------------------------------------------------------------------------
 
-MESH_TRAIN_STEPS = 3             # dp-2 ZeRO-1 steps on step 10's fixed batch
+MESH_TRAIN_STEPS = 2             # dp-2 ZeRO-1 steps on step 10's fixed batch
 MESH_TRAIN_BROKEN_STEPS = 2      # the broken dp variant's steps
 MESH_TRAIN_TIMEOUT_S = 600
 #  - dp 2 against step 10's one-device losses, relative: step 1 to
@@ -6705,8 +6844,6 @@ MESH_TRAIN_HANDOVER_MEAN = 1e-2
 _MESH_TRAIN_CHILD = r"""
 import contextlib, dataclasses, gc, json, os, sys, time
 sys.path.insert(0, os.getcwd())
-rank, n, port, work, ckpt = (int(sys.argv[1]), int(sys.argv[2]),
-                             sys.argv[3], sys.argv[4], sys.argv[5])
 import numpy as np
 import torch
 import chip_smoke as cs
@@ -6718,6 +6855,9 @@ from music_analyst_tpu_torch.models import layers
 from music_analyst_tpu_torch.models.llama import LlamaConfig, LlamaModel
 from music_analyst_tpu_torch.parallel import mesh as M, multihost
 from music_analyst_tpu_torch.parallel.sharding import shard_params
+sys.argv = cs.rank_argv(sys.argv)
+rank, n, port, work, ckpt = (int(sys.argv[1]), int(sys.argv[2]),
+                             sys.argv[3], sys.argv[4], sys.argv[5])
 multihost.initialize(f"localhost:{port}", n, rank, backend="gloo",
                      timeout_s=600)
 dp = M.build_mesh(M.MeshSpec((("dp", n),)))
@@ -6944,7 +7084,7 @@ multihost.shutdown()
 """
 
 
-def mesh_train_path(card) -> dict:
+def mesh_train_path(card, spawned=None) -> dict:
     """Training on a mesh of 2 ranks over gloo on the one card, at
     llama3_8b's width with TRAIN_LAYERS layers: dp 2 with ZeRO-1 on step
     10's fixed batch (its halves hold different valid-token counts)
@@ -6967,7 +7107,7 @@ def mesh_train_path(card) -> dict:
     t0 = time.perf_counter()
     try:
         ranks = run_ranks(_MESH_TRAIN_CHILD, 2, [WORK, ckpt], "mesh_train",
-                          timeout=MESH_TRAIN_TIMEOUT_S)
+                          timeout=MESH_TRAIN_TIMEOUT_S, spawned=spawned)
         ckpt_bytes = os.path.getsize(os.path.join(ckpt, "train_state.pt"))
     finally:
         shutil.rmtree(ckpt, ignore_errors=True)
@@ -7078,6 +7218,404 @@ def mesh_train_path(card) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Step 13: MoE under a mesh — experts over an ep axis, slots across dp
+# ---------------------------------------------------------------------------
+
+MESH_MOE_TIMEOUT_S = 300
+MOE_DP_EXPERTS = 4               # the dp-2 layer: one 8B-width MoESwiGLU
+MOE_DP_B, MOE_DP_S = 8, 512      # over 8 x 512 tokens, split over dp 2
+MOE_TRAIN_EXPERTS = 4            # the ep-2 trainer: 1 layer x 4 experts
+MOE_TRAIN_STEPS = 3
+#  - ep 2 against step 10's one-device runs of the same seed (bf16):
+#    last-prompt logits to MOE_EP_REL_TOL of the scale at lossless
+#    capacity and at capacity 1.25.  The ep sum adds each token's two
+#    expert contributions in f32, as one device does, so only the
+#    experts' batch count differs; LOGIT_REL_TOL (5e-2) is too loose
+#    here: capacity 1.25, which drops 44.7% of the assignments, moves the
+#    logits by 5.05% of the scale on the card, and sparse against dense
+#    by 0.26%.  A rank that skips the sum over ep, and experts placed on
+#    the other rank, must break it.  The first
+#    layer's drops equal one device's exactly (its routing reads the same
+#    embeddings); a later layer's may move on a near-tie of the router,
+#    by at most MOE_EP_LATER_DROPS of its assignments.  int8 experts
+#    against step 10's int8 logits to MOE_EP_REL_TOL of the scale (the
+#    same codes); each expert's product with its neighbour's weights must
+#    break it.
+#    Greedy tokens equal one device's.  The prompt forward through
+#    kernel 2 (attn_impl="flash") against step 10's dense logits to
+#    LOGIT_REL_TOL of the scale, kernel 2 launching on both ranks alike.
+#  - the dp-2 layer's rows against the same layer over all rows on one
+#    device to MOE_DP_OUT_REL of the output's scale, its drops exactly;
+#    local capacity and slots (each rank its own program) must change
+#    the drops a rank.
+#  - ep-2 training against one device: losses to MESH_TRAIN_STEP1_REL at
+#    step 1 and MESH_TRAIN_LATER_REL later; the router's masters after
+#    step 1 at most MESH_TRAIN_FLIP_SHARE of their elements a step (lr)
+#    apart; a router gradient not summed over ep must break that share.
+MOE_EP_REL_TOL = 1e-2
+MOE_EP_LATER_DROPS = 1e-3
+MOE_DP_OUT_REL = 1e-2
+
+_MESH_MOE_CHILD = r"""
+import contextlib, dataclasses, gc, json, os, sys, time
+sys.path.insert(0, os.getcwd())
+import numpy as np
+import torch
+import torch.nn.functional as F
+import chip_smoke as cs
+from music_analyst_tpu_torch import kernels
+from music_analyst_tpu_torch.engines import train as T
+from music_analyst_tpu_torch.models import moe
+from music_analyst_tpu_torch.models.llama import (
+    LlamaConfig, LlamaModel, LlamaZeroShotClassifier)
+from music_analyst_tpu_torch.parallel import mesh as M, multihost
+from music_analyst_tpu_torch.parallel.sharding import shard_params
+sys.argv = cs.rank_argv(sys.argv)
+rank, n, port, work = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4]
+multihost.initialize(f"localhost:{port}", n, rank, backend="gloo",
+                     timeout_s=600)
+ep = M.build_mesh(M.MeshSpec((("ep", n),)))
+dp = M.build_mesh(M.MeshSpec((("dp", n),)))
+dev = ep.device
+torch.cuda.set_device(dev)
+torch.backends.cuda.matmul.allow_tf32 = False
+ref = torch.load(os.path.join(work, "moe_tp1.pt"))
+from music_analyst_tpu_torch.data.csv_io import iter_songs
+texts = [t for _, _, t in iter_songs(os.path.join(work, "songs_16384.csv"),
+                                     limit=cs.MOE_PROMPTS)]
+report = dict(rank=rank, backend=multihost.backend(), device=str(dev))
+walls = {}
+
+def dist_of(got, want):
+    return float((got.float().cpu() - want).abs().max())
+
+def prompt_logits(clf, flash=False):
+    ids, lens = clf._encode_prompts(texts)
+    ids = torch.as_tensor(ids, device=dev).long()
+    lens = torch.as_tensor(lens, device=dev).long()
+    S = ids.shape[1]
+    pos = torch.arange(S, device=dev).expand(len(texts), S)
+    mask = (torch.arange(S, device=dev)[None, None, None, :]
+            < lens[:, None, None, None])
+    mask = mask & (torch.arange(S, device=dev)[None, :]
+                   <= torch.arange(S, device=dev)[:, None])
+    with torch.no_grad():
+        if flash:   # kernel 2: causal, keys masked by the lengths
+            logits, _ = clf.model(ids, pos, None, last_position=lens - 1,
+                                  lengths=lens)
+        else:
+            logits, _ = clf.model(ids, pos, mask, last_position=lens - 1)
+    drops = [int(layer.feed_forward_moe.last_dropped)
+             for layer in clf.model.layers]
+    return logits[:, 0].float(), drops
+
+def moes(clf):
+    return [layer.feed_forward_moe for layer in clf.model.layers]
+
+# ---- ep 2: step 10's MoE (2 layers x 8 experts), lossless, then 1.25.
+t0 = time.perf_counter()
+cfg = dataclasses.replace(LlamaConfig.llama3_8b(), n_layers=2, n_experts=8,
+                          moe_top_k=2, moe_capacity_factor=8.0)
+clf = LlamaZeroShotClassifier(config=cfg, device=dev, seed=0,
+                              max_prompt_len=1024, mesh=ep)
+report["expert_rows"] = moes(clf)[0].gate_experts.shape[0]
+logits, drops = prompt_logits(clf)
+report["lossless"] = dict(max_abs=dist_of(logits, ref["lossless"]),
+                          drops=drops)
+real_reduce = moe.reduce_from_axes
+moe.reduce_from_axes = lambda x, mesh, axes: real_reduce(
+    x, mesh, [a for a in axes if a != "ep"])
+try:
+    logits, _ = prompt_logits(clf)
+finally:
+    moe.reduce_from_axes = real_reduce
+report["no_ep_sum_max_abs"] = dist_of(logits, ref["lossless"])
+for m in moes(clf):
+    m.expert_start = (1 - ep.coord("ep")) * m.gate_experts.shape[0]
+logits, _ = prompt_logits(clf)
+report["wrong_rank_max_abs"] = dist_of(logits, ref["lossless"])
+for m in moes(clf):
+    m.expert_start = ep.coord("ep") * m.gate_experts.shape[0]
+gen = cs.moe_generate(torch, clf)
+report["generate"] = dict(tokens_equal=sum(
+    a == b for a, b in zip(gen["tokens"], ref["tokens"])),
+    prompts=len(ref["tokens"]), paged_launches=gen["launches"])
+for m in moes(clf):
+    m.capacity_factor = 1.25
+logits, drops = prompt_logits(clf)
+report["capped"] = dict(max_abs=dist_of(logits, ref["capped"]), drops=drops,
+                        one_device_drops=ref["capped_drops"])
+del clf, logits
+gc.collect(); torch.cuda.empty_cache()
+walls["ep2_bf16"] = time.perf_counter() - t0
+
+# ---- ep 2 with kernel 2 in the prompt forward: launches over one forward.
+t0 = time.perf_counter()
+clf = LlamaZeroShotClassifier(
+    config=dataclasses.replace(cfg, attn_impl="flash"), device=dev, seed=0,
+    max_prompt_len=1024, mesh=ep)
+torch.cuda.synchronize(dev)
+kernels.reset_launches()
+logits, _ = prompt_logits(clf, flash=True)
+torch.cuda.synchronize(dev)
+report["flash"] = dict(launches=kernels.launches()["flash_attention"],
+                       max_abs=dist_of(logits, ref["lossless"]))
+del clf, logits
+gc.collect(); torch.cuda.empty_cache()
+walls["ep2_flash"] = time.perf_counter() - t0
+
+# ---- ep 2, int8 experts, and each expert's product with its neighbour's.
+t0 = time.perf_counter()
+clf = LlamaZeroShotClassifier(config=dataclasses.replace(cfg, quant="int8"),
+                              device=dev, seed=0, max_prompt_len=1024,
+                              mesh=ep)
+logits, _ = prompt_logits(clf)
+report["int8_max_abs"] = dist_of(logits, ref["int8"])
+with cs._int8_experts_rolled():
+    logits, _ = prompt_logits(clf)
+report["int8_rolled_max_abs"] = dist_of(logits, ref["int8"])
+del clf, logits
+gc.collect(); torch.cuda.empty_cache()
+walls["ep2_int8"] = time.perf_counter() - t0
+
+# ---- dp 2: one MoE layer over 8 x 512 tokens, at capacity 1.25.
+t0 = time.perf_counter()
+E, D, H = cs.MOE_DP_EXPERTS, 4096, 14336
+with torch.device(dev):
+    layer = moe.MoESwiGLU(D, E, H, top_k=2, dtype=torch.bfloat16,
+                          capacity_factor=1.25)
+gen_ = torch.Generator(device=dev).manual_seed(71)
+with torch.no_grad():
+    for p, fan_in in ((layer.gate_experts, D), (layer.up_experts, D),
+                      (layer.down_experts, H), (layer.router.weight, D)):
+        p.copy_(torch.randn(p.shape, generator=gen_, device=dev)
+                * fan_in ** -0.5)
+    # A direction every token shares, as a model's hidden states have: the
+    # router favours some experts, and capacity 1.25 drops.
+    x = (torch.randn(D, generator=gen_, device=dev)
+         + 0.5 * torch.randn(cs.MOE_DP_B, cs.MOE_DP_S, D, generator=gen_,
+                             device=dev)).bfloat16()
+    want = layer(x)
+    want_drops = int(layer.last_dropped)
+shard_params(layer, dp)
+rows = M.batch_sharding(dp, x)
+lo = dp.coord("dp") * rows.shape[0]
+
+def rank_drops(dp_rows):
+    top_vals, top_idx = moe.route(F.linear(rows.float(), layer.router.weight),
+                                  2)
+    pos, cap, _ = layer._slots(top_idx.reshape(-1), rows.shape[0]
+                               * rows.shape[1], dp_rows)
+    return int((pos >= cap).sum())
+
+with torch.no_grad():
+    got = layer(rows, dp_rows=True)
+    got_drops = int(layer.last_dropped)
+    local = layer(rows)
+    scale = float(want.float().abs().max())
+    report["dp_layer"] = dict(
+        max_abs=float((got.float() - want[lo:lo + rows.shape[0]].float()
+                       ).abs().max()),
+        scale=scale, drops=got_drops, one_device_drops=want_drops,
+        rank_drops=rank_drops(True), local_rank_drops=rank_drops(False),
+        local_max_abs=float((local.float() - want[lo:lo + rows.shape[0]]
+                             .float()).abs().max()),
+        assignments=2 * cs.MOE_DP_B * cs.MOE_DP_S)
+del layer, x, want, got, local, rows
+gc.collect(); torch.cuda.empty_cache()
+walls["dp2_layer"] = time.perf_counter() - t0
+
+# ---- ep 2 training: 1 layer x 4 experts, step 10's fixed batch.
+t0 = time.perf_counter()
+tcfg = dataclasses.replace(LlamaConfig.llama3_8b(), n_layers=1,
+                           n_experts=cs.MOE_TRAIN_EXPERTS, moe_top_k=2,
+                           moe_capacity_factor=1.25)
+tref = torch.load(os.path.join(work, "moe_train_tp1.pt"))
+opt = T.make_optimizer(cs.TRAIN_LR)
+batch = cs.llama_token_batch(np, cs.TRAIN_FIXED_SEED, short_half=True)
+ids, lengths = (torch.as_tensor(a, device=dev) for a in batch)
+ROUTER = "layers.0.feed_forward_moe.router.weight"
+spent = [0.0]
+real_ar = M.all_reduce
+
+def timed_all_reduce(t, mesh, axis, op="sum"):
+    torch.cuda.synchronize(dev)
+    t1 = time.perf_counter()
+    out = real_ar(t, mesh, axis, op)
+    torch.cuda.synchronize(dev)
+    spent[0] += time.perf_counter() - t1
+    return out
+
+def flipped(router):
+    d = (router.cpu() - tref["router_step1"]).abs()
+    return float((d > cs.TRAIN_LR).float().mean())
+
+def train(steps):
+    with torch.device("meta"):
+        model = LlamaModel(tcfg)
+    shard_params(model, ep)
+    model = model.to_empty(device=dev)
+    state = T.init_train_state(model, opt, seed=0, mesh=ep)
+    step = T.make_train_step(model, opt, mesh=ep)
+    losses, step_ms, shares, share = [], [], [], None
+    for i in range(steps):
+        spent[0] = 0.0
+        torch.cuda.synchronize(dev)
+        t1 = time.perf_counter()
+        state, loss = step(state, ids, lengths)
+        losses.append(float(loss))
+        wall = time.perf_counter() - t1
+        step_ms.append(wall * 1e3)
+        shares.append(spent[0] / wall)
+        if i == 0:
+            share = flipped(state.params[ROUTER])
+    return losses, step_ms, shares, share
+
+multihost.barrier("train")
+torch.cuda.reset_peak_memory_stats(dev)
+M.all_reduce = timed_all_reduce
+try:
+    losses, step_ms, shares, share = train(cs.MOE_TRAIN_STEPS)
+finally:
+    M.all_reduce = real_ar
+report["train"] = dict(losses=losses, step_ms=step_ms, ep_share=shares,
+                       router_flipped_share=share,
+                       peak_memory_bytes=torch.cuda.max_memory_allocated(dev))
+gc.collect(); torch.cuda.empty_cache()
+real_router = moe.MoESwiGLU._router_weight
+moe.MoESwiGLU._router_weight = lambda self: self.router.weight
+try:
+    bad, _, _, bad_share = train(1)
+finally:
+    moe.MoESwiGLU._router_weight = real_router
+report["router_unsummed"] = dict(loss=bad[0], router_flipped_share=bad_share)
+walls["ep2_train"] = time.perf_counter() - t0
+report["walls_s"] = walls
+print("RESULT " + json.dumps(report), flush=True)
+multihost.shutdown()
+"""
+
+
+def mesh_moe_path(torch, dev, card, spawned=None) -> dict:
+    """MoE under a mesh of 2 ranks over gloo on the one card, at
+    llama3_8b's width: step 10's MoE (2 layers x 8 experts) at ep 2
+    against step 10's one-device logits, drops, int8 logits and greedy
+    tokens (paged), and the prompt forward through kernel 2 against step
+    10's dense logits; one MoE layer at dp 2 against the same layer on
+    every row; a 1-layer x 4-expert trainer at ep 2 against one device's
+    (run here first, then freed)."""
+    import dataclasses
+
+    import numpy as np
+
+    from music_analyst_tpu_torch.engines import train as engine
+    from music_analyst_tpu_torch.models.llama import LlamaConfig
+
+    t0 = time.perf_counter()
+    # The one-device trainer (~40 GB), before the ranks start.
+    cfg = dataclasses.replace(LlamaConfig.llama3_8b(), n_layers=1,
+                              n_experts=MOE_TRAIN_EXPERTS, moe_top_k=2,
+                              moe_capacity_factor=1.25)
+    torch.cuda.reset_peak_memory_stats()
+    model = _meta_llama(torch, cfg, dev)
+    opt = engine.make_optimizer(TRAIN_LR)
+    state = engine.init_train_state(model, opt, seed=0)
+    step = engine.make_train_step(model, opt)
+    ids, lengths = (torch.as_tensor(a, device=dev) for a in llama_token_batch(
+        np, TRAIN_FIXED_SEED, short_half=True))
+    losses, router = [], None
+    for i in range(MOE_TRAIN_STEPS):
+        state, loss = step(state, ids, lengths)
+        losses.append(float(loss))
+        if i == 0:
+            router = state.params[
+                "layers.0.feed_forward_moe.router.weight"].to("cpu", copy=True)
+    one = dict(losses=losses, params=sum(p.numel()
+                                         for p in state.params.values()),
+               peak_memory_bytes=torch.cuda.max_memory_allocated(),
+               wall_s=time.perf_counter() - t0)
+    torch.save(dict(losses=losses, router_step1=router),
+               os.path.join(WORK, "moe_train_tp1.pt"))
+    del model, state, step, ids, lengths
+    gc.collect()
+    torch.cuda.empty_cache()
+    ranks = run_ranks(_MESH_MOE_CHILD, 2, [WORK], "mesh_moe",
+                      timeout=MESH_MOE_TIMEOUT_S, spawned=spawned)
+    out = dict(wall_s=time.perf_counter() - t0, one_device_train=one)
+    for r in ranks:
+        log(f"mesh moe rank {r['rank']}: {json.dumps(r)}")
+    r0 = ranks[0]
+    ref = torch.load(os.path.join(WORK, "moe_tp1.pt"))
+    scale = ref["scale"]
+    out.update(
+        logit_scale=scale, per_rank=ranks,
+        paged_launches_per_rank=[r["generate"]["paged_launches"]
+                                 for r in ranks],
+        flash_launches_per_rank=[r["flash"]["launches"] for r in ranks])
+    log(f"mesh moe (ep 2, dp 2) llama3_8b width on {card}: "
+        f"{json.dumps({k: v for k, v in out.items() if k != 'per_rank'})}")
+    lim = MOE_EP_REL_TOL * scale
+    for r in ranks:
+        tag = f"mesh moe rank {r['rank']}"
+        if r["expert_rows"] != 4:
+            fail(f"{tag}: holds {r['expert_rows']} of 8 experts")
+        if r["lossless"]["max_abs"] > lim or any(r["lossless"]["drops"]):
+            fail(f"{tag}: ep-2 lossless logits {r['lossless']} (limit {lim})")
+        for key in ("no_ep_sum_max_abs", "wrong_rank_max_abs"):
+            if r[key] <= lim:
+                fail(f"{tag}: the limit passes {key} = {r[key]}")
+        c = r["capped"]
+        if c["max_abs"] > lim:
+            fail(f"{tag}: ep-2 logits at capacity 1.25 {c} (limit {lim})")
+        if c["drops"][0] != c["one_device_drops"][0]:
+            fail(f"{tag}: first MoE layer's drops {c}")
+        g = r["generate"]
+        if g["tokens_equal"] != g["prompts"]:
+            fail(f"{tag}: greedy tokens equal one device's on "
+                 f"{g['tokens_equal']} of {g['prompts']} prompts")
+        f = r["flash"]
+        if f["max_abs"] > LOGIT_REL_TOL * scale:
+            fail(f"{tag}: ep-2 logits through kernel 2 {f} against step "
+                 f"10's dense (limit {LOGIT_REL_TOL * scale})")
+        if r["int8_max_abs"] > lim:
+            fail(f"{tag}: ep-2 int8 logits {r['int8_max_abs']}")
+        if r["int8_rolled_max_abs"] <= lim:
+            fail(f"{tag}: the int8 limit passes rolled expert weights "
+                 f"({r['int8_rolled_max_abs']})")
+        d = r["dp_layer"]
+        if (d["max_abs"] > MOE_DP_OUT_REL * d["scale"]
+                or d["drops"] != d["one_device_drops"]):
+            fail(f"{tag}: dp-2 layer {d}")
+        if d["local_rank_drops"] == d["rank_drops"]:
+            fail(f"{tag}: local capacity and slots keep the drops {d}")
+        t = r["train"]
+        rel = [abs(a - b) / abs(b) for a, b in zip(t["losses"], losses)]
+        t["rel"] = rel
+        if rel[0] > MESH_TRAIN_STEP1_REL or any(
+                x > MESH_TRAIN_LATER_REL for x in rel[1:]):
+            fail(f"{tag}: ep-2 losses {t['losses']} against one device's "
+                 f"{losses} ({rel})")
+        if t["router_flipped_share"] > MESH_TRAIN_FLIP_SHARE:
+            fail(f"{tag}: router masters after step 1 {t}")
+        if r["router_unsummed"]["router_flipped_share"] <= \
+                MESH_TRAIN_FLIP_SHARE:
+            fail(f"{tag}: an unsummed router gradient passes "
+                 f"{r['router_unsummed']}")
+    if r0["capped"]["drops"] != ranks[1]["capped"]["drops"]:
+        fail("mesh moe: the ranks' drops differ")
+    later = [abs(a - b) for a, b in zip(r0["capped"]["drops"][1:],
+                                        r0["capped"]["one_device_drops"][1:])]
+    out["capped_later_drops_moved"] = later
+    if any(x > MOE_EP_LATER_DROPS * ref["assignments_per_layer"]
+           for x in later):
+        fail(f"mesh moe: later layers' drops moved by {later}")
+    for key in ("paged_launches_per_rank", "flash_launches_per_rank"):
+        if not out[key][0] or len(set(out[key])) != 1:
+            fail(f"mesh moe: {key} {out[key]}")
+    return out
+
+
 def mesh_kernel_shapes(torch, dev) -> dict:
     """Kernels 2 and 3 at the per-rank shapes of this step: flash at
     DistilBERT's dp2 / tp2 / dp2 x tp2 rows and heads, paged at the 8B
@@ -7176,16 +7714,20 @@ def mesh_kernel_shapes(torch, dev) -> dict:
 
 class PhaseClock:
     """The wall seconds of each phase of ``main``: a call names the phase
-    that has just ended, timed from the previous call."""
+    that has just ended, timed from the previous call, and logs its wall
+    and the running total, so that a run cut short shows how far it
+    got."""
 
     def __init__(self) -> None:
         self.seconds = {}
-        self._t = time.perf_counter()
+        self._t = self._start = time.perf_counter()
 
     def __call__(self, name: str) -> None:
         now = time.perf_counter()
         self.seconds[name] = now - self._t
         self._t = now
+        log(f"phase {name}: {self.seconds[name]:.1f} s, "
+            f"{now - self._start:.1f} s in all")
 
     def sum(self, *names: str) -> float:
         return sum(self.seconds[name] for name in names)
@@ -7329,10 +7871,12 @@ def main() -> int:
     report["slice11_s"] = mark.sum("fault_drills", "wordpiece")
     log(f"fault drills and WordPiece phases: {report['slice11_s']:.1f} s")
     torch.cuda.empty_cache()
+    # A child group imports while the phase before it runs (spawn_ranks).
+    ring = spawn_ranks(_RING_CHILD, RING_RANKS, "ring")
     report["distributed"] = distributed_wordcount_path(
         card, report["analyze"], oracle)
     mark("distributed")
-    report["ring"] = ring_path(torch, dev, card)
+    report["ring"] = ring_path(torch, dev, card, spawned=ring)
     mark("ring")
     report["slice12_s"] = mark.sum("distributed", "ring")
     log(f"distributed word count and ring attention phases: "
@@ -7346,22 +7890,30 @@ def main() -> int:
     report["mesh_sentiment"] = mesh_sentiment_path(torch, dev, card, dataset,
                                                    checkpoint)
     mark("mesh_sentiment")
+    bert_group = spawn_ranks(_MESH_BERT_CHILD, 4, "mesh_bert")
     report["mesh_wq_sentiment"] = mesh_quant_sentiment_path(
         torch, dev, card, dataset, checkpoint)
     mark("mesh_wq_sentiment")
+    llama_group = spawn_ranks(_MESH_LLAMA_CHILD, 2, "mesh_llama_tp2")
     report["mesh_distilbert"] = mesh_distilbert_api_path(
-        torch, dev, card, dataset, checkpoint)
+        torch, dev, card, dataset, checkpoint, spawned=bert_group)
     mark("mesh_distilbert")
+    train_group = spawn_ranks(_MESH_TRAIN_CHILD, 2, "mesh_train")
     report["mesh_llama"] = mesh_llama_path(torch, card, report["llama"],
-                                           report["llama_quant"])
+                                           report["llama_quant"],
+                                           spawned=llama_group)
     mark("mesh_llama")
     torch.cuda.empty_cache()
-    report["mesh_train"] = mesh_train_path(card)
+    moe_group = spawn_ranks(_MESH_MOE_CHILD, 2, "mesh_moe")
+    report["mesh_train"] = mesh_train_path(card, spawned=train_group)
     mark("mesh_train")
+    torch.cuda.empty_cache()
+    report["mesh_moe"] = mesh_moe_path(torch, dev, card, spawned=moe_group)
+    mark("mesh_moe")
     report["slice13_s"] = mark.sum("mesh_kernels", "mesh_analyze",
                                    "mesh_sentiment", "mesh_wq_sentiment",
                                    "mesh_distilbert", "mesh_llama",
-                                   "mesh_train")
+                                   "mesh_train", "mesh_moe")
     log(f"mesh phases (analyze/sentiment --devices, DistilBERT dp x tp, "
         f"Llama-3-8B tp 2 with its served run): "
         f"{report['slice13_s']:.1f} s")
@@ -7419,6 +7971,8 @@ def main() -> int:
                            "flash_tp2_causal")},
              mesh_train_eval_launches_per_rank=report["mesh_train"][
                  "flash_launches_per_rank"],
+             ep2_moe_launches_per_rank=report["mesh_moe"][
+                 "flash_launches_per_rank"],
              serve_tp2_launches_per_rank=report["serve_tp"]["tp2"][
                  "flash_launches_per_rank"],
              mesh_quant_launches_per_rank=dict(
@@ -7471,6 +8025,10 @@ def main() -> int:
                  "int8_pages"]["paged_launches_per_rank"],
              tp2_wq_int8_served_launches_per_rank=report["mesh_llama"][
                  "quant_wq_int8"]["served"]["paged_launches_per_rank"],
+             moe_generate_launches=report["moe"]["generate"][
+                 "paged_launches"],
+             ep2_moe_generate_launches_per_rank=report["mesh_moe"][
+                 "paged_launches_per_rank"],
              max_abs_err=max([v["max_abs_err"] for v in report["paged"].values()]
                              + [report["mesh_kernels"]["paged_tp2"][
                                  "max_abs_err"]]),

@@ -879,18 +879,22 @@ def _stage_outputs(args: argparse.Namespace):
     carried in first.  A ``--telemetry-dir``, ``--profile-dir`` or
     ``--trace-dir`` elsewhere is written in place.
 
-    So ``sentiment --devices N`` keeps its crash-resume contract only at
-    the level of whole runs: the rows it classifies reach the output
-    directory with its publish, and a run whose rank fails, or whose
-    rank 0 is killed, adds nothing to the details prefix that
-    ``--resume`` continues from (the last published one)."""
+    ``sentiment --devices N`` keeps JAX's crash-resume contract: when a
+    rank fails, the run publishes the whole rows of its staged
+    ``sentiment_details.csv`` (a torn last row dropped) and nothing else,
+    so ``--resume`` continues from the rows it classified.  Only a rank 0
+    killed outright publishes nothing: its details stay in the staging
+    directory it leaves behind, and ``--resume`` continues from the last
+    published prefix."""
     from music_analyst_tpu_torch.parallel.launch import Staging
 
+    details = os.path.join(args.output_dir, "sentiment_details.csv")
     carry = [os.path.join(args.telemetry_dir or args.output_dir,
                           "telemetry.jsonl")]
     if getattr(args, "resume", False):
-        carry.append(os.path.join(args.output_dir, "sentiment_details.csv"))
-    staging = Staging(args.output_dir, carry=carry)
+        carry.append(details)
+    staging = Staging(args.output_dir, carry=carry,
+                      salvage=[details] if args.command == "sentiment" else [])
     for flag in ("telemetry_dir", "profile_dir", "trace_dir"):
         path = getattr(args, flag, None)
         if path:

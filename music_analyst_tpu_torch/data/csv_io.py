@@ -18,7 +18,7 @@ of the JAX package).  Three access paths:
 from __future__ import annotations
 
 import csv
-from typing import Iterable, Iterator, List, Optional, Sequence, Tuple
+from typing import BinaryIO, Iterable, Iterator, List, Optional, Sequence, Tuple
 
 # C-locale isspace() byte set (reference trims fields with isspace,
 # src/parallel_spotify.c:191-208).
@@ -28,6 +28,25 @@ _QUOTE = 0x22  # '"'
 _COMMA = 0x2C
 _NL = 0x0A
 _CR = 0x0D
+
+
+def whole_rows_length(raw: BinaryIO) -> int:
+    """Bytes of the longest prefix of the CSV in ``raw`` (read from its
+    position to its end) that holds whole rows only: a newline ends a row
+    iff the quote count of the prefix ending there is even (a newline
+    inside an open quoted field is row content), so a row torn by a
+    killed writer is left out."""
+    keep = quotes = size = 0
+    while chunk := raw.read(1 << 22):
+        start = 0
+        while (nl := chunk.find(b"\n", start)) >= 0:
+            quotes += chunk.count(b'"', start, nl)
+            if quotes % 2 == 0:
+                keep = size + nl + 1
+            start = nl + 1
+        quotes += chunk.count(b'"', start)
+        size += len(chunk)
+    return keep
 
 
 def iter_songs(

@@ -62,22 +62,25 @@ TRAIN_STATE_FORMAT = 2
 _MOMENTS = ("exp_avg", "exp_avg_sq")
 
 
-def _split_dim(piece) -> int:
-    """The dimension a tensor-parallel ``ShardSlice`` splits."""
-    return next(d for d, (lo, hi) in enumerate(piece.bounds)
-                if (lo, hi) != (0, piece.full_shape[d]))
-
-
 def _global(block: torch.Tensor, name: str, state: TrainState,
-            gather_tp: bool) -> torch.Tensor:
-    """The whole tensor of this rank's tp block of ``name`` (an all-gather
-    over ``tp`` when the parameter is split and ``gather_tp``)."""
+            gather: bool) -> torch.Tensor:
+    """The whole tensor of this rank's block of ``name``: all-gathered
+    along each split dimension over the mesh axis that splits it (``ep``
+    for an expert stack's first, ``tp`` for the others) when ``gather``."""
     piece = state.tp_layout.get(name)
-    if piece is None or not gather_tp:
+    if piece is None or not gather:
         return block
     from music_analyst_tpu_torch.parallel.mesh import all_gather
+    from music_analyst_tpu_torch.parallel.sharding import (
+        prune_spec,
+        spec_for_path,
+    )
 
-    return all_gather(block, state.mesh, "tp", dim=_split_dim(piece))
+    spec = prune_spec(spec_for_path(name), state.mesh.axis_names)
+    for dim, (lo, hi) in enumerate(piece.bounds):
+        if (lo, hi) != (0, piece.full_shape[dim]):
+            block = all_gather(block, state.mesh, spec[dim], dim=dim)
+    return block
 
 
 def save_train_state(state: TrainState, path: str) -> str:
@@ -90,17 +93,17 @@ def save_train_state(state: TrainState, path: str) -> str:
     both AdamW moments and their step counts, each keyed by parameter
     name, with the optimizer's settings and the step.  On a mesh every
     rank calls this (a collective): ZeRO-1 slices are all-gathered over
-    ``dp`` and tensor-parallel blocks over ``tp``, one parameter at a
-    time, the coordinator (rank 0) writes the file, and every rank returns
-    once it is in place."""
+    ``dp`` and blocks over ``ep`` and ``tp``, one parameter at a time,
+    the coordinator (rank 0) writes the file, and every rank returns once
+    it is in place."""
     from music_analyst_tpu_torch.parallel import multihost
     from music_analyst_tpu_torch.parallel.mesh import all_gather_rows_
 
     path = os.path.abspath(path)
     mesh = state.mesh
     writer = mesh is None or mesh.rank == 0
-    # The ranks of dp row 0 hold every tp block; one tp line gathers.
-    gather_tp = mesh is None or mesh.coord("dp") == 0
+    # The ranks of dp row 0 hold every ep and tp block: they gather.
+    gather = mesh is None or mesh.coord("dp") == 0
     saved = {"format": TRAIN_STATE_FORMAT, "params": {}, "adam_step": {},
              **{key: {} for key in _MOMENTS}}
     for name, stepped in state.opt_tensors().items():
@@ -119,7 +122,7 @@ def save_train_state(state: TrainState, path: str) -> str:
                 moment = whole
             values[key] = moment
         for key, value in values.items():
-            value = _global(value, name, state, gather_tp)
+            value = _global(value, name, state, gather)
             if writer:
                 saved[key][name] = value.detach().to("cpu", copy=True)
         if writer:
@@ -162,7 +165,7 @@ def restore_train_state(path: str, like: Optional[TrainState] = None,
     """Restore the state saved in ``path``.  With ``like``, the saved
     values are copied into ``like``'s tensors and optimizer (its devices,
     mesh and layout; the names must match) and ``like`` is returned with
-    the saved step — each rank takes its tensor-parallel block and, under
+    the saved step — each rank takes its block (``ep``, ``tp``) and, under
     ZeRO-1, its slice of the moments, so a state saved on one mesh
     restores onto another or onto one device; otherwise a new one-device
     state is built on ``device``."""

@@ -43,7 +43,7 @@ import os
 import time
 from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
-from music_analyst_tpu_torch.data.csv_io import iter_songs
+from music_analyst_tpu_torch.data.csv_io import iter_songs, whole_rows_length
 from music_analyst_tpu_torch.device import DeviceLike
 from music_analyst_tpu_torch.engines.families import mesh_capable
 from music_analyst_tpu_torch.observability import watchdog
@@ -199,24 +199,12 @@ def get_backend(
 def _read_completed_details(details_path: str) -> Tuple[int, Dict[str, int]]:
     """Rows already classified in a previous (partial) run + their counts.
 
-    A torn final row (kill mid-write) is truncated away first: a newline
-    is a row boundary iff the quote count of the prefix ending there is
-    even (a newline inside an open quoted field is row content).
+    A torn final row (kill mid-write) is truncated away first
+    (``data/csv_io.py:whole_rows_length``).
     """
     with open(details_path, "rb+") as raw:
-        keep = 0
-        quotes = 0
-        size = 0
-        while chunk := raw.read(1 << 22):
-            start = 0
-            while (nl := chunk.find(b"\n", start)) >= 0:
-                quotes += chunk.count(b'"', start, nl)
-                if quotes % 2 == 0:
-                    keep = size + nl + 1
-                start = nl + 1
-            quotes += chunk.count(b'"', start)
-            size += len(chunk)
-        if keep != size:
+        keep = whole_rows_length(raw)
+        if keep != raw.tell():
             raw.truncate(keep)
     done = 0
     counts: Dict[str, int] = {label: 0 for label in SUPPORTED_LABELS}

@@ -20,7 +20,7 @@ tensor with the model, which only computes: two states can take turns on
 one model.
 
 On a mesh (``mesh=``, a ``parallel/mesh.DeviceMesh`` over ranks, one
-process a rank) with ``dp`` and ``tp`` axes: the model keeps this rank's
+process a rank) with ``dp``, ``tp`` and ``ep`` axes: the model keeps this rank's
 tensor-parallel blocks (``parallel/sharding.py:shard_params``, JAX's
 ``TP_RULES``) and the masters and both moments follow them, replicated
 over ``dp`` as JAX keeps ``params``.  Each rank runs forward and backward
@@ -33,8 +33,14 @@ the moments shard over ``dp`` by JAX's rule (``parallel/sharding.py:
 zero1_slices``): each rank reduce-scatters the gradients, steps its slice
 of the masters and moments, and the masters are all-gathered over ``dp``.
 
-Not yet ported: a mesh with ``sp`` or ``ep`` axes, and MoE models on a
-mesh.  The flash kernel is forward only, as the Pallas kernel is, so
+MoE models: under ``ep`` each rank holds its block of the experts, the
+ranks of an ``ep`` line take the same rows (as those of a ``tp`` line),
+and the expert stacks' gradients reduce over ``dp`` (and their moments
+shard under ZeRO-1) within each ``ep`` coordinate, since the ``dp`` group
+is the line of ranks that share it; the MoE layers take the global
+batch's capacity and slots (``models/moe.py``).  JAX's train step adds no
+load-balancing loss, and neither does this one.  Not yet ported: a mesh
+with an ``sp`` axis.  The flash kernel is forward only, as the Pallas kernel is, so
 :func:`make_train_step` refuses ``attn_impl="flash"``; the loss itself runs
 through the kernel under ``torch.no_grad()`` (evaluation).
 """
@@ -54,7 +60,7 @@ from music_analyst_tpu_torch.models.layers import causal_mask, segment_mask
 from music_analyst_tpu_torch.parallel import mesh as mesh_lib
 
 # Mesh axes the train step covers; any other axis of size > 1 is refused.
-MESH_AXES = ("dp", "tp")
+MESH_AXES = ("dp", "tp", "ep")
 
 
 @dataclasses.dataclass
@@ -108,11 +114,13 @@ def causal_lm_loss(model, token_ids: torch.Tensor, lengths: torch.Tensor,
     targets = token_ids[:, 1:].long()
     B, S = inputs.shape
     dev = inputs.device
+    dp_rows = mesh is not None
     s_idx = torch.arange(S, device=dev)[None, :]
     causal = causal_mask(S, S, 0, device=dev)
     if segment_ids is None:
         positions = s_idx.expand(B, S)
-        logits, _ = model(inputs, positions, causal, gather_logits=False)
+        logits, _ = model(inputs, positions, causal, gather_logits=False,
+                          dp_rows=dp_rows)
     else:
         seg = segment_ids[:, :-1].to(torch.int32)
         # Position = offset from the document's first token: cummax of the
@@ -127,10 +135,10 @@ def causal_lm_loss(model, token_ids: torch.Tensor, lengths: torch.Tensor,
         positions = s_idx - start_idx
         if model.config.attn_impl == "flash":
             logits, _ = model(inputs, positions, None, segment_ids=seg,
-                              gather_logits=False)
+                              gather_logits=False, dp_rows=dp_rows)
         else:
             logits, _ = model(inputs, positions, causal & segment_mask(seg),
-                              gather_logits=False)
+                              gather_logits=False, dp_rows=dp_rows)
     from music_analyst_tpu_torch.models.llama import token_nll
 
     nll = token_nll(model, logits, targets)
@@ -176,18 +184,7 @@ def _check_axes(mesh) -> None:
         if axis not in MESH_AXES and mesh.axis_size(axis) > 1:
             raise NotImplementedError(
                 f"training on a mesh with a {axis!r} axis is not yet ported "
-                f"to music_analyst_tpu_torch: {' and '.join(MESH_AXES)} only")
-
-
-def _check_mesh(model, mesh) -> None:
-    """Refuse what the mesh step does not cover yet."""
-    if mesh is None:
-        return
-    _check_axes(mesh)
-    if getattr(model.config, "n_experts", 0) > 0:
-        raise NotImplementedError(
-            "training a MoE model (n_experts > 0) on a mesh is not yet "
-            "ported to music_analyst_tpu_torch")
+                f"to music_analyst_tpu_torch: {', '.join(MESH_AXES)} only")
 
 
 def init_train_state(
@@ -213,7 +210,8 @@ def init_train_state(
     draw.  ``zero1`` shards the moments over ``dp`` (JAX: a no-op
     without a ``dp`` axis of size > 1)."""
     del sample_batch
-    _check_mesh(model, mesh)
+    if mesh is not None:
+        _check_axes(mesh)
     if mesh is not None and not hasattr(model, "tp_layout"):
         from music_analyst_tpu_torch.parallel.sharding import shard_params
 
@@ -329,7 +327,8 @@ def make_train_step(model, optimizer: AdamW, mesh=None, phase=None):
     ``backward`` and ``optimizer`` (a timer's or a profiler's seat); on a
     mesh also ``reduce_gradients`` (before ``optimizer``) and, under
     ZeRO-1, ``gather_masters`` (after it)."""
-    _check_mesh(model, mesh)
+    if mesh is not None:
+        _check_axes(mesh)
     if model.config.attn_impl == "flash":
         raise NotImplementedError(
             "make_train_step cannot differentiate attn_impl='flash' (a "
@@ -394,7 +393,7 @@ def prefetch_batches(batches: Iterable[Tuple[np.ndarray, ...]], mesh=None,
     ``train_pipeline`` pipeline.
 
     On a mesh each batch comes back as this rank's ``dp`` rows (JAX's
-    ``P('dp')``; the ranks of a ``tp`` line get the same rows), which
+    ``P('dp')``; the ranks of a ``tp`` or ``ep`` line get the same rows), which
     :func:`make_train_step` takes; a batch whose size ``dp`` does not
     divide raises ``ValueError``, as JAX's ``device_put`` does."""
     from music_analyst_tpu_torch.runtime import (

@@ -51,8 +51,10 @@ weights draw each full tensor from the one generator and keep the rank's
 block, so every rank's weights are the unsharded model's.  ``quant`` and
 ``weight_quant`` shard too: codes and scales by JAX's rule
 (``parallel/sharding.py:quantized_specs``), row-parallel products taking
-their scales over every rank's rows (``models/layers.py``).  Not yet
-ported under a mesh: MoE.
+their scales over every rank's rows (``models/layers.py``).  MoE layers
+hold their ``ep`` block of the experts and ``tp`` block of the hidden
+axis (``models/moe.py``), dynamic int8 experts included; the random
+draw keeps each rank's block of the full stacks.
 """
 
 from __future__ import annotations
@@ -216,7 +218,7 @@ class LlamaBlock(nn.Module):
                                        weight_quant=cfg.weight_quant)
 
     def forward(self, x, mask, positions, cache=None, lengths=None,
-                segment_ids=None):
+                segment_ids=None, dp_rows=False):
         if segment_ids is not None and (cache is not None or not self.flash):
             # Refuse rather than attend across documents: the dense impl
             # takes packing as `causal & same-segment` in the mask array,
@@ -239,8 +241,10 @@ class LlamaBlock(nn.Module):
                 segment_ids=segment_ids)
         x = x + attn_out
         h = self.ffn_norm(x)
-        ffn = self.feed_forward_moe if self.moe else self.feed_forward
-        x = x + ffn(h)
+        if self.moe:
+            x = x + self.feed_forward_moe(h, dp_rows=dp_rows)
+        else:
+            x = x + self.feed_forward(h)
         return x, new_cache
 
 
@@ -255,7 +259,10 @@ class LlamaModel(nn.Module):
     With ``attn_impl="flash"`` and no caches, ``mask`` is not applied:
     attention is causal, keys are masked by ``lengths [B]`` and, for packed
     documents, by ``segment_ids [B, S]`` (pair them with positions that
-    restart at each document).  ``segment_ids`` is refused elsewhere."""
+    restart at each document).  ``segment_ids`` is refused elsewhere.
+    ``dp_rows``: the rows are this rank's ``dp`` block of a batch (the
+    train step's), which MoE layers route with the global batch's
+    capacity and slots."""
 
     def __init__(self, cfg: LlamaConfig) -> None:
         super().__init__()
@@ -274,13 +281,14 @@ class LlamaModel(nn.Module):
 
     def forward(self, token_ids, positions, mask, caches=None,
                 last_position=None, lengths=None, segment_ids=None,
-                gather_logits=True):
+                gather_logits=True, dp_rows=False):
         x = self.tok_embeddings(token_ids.long())
         new_caches = []
         for i, layer in enumerate(self.layers):
             x, new_cache = layer(x, mask, positions,
                                  caches[i] if caches is not None else None,
-                                 lengths=lengths, segment_ids=segment_ids)
+                                 lengths=lengths, segment_ids=segment_ids,
+                                 dp_rows=dp_rows)
             if new_cache is not None:
                 new_caches.append(new_cache)
         x = self.norm(x)
@@ -640,11 +648,6 @@ class LlamaZeroShotClassifier(ClassifierBackend):
         if mesh is not None and not isinstance(mesh, DeviceMesh):
             raise TypeError(f"mesh must be a DeviceMesh, got "
                             f"{type(mesh).__name__}")
-        cfg = config or LlamaConfig.tiny()
-        if mesh is not None and cfg.n_experts > 0:
-            raise NotImplementedError(
-                "MoE (n_experts > 0) under a mesh is not yet ported to "
-                "music_analyst_tpu_torch")
         self.mesh = mesh
         if mesh is not None:
             device = mesh.device

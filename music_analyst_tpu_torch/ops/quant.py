@@ -266,29 +266,32 @@ def quant_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return _quant_forward(x, w)
 
 
-def _quantize_batched(x: torch.Tensor, w: torch.Tensor):
+def _quantize_batched(x: torch.Tensor, w: torch.Tensor,
+                      rows: Optional[RowShard] = None):
     """The codes and scales of :func:`quant_batched_matmul`: activations
     per ``(e, row)`` (``s_x [E, C, 1]``), weights per ``(e, out-channel)``
-    (``s_w [E, 1, N]``), weight codes ``[E, K, N]`` K-contiguous."""
-    x32 = x.float()
-    s_x = _symmetric_scale(x32, -1)                        # [E, C, 1]
-    qx = torch.round(x32 / s_x).to(torch.int8)
-    wt32 = w.transpose(1, 2).float()                       # [E, N, K]
-    s_w = _symmetric_scale(wt32, -1)                       # [E, N, 1]
-    qw = torch.round(wt32 / s_w).to(torch.int8).contiguous()
-    return qx, s_x, qw.transpose(1, 2), s_w.transpose(1, 2)
+    (``s_w [E, 1, N]``), weight codes ``[E, K, N]`` K-contiguous.  With
+    ``rows`` (a split contraction axis) both maxima run over every rank's
+    rows of it."""
+    qx, s_x = _quantize_rows(x.float(), rows)              # s_x [E, C, 1]
+    qw, s_w = _quantize_rows(w.transpose(1, 2).float(), rows)  # [E, N, 1]
+    return qx, s_x, qw.contiguous().transpose(1, 2), s_w.transpose(1, 2)
 
 
-def quant_batched_matmul_plain(x: torch.Tensor, w: torch.Tensor
+def quant_batched_matmul_plain(x: torch.Tensor, w: torch.Tensor,
+                               rows: Optional[RowShard] = None
                                ) -> torch.Tensor:
     """Plain version of :func:`quant_batched_matmul`: the same codes, the
     integer products in float64 (exact), on any device."""
-    qx, s_x, qw, s_w = _quantize_batched(x, w)
+    qx, s_x, qw, s_w = _quantize_batched(x, w, rows)
     acc = torch.bmm(qx.double(), qw.double()).to(torch.int32)
+    if rows is not None:
+        acc = all_reduce(acc, rows.mesh, rows.axis)
     return acc.float() * s_x * s_w
 
 
-def quant_batched_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def quant_batched_matmul(x: torch.Tensor, w: torch.Tensor,
+                         rows: Optional[RowShard] = None) -> torch.Tensor:
     """Per-expert ``x[e] @ w[e]`` through dynamic int8: x ``[E, C, K]``,
     w ``[E, K, N]`` float → f32 ``[E, C, N]``.
 
@@ -296,12 +299,19 @@ def quant_batched_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     expert products).  Scales as :func:`quant_matmul`'s, kept per expert;
     int32 accumulation, so the two packages agree code for code on the
     same activations.  A CUDA operand runs one ``torch._int_mm`` per
-    expert (the weight codes K-contiguous); a CPU one the plain version."""
+    expert (the weight codes K-contiguous); a CPU one the plain version.
+
+    ``rows``: this rank holds a block of the contraction axis (the MoE
+    ``down`` stack under ``tp``).  The scales are maxima over every rank's
+    block (:func:`row_absmax`) and the int32 partials sum over the axis
+    before the dequant, so the product is the unsharded one's."""
     if not x.is_cuda:
-        return quant_batched_matmul_plain(x, w)
-    qx, s_x, qw, s_w = _quantize_batched(x, w)
+        return quant_batched_matmul_plain(x, w, rows)
+    qx, s_x, qw, s_w = _quantize_batched(x, w, rows)
     acc = torch.stack([int8_matmul(qx[e], qw[e])
                        for e in range(qx.shape[0])])
+    if rows is not None:
+        acc = all_reduce(acc, rows.mesh, rows.axis)
     return acc.float() * s_x * s_w
 
 

@@ -15,7 +15,10 @@ beside the output directory.  :func:`run_ranks` moves the staged files
 into the output directory only once rank 0's command has returned 0 and
 every other rank has exited 0; a rank that fails at any moment, after its
 last collective included, leaves the staging directory removed and
-nothing published, and files already in the output directory untouched.
+nothing published but the whole rows of the CSV files staging names to
+salvage (the details ``sentiment`` streams, so that ``--resume``
+continues from them as after a killed one-device run), and the other
+files already in the output directory untouched.
 The moment a rank fails, a watcher kills the others, so no rank is left
 blocked in a collective; this process then removes the staging
 directory and exits 1 as soon as its command stops writing (it returns
@@ -128,12 +131,16 @@ class Staging:
 
     ``carry`` names files under ``output_dir`` that the run appends to
     (the telemetry log, a resumed details file): they are copied in first,
-    so the originals stay untouched until the publish.  A rank 0 killed
-    outright leaves its staging directory behind, under a hidden name
-    that no run reads."""
+    so the originals stay untouched until the publish.  ``salvage`` names
+    CSV files under ``output_dir`` that a failed run still publishes, cut
+    to their whole rows (:meth:`discard`): the rows ``sentiment`` streams as
+    each batch completes.  A rank 0 killed outright leaves its staging
+    directory behind, under a hidden name that no run reads."""
 
-    def __init__(self, output_dir: str, carry: Sequence[str] = ()) -> None:
+    def __init__(self, output_dir: str, carry: Sequence[str] = (),
+                 salvage: Sequence[str] = ()) -> None:
         self.output_dir = os.path.abspath(output_dir)
+        self.salvage = [os.path.abspath(path) for path in salvage]
         parent, name = os.path.split(self.output_dir)
         os.makedirs(parent, exist_ok=True)
         self.path = tempfile.mkdtemp(
@@ -172,15 +179,35 @@ class Staging:
                            os.path.join(dest, name), site="launch.publish")
         self.discard()
 
-    def discard(self) -> None:
+    def discard(self, salvage: bool = False) -> List[str]:
         """Remove the staging directory, renamed away first, so that a
-        write into it that is still under way cannot leave it behind."""
+        write into it that is still under way cannot leave it behind.
+        With ``salvage`` the whole rows of each staged ``salvage`` file
+        are published first (one atomic replace each); returns the names
+        published."""
         doomed = f"{self.path}.discarded"
         try:
             os.rename(self.path, doomed)
         except OSError:
             doomed = self.path
+        kept = []
+        for path in self.salvage if salvage else ():
+            staged = os.path.join(doomed, os.path.relpath(path,
+                                                          self.output_dir))
+            if not os.path.isfile(staged):
+                continue
+            from music_analyst_tpu_torch.data.csv_io import whole_rows_length
+            from music_analyst_tpu_torch.utils.atomic import atomic_write
+
+            with open(staged, "rb") as raw:
+                size = whole_rows_length(raw)
+                raw.seek(0)
+                rows = raw.read(size)
+            with atomic_write(path, "wb", encoding=None) as fh:
+                fh.write(rows)
+            kept.append(os.path.basename(path))
         shutil.rmtree(doomed, ignore_errors=True)
+        return kept
 
 
 def run_ranks(command: Sequence[str], n_ranks: int, device: str,
@@ -214,9 +241,8 @@ def run_ranks(command: Sequence[str], n_ranks: int, device: str,
                 child.kill()
             child.wait()
 
-    def _discard() -> None:
-        if staging is not None:
-            staging.discard()
+    def _discard() -> List[str]:
+        return [] if staging is None else staging.discard(salvage=True)
 
     try:
         for rank in range(1, n_ranks):
@@ -250,9 +276,11 @@ def run_ranks(command: Sequence[str], n_ranks: int, device: str,
             for child in children:
                 if child.poll() is None:
                     child.kill()
-            _discard()
-            sys.stderr.write(f"mesh: {reason}; every rank stopped, nothing "
-                             f"published\n")
+            kept = _discard()
+            sys.stderr.write(
+                f"mesh: {reason}; every rank stopped, nothing published"
+                + (f" but the whole rows of {', '.join(kept)}" if kept
+                   else "") + "\n")
             sys.stderr.flush()
             os._exit(1)
 

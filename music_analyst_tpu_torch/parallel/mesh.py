@@ -23,7 +23,10 @@ backend is gloo (``multihost.transport_device``).
 
 For training: :func:`copy_to_axis`, :func:`reduce_from_axis` and
 :func:`gather_from_axis` are the tensor-parallel collectives with a
-stated backward (Megatron's f and g, and the vocabulary gather), and
+stated backward (Megatron's f and g, and the vocabulary gather;
+:func:`copy_to_axes` and :func:`reduce_from_axes` take them over several
+axes, as a MoE layer does over ``ep`` and ``tp``), :func:`counts_before`
+gives a ``dp`` rank its share of a global order (the MoE slots), and
 :func:`reduce_scatter_rows`, :func:`all_gather_rows_` and
 :func:`all_reduce_many` move a whole model's gradients and masters over
 ``dp`` in bounded buckets (ZeRO-1 and the plain gradient sum).
@@ -377,6 +380,35 @@ def gather_from_axis(x: torch.Tensor, mesh: Optional[DeviceMesh],
     if _plain(x, mesh, axis):
         return all_gather(x, mesh, axis, dim=dim)
     return _GatherFromAxis.apply(x, mesh, axis, dim)
+
+
+def copy_to_axes(x: torch.Tensor, mesh: Optional[DeviceMesh],
+                 axes: Sequence[str]) -> torch.Tensor:
+    """f over each of ``axes``: ``x`` itself; its gradient is summed over
+    all of them (a replicated tensor that each rank uses for its own share
+    of the work, as the MoE router's weight under ``ep`` and ``tp``)."""
+    for axis in axes:
+        x = copy_to_axis(x, mesh, axis)
+    return x
+
+
+def reduce_from_axes(x: torch.Tensor, mesh: Optional[DeviceMesh],
+                     axes: Sequence[str]) -> torch.Tensor:
+    """g over each of ``axes``: the sum of ``x`` over all of them."""
+    for axis in axes:
+        x = reduce_from_axis(x, mesh, axis)
+    return x
+
+
+def counts_before(counts: torch.Tensor, mesh: Optional[DeviceMesh],
+                  axis: str = "dp") -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(before, total)`` of per-item ``counts [n]`` over ``axis``: the
+    sum of the counts of the ranks before this one on the axis (an
+    exclusive prefix) and of every rank's.  One all-gather of ``n``
+    counts; ``(zeros, counts)`` on a size-1 axis."""
+    every = all_gather(counts[None], mesh, axis, dim=0)     # [parts, n]
+    me = mesh.coord(axis) if mesh is not None else 0
+    return every[:me].sum(dim=0), every.sum(dim=0)
 
 
 # ------------------------------------------- bucketed collectives (ZeRO-1)

@@ -25,8 +25,11 @@ row-parallel projections, the vocab-parallel embedding and LM head; each
 A stored quantized kernel (``WqLinear``'s ``q`` / ``scale`` buffers, in
 Flax's layout) is placed by :func:`quantized_specs`, JAX's
 ``_quantized_specs``.  Axes absent from the mesh (or of size 1) prune to
-replication, so a dp-only mesh leaves the model as it is.  MoE layers
-under a split are refused (not yet ported).
+replication, so a dp-only mesh leaves the model as it is.  MoE expert
+stacks split their expert axis over ``ep`` and their hidden axis over
+``tp`` (JAX's rules); each ``MoESwiGLU`` takes its mesh form
+(``models/moe.py``), also on a dp-only mesh, where its train-step rows
+take global capacity and slots.
 
 ZeRO-1 (:func:`zero1_slices`, JAX's ``zero1_shard_opt_state``): the
 AdamW moments of a parameter with a free axis that ``dp`` divides, in
@@ -224,14 +227,20 @@ def shard_layout(model: nn.Module, mesh, rules=None) -> Dict[str, ShardSlice]:
     return layout
 
 
-def _check_supported(model: nn.Module) -> None:
+def _moe_to_mesh_(model: nn.Module, mesh, layout) -> None:
+    """Give every ``MoESwiGLU`` its mesh form: the first expert and hidden
+    row of its blocks (``models/moe.py``)."""
     from music_analyst_tpu_torch.models.moe import MoESwiGLU
 
     for name, module in model.named_modules():
         if isinstance(module, MoESwiGLU):
-            raise NotImplementedError(
-                f"{name}: MoE layers (n_experts > 0) under a mesh are not "
-                "yet ported to music_analyst_tpu_torch")
+            prefix = f"{name}." if name else ""
+            gate = layout.get(f"{prefix}gate_experts")
+            down = layout.get(f"{prefix}down_experts")
+            hidden = (down.bounds[1][0] if down is not None
+                      and down.bounds[1] != (0, down.full_shape[1])
+                      else None)
+            module.to_mesh_(mesh, gate.bounds[0][0] if gate else 0, hidden)
 
 
 def shard_params(model: nn.Module, mesh, rules=None) -> nn.Module:
@@ -244,8 +253,6 @@ def shard_params(model: nn.Module, mesh, rules=None) -> nn.Module:
     kept as ``model.tp_layout`` (name → :class:`ShardSlice`).
     """
     layout = shard_layout(model, mesh, rules)
-    if layout:
-        _check_supported(model)
     buffers: Dict[str, Dict[str, ShardSlice]] = {}
     for name, piece in layout.items():
         owner_name, _, leaf = name.rpartition(".")
@@ -262,6 +269,7 @@ def shard_params(model: nn.Module, mesh, rules=None) -> nn.Module:
         from music_analyst_tpu_torch.models.layers import tensor_parallel_
 
         tensor_parallel_(model, mesh, layout)
+    _moe_to_mesh_(model, mesh, layout)
     model.tp_layout = layout
     return model
 

@@ -7,8 +7,9 @@ returned 0 and every other rank has exited 0.  Through the launcher core
 and then exits with a given code) and through the CLI (``analyze`` and
 ``sentiment --model distilbert-tiny`` with ``--devices 2`` whose rank 1
 exits 1 once its command has returned): a failed rank makes the command
-exit non-zero, publishes nothing, leaves no staging directory, and leaves
-a file that was in the output directory beforehand as it was.  Each
+exit non-zero, publishes nothing (``sentiment`` but the whole rows of
+its details), leaves no staging directory, and leaves a file that was in
+the output directory beforehand as it was.  Each
 command runs as a process, since a failed mesh ends its rank 0 with
 ``os._exit``.
 """
@@ -127,7 +128,17 @@ def test_cli_rank_failing_after_its_command_publishes_nothing(
     assert run.returncode != 0
     assert "mesh: 2 ranks over gloo" in run.stderr
     assert "rank 1 exited with 1" in run.stderr, run.stderr[-2000:]
-    assert sorted(os.listdir(out)) == ["before.txt"]
+    if command == "sentiment":
+        # Nothing but the details' whole rows, which --resume reads: the
+        # failed rank came after the command, so that is every row.
+        assert ("nothing published but the whole rows of "
+                "sentiment_details.csv") in run.stderr
+        assert sorted(os.listdir(out)) == ["before.txt",
+                                           "sentiment_details.csv"]
+        rows = _labels(out / "sentiment_details.csv")
+        assert rows and all(label for _, _, label in rows)
+    else:
+        assert sorted(os.listdir(out)) == ["before.txt"]
     assert (out / "before.txt").read_bytes() == BEFORE
     assert _staging_left(out) == []
 
@@ -168,9 +179,10 @@ def _labels(path):
 def test_failed_mesh_sentiment_leaves_the_published_prefix_to_resume(
         fixture_csv, tmp_path):
     """Under ``--devices N`` the details stream into the staging
-    directory: a run whose rank fails leaves the output directory's
-    details file as it was, so ``--resume`` continues from the last
-    published prefix, and what the failed run classified is lost."""
+    directory; a run whose rank fails publishes their whole rows and
+    nothing else, as a killed one-device run leaves its streamed prefix,
+    so ``--resume`` continues from what the failed run classified and
+    ends with one whole run's labels."""
     flags = ["sentiment", fixture_csv, "--model", "distilbert-tiny",
              "--device", "cpu", "--devices", "2"]
     cli = ("import sys\n"
@@ -184,19 +196,44 @@ def test_failed_mesh_sentiment_leaves_the_published_prefix_to_resume(
     out.mkdir()
     prefix = b"".join(lines[:3])              # the header and two rows
     (out / "sentiment_details.csv").write_bytes(prefix)
+    # The failed run classifies two more rows (--limit 4) and its rank 1
+    # then exits 1.
     run = _python(f"LATE_RANK = {LATE_RANK!r}\n{CLI}",
-                  [*flags, "--resume", "--output-dir", out])
+                  [*flags, "--resume", "--limit", "4", "--output-dir", out])
     assert run.returncode != 0
     assert "rank 1 exited with 1" in run.stderr, run.stderr[-2000:]
-    assert (out / "sentiment_details.csv").read_bytes() == prefix
+    kept = (out / "sentiment_details.csv").read_bytes()
+    assert kept.startswith(prefix) and kept.count(b"\n") == 5
+    assert _labels(out / "sentiment_details.csv") == _labels(
+        whole / "sentiment_details.csv")[:4]
     assert sorted(os.listdir(out)) == ["sentiment_details.csv"]
     assert _staging_left(out) == []
     run = _python(cli, [*flags, "--resume", "--output-dir", out])
     assert run.returncode == 0, run.stderr[-2000:]
-    details = (out / "sentiment_details.csv").read_bytes()
-    assert details.startswith(prefix)
+    assert (out / "sentiment_details.csv").read_bytes().startswith(kept)
     assert _labels(out / "sentiment_details.csv") == _labels(
         whole / "sentiment_details.csv")
+
+
+def test_staging_fail_publishes_whole_rows_only(tmp_path):
+    """A failed run publishes a salvaged CSV cut to its whole rows (a row
+    torn mid-write is dropped, a newline inside a quoted field is row
+    content), replaces the earlier file, and publishes nothing else."""
+    out = tmp_path / "out"
+    out.mkdir()
+    (out / "details.csv").write_bytes(b"a,b\n1,2\n")
+    staging = launch.Staging(str(out), carry=[str(out / "details.csv")],
+                             salvage=[str(out / "details.csv"),
+                                      str(out / "never_written.csv")])
+    with open(staging.staged(str(out / "details.csv")), "ab") as fh:
+        fh.write(b'3,"x\ny"\n4,"torn')
+    with open(os.path.join(staging.path, "other.txt"), "w") as fh:
+        fh.write("not published\n")
+    assert staging.discard(salvage=True) == ["details.csv"]
+    assert (out / "details.csv").read_bytes() == b'a,b\n1,2\n3,"x\ny"\n'
+    assert sorted(os.listdir(out)) == ["details.csv"]
+    assert _staging_left(out) == []
+    assert staging.discard(salvage=True) == []   # gone: nothing more
 
 
 def test_staging_maps_paths_and_carries_appended_files(tmp_path):

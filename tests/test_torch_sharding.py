@@ -203,31 +203,47 @@ def test_rules_name_the_same_mesh_axes_as_jax(port_name, jax_path):
     "train_state_zero1",
 ])
 def test_what_stays_unported_under_a_mesh_is_refused(case):
-    """MoE under a mesh (with dynamic int8 experts too: weight_quant
-    does not cover the expert stacks on any mesh), training on a mesh
-    with an ``sp`` or ``ep`` axis, and a MoE model trained on a mesh
-    (ZeRO-1 too) raise "not yet ported"."""
+    """Training on a mesh with an ``sp`` axis raises "not yet ported", a
+    MoE model's too (ZeRO-1 as well).  MoE under a mesh, refused here
+    until ``tests/test_torch_moe_mesh.py``'s slice, now shards: the
+    ``llama_moe*`` cases hold that a MoE classifier and a dynamic-int8
+    MoE model take their expert blocks on a tp2 mesh, and that
+    ``weight_quant`` stays refused for MoE on any mesh, as JAX's config
+    refuses it."""
     from music_analyst_tpu_torch.engines import train as ttrain
 
     mesh = _port_mesh(MESHES["tp2"], 0)
+    if case == "llama_moe":
+        clf = tl.LlamaZeroShotClassifier(
+            config=tl.LlamaConfig.tiny(n_experts=4), mesh=mesh,
+            device="cpu")
+        moe = clf.model.layers[0].feed_forward_moe
+        full = tl.LlamaConfig.tiny().hidden_dim
+        assert moe.mesh is mesh and moe.gate_experts.shape[0] == 4
+        assert moe.gate_experts.shape[2] == full // 2
+        assert moe.down_rows.start == 0
+        return
+    if case == "llama_moe_quant":
+        model = tsh.shard_params(tl.LlamaModel(tl.LlamaConfig.tiny(
+            n_experts=4, quant="int8")), mesh)
+        moe = model.layers[0].feed_forward_moe
+        assert moe.quant == "int8" and moe._partial_axes() == ("ep",)
+        with pytest.raises(ValueError, match="weight_quant"):
+            tl.LlamaConfig.tiny(n_experts=4, weight_quant="int8")
+        return
     with pytest.raises(NotImplementedError) as exc:
-        if case == "llama_moe":
-            tl.LlamaZeroShotClassifier(
-                config=tl.LlamaConfig.tiny(n_experts=4), mesh=mesh)
-        elif case == "llama_moe_quant":
-            tsh.shard_params(tl.LlamaModel(tl.LlamaConfig.tiny(
-                n_experts=4, quant="int8")), mesh)
-        elif case == "train_step_mesh":
+        if case == "train_step_mesh":
             ttrain.make_train_step(tl.LlamaModel(tl.LlamaConfig.tiny()),
                                    ttrain.make_optimizer(),
                                    mesh=_port_mesh((("dp", 2), ("sp", 2)), 0))
         elif case == "train_state_mesh":
-            ttrain.init_train_state(tl.LlamaModel(tl.LlamaConfig.tiny()),
-                                    ttrain.make_optimizer(),
-                                    mesh=_port_mesh((("ep", 2), ("tp", 2)), 0))
+            ttrain.init_train_state(
+                tl.LlamaModel(tl.LlamaConfig.tiny(n_experts=4)),
+                ttrain.make_optimizer(),
+                mesh=_port_mesh((("ep", 2), ("sp", 2)), 0))
         else:
             ttrain.init_train_state(
                 tl.LlamaModel(tl.LlamaConfig.tiny(n_experts=4)),
-                ttrain.make_optimizer(), mesh=_port_mesh((("dp", 2),), 0),
-                zero1=True)
+                ttrain.make_optimizer(),
+                mesh=_port_mesh((("dp", 2), ("sp", 2)), 0), zero1=True)
     assert "not yet ported" in str(exc.value)

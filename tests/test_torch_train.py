@@ -307,9 +307,10 @@ def test_prefetch_batches_narrow_and_count_bytes():
 
 
 def test_refusals():
-    """What stays refused: a differentiated flash kernel, a mesh with an
-    ``sp`` or ``ep`` axis (step, state, batches) and a MoE model on a
-    mesh (ZeRO-1 too)."""
+    """What stays refused: a differentiated flash kernel and a mesh with
+    an ``sp`` axis (step, state, batches), a MoE model's too (ZeRO-1 as
+    well); ``ep`` and MoE on a mesh train since ``tests/
+    test_torch_moe_mesh.py``'s slice."""
     from music_analyst_tpu_torch.parallel.mesh import DeviceMesh
 
     def mesh(*axes):
@@ -322,11 +323,12 @@ def test_refusals():
     dense = tl.LlamaModel(tl.LlamaConfig(**CFG))
     with pytest.raises(NotImplementedError, match="'sp' axis is not yet ported"):
         ttrain.make_train_step(dense, opt, mesh=mesh(("dp", 2), ("sp", 2)))
-    with pytest.raises(NotImplementedError, match="'ep' axis is not yet ported"):
-        ttrain.init_train_state(dense, opt, mesh=mesh(("dp", 2), ("ep", 2)))
+    with pytest.raises(NotImplementedError, match="'sp' axis is not yet ported"):
+        ttrain.init_train_state(dense, opt, mesh=mesh(("ep", 2), ("sp", 2)))
     moe = tl.LlamaModel(tl.LlamaConfig(**dict(CFG, n_experts=4)))
-    with pytest.raises(NotImplementedError, match="MoE .* not yet ported"):
-        ttrain.init_train_state(moe, opt, mesh=mesh(("dp", 4),), zero1=True)
+    with pytest.raises(NotImplementedError, match="'sp' axis is not yet ported"):
+        ttrain.init_train_state(moe, opt, mesh=mesh(("ep", 2), ("sp", 2)),
+                                zero1=True)
     with pytest.raises(NotImplementedError, match="not yet ported"):
         next(iter(ttrain.prefetch_batches(
             [], mesh=mesh(("sp", 2), ("tp", 2)), device="cpu")))
